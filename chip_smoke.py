@@ -1,0 +1,495 @@
+"""Smoke run of the PyTorch port (difacto_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each a hard failure:
+
+1. build the hand-written CUDA kernels from ``difacto_tpu_torch/csrc``;
+2. hold each kernel against its plain PyTorch version on the card at the
+   flagship shapes (batch 16384 x 40 nnz with Zipf(1.2) ids, 2^22 rows,
+   K = 16), and time the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call;
+3. hold the device train and eval steps against the CPU plain path on a
+   small batch, from one state;
+4. drive the main path through ``SGDLearner`` at the flagship shapes (an
+   epoch that streams from a libsvm file and caches the batches on the
+   card, then a timed epoch that replays them, then a validation pass),
+   with every launch counter reset just before and read just after;
+5. the CLI on a small synthetic set: train 2 epochs with validation and
+   ``model_out``, then ``task=predict`` on that checkpoint, whose AUC must
+   pass 0.6 and whose scores must match the CPU's.
+
+It prints the card's name and power limit, one JSON line listing the
+kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
+needs a card: without one (or without the rest of the repository) it
+exits non-zero and prints no result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+BATCH, NNZ, NUM_BITS, K = 16384, 40, 22, 16
+MAIN_BATCHES = 8          # batches in the main-path file (one epoch)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+F32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+REPS = 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def zipf_ids(rng, rows: int) -> np.ndarray:
+    """Zipf(1.2) raw feature ids, as bench.py's make_batches draws them
+    (Criteo's power-law key distribution)."""
+    z = rng.zipf(1.2, size=(rows, NNZ)).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        return ((z * np.uint64(0x9E3779B97F4A7C15))
+                % np.uint64(1 << NUM_BITS)).astype(np.int64)
+
+
+def flagship_batch(seed: int):
+    from difacto_tpu_torch.data.batch_iter import Batch
+
+    rng = np.random.default_rng(seed)
+    ids = zipf_ids(rng, BATCH).astype(np.int32)
+    return Batch(ids, np.ones((BATCH, NNZ), np.float32),
+                 (rng.random(BATCH) > 0.5).astype(np.float32),
+                 np.ones(BATCH, np.float32))
+
+
+def cuda_ms(fn, reps: int = REPS) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
+    a warm-up call, by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_state(updater, num_rows, dev, seed):
+    """A trained-looking state made on the card from a seed: counts on
+    both sides of the V threshold, nonzero optimizer accumulators."""
+    import torch
+
+    st = updater.init_state(num_rows, seed, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    st.w.normal_(0.0, 0.1, generator=g)
+    st.z.normal_(0.0, 1.0, generator=g)
+    st.n.uniform_(0.0, 1.0, generator=g)
+    st.cnt.copy_(torch.randint(0, 4, (num_rows,), generator=g, device=dev))
+    st.nV.uniform_(0.0, 1.0, generator=g)
+    return st
+
+
+def clone_state(st):
+    from difacto_tpu_torch.updaters.updater import FMState
+
+    return FMState(**{k: getattr(st, k).clone() for k in
+                      ("w", "z", "n", "V", "nV", "cnt")})
+
+
+def check_kernels(dev):
+    """Phase 2: every kernel against its plain version at the flagship
+    shapes. Returns the kernels' records (without launches)."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.ops import pair_sweep, segsum
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.place import place_batch
+
+    num_rows = 1 << NUM_BITS
+    pb = prep_batch(flagship_batch(0), num_rows)
+    pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
+    pb = place_batch(pb, dev)
+    U = pb.uids.shape[0]
+    n_valid = int(pb.valid.sum())
+    blp = pb.sorted_slots.inv_sorted.shape[0]
+    log(f"flagship batch: {BATCH} x {NNZ} slots, {n_valid} unique ids in a "
+        f"{U}-lane bucket, BLp {blp}, table 2^{NUM_BITS} rows, K {K}")
+    p = FMParam()
+    p.V_dim = K
+    upd = FMUpdater(p)
+    st = random_state(upd, num_rows, dev, seed=1)
+    out = {}
+
+    # -- pull: exact (a pure gather with a mask) --------------------------
+    got = pair_sweep.pull_pairs(st, pb.uids, p)
+    ref = pair_sweep.pull_pairs_plain(st, pb.uids, p)
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"pull_pairs differs from its plain version "
+                             f"(max abs err {err:g}; tolerance: exact)")
+    n_act = int((pb.valid & (st.cnt[pb.uids.clamp(max=num_rows - 1).long()]
+                             >= p.V_threshold)).sum())
+    nbytes = 4 * (U + 2 * n_valid + K * n_act + (1 + K) * U)
+    b_ms, b_by = bound(nbytes, 0)
+    out["pull_pairs"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/pull_pairs.cu",
+        replaces="difacto_tpu/ops/pair_sweep.py:346", max_abs_err=err,
+        ms=cuda_ms(lambda: pair_sweep.pull_pairs(st, pb.uids, p)),
+        plain_ms=cuda_ms(lambda: pair_sweep.pull_pairs_plain(st, pb.uids, p)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+    # -- segsum: against the float64 sums, and exact on integers ----------
+    pp = 2 + K
+    lanes = pb.sorted_slots.inv_sorted
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    payT = torch.randn((pp, blp), generator=g, device=dev)
+    payT[:, BATCH * NNZ:] = 0.0
+    got = segsum.segsum_sorted(payT, lanes, U)
+    ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
+    # any float32 order is within (n-1) u sum|x| of the exact sum over a
+    # segment of n slots (u = 2^-24)
+    seg_n = torch.bincount(lanes.long(), minlength=U).double()
+    abs_sum = segsum.segsum_sorted_plain(payT.abs().double(), lanes, U)
+    tol = (seg_n - 1).clamp(min=0) * 2.0 ** -24 * abs_sum
+    diff = (got.double() - ref).abs()
+    err = float(diff.max())
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"segsum_sorted differs from its plain version "
+                             f"beyond the float32 summation bound "
+                             f"(max abs err {err:g})")
+    untouched = seg_n == 0
+    if not bool((got[:, untouched] == 0).all()):
+        raise AssertionError("segsum_sorted: untouched lanes are not 0")
+    # that bound is loose on the hot key (over 10^5 slots), so also sum
+    # integers in [1, 8]: every partial sum stays below 2^24 and is exact
+    # in float32, so a slot or chunk piece lost or added twice shows
+    ipay = torch.randint(1, 9, (pp, blp), generator=g, device=dev).float()
+    ipay[:, BATCH * NNZ:] = 0.0
+    got = segsum.segsum_sorted(ipay, lanes, U)
+    if not torch.equal(got, segsum.segsum_sorted_plain(ipay, lanes, U)):
+        raise AssertionError("segsum_sorted differs from its plain version on "
+                             "an integer payload (tolerance: exact)")
+    log(f"segsum: hottest segment {int(seg_n.max())} slots; max abs err "
+        f"{err:g} against the float64 sums; integer payload exact")
+    lanes_l = lanes.long()
+    acc = torch.zeros((pp, U), device=dev)
+    nbytes = 4 * (pp * blp + blp + pp * U)
+    b_ms, b_by = bound(nbytes, pp * blp)
+    out["segsum_sorted"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/segsum.cu",
+        replaces="difacto_tpu/ops/segsum.py:156", max_abs_err=err,
+        ms=cuda_ms(lambda: segsum.segsum_sorted(payT, lanes, U)),
+        plain_ms=cuda_ms(lambda: segsum.segsum_sorted_plain(payT, lanes, U)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: acc.index_add_(1, lanes_l, payT)),
+    )
+
+    # -- apply: every w/V updater pair, and K = 0 --------------------------
+    vf = pb.valid.to(torch.float32)
+    worst = 0.0
+    for k, wupd, vupd in ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
+                          (K, "sgd", "adagrad"), (0, "ftrl", "adagrad")):
+        q = FMParam()
+        q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
+        qu = FMUpdater(q)
+        base = st if k == K else random_state(qu, num_rows, dev, seed=3)
+        grads = torch.randn((1 + k, U), generator=g, device=dev) * vf
+        payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
+        a = pair_sweep.apply_pairs(clone_state(base), pb.uids, payload, q)
+        b = pair_sweep.apply_pairs_plain(clone_state(base), pb.uids,
+                                         payload, q)
+        for name in ("w", "z", "n", "cnt", "V", "nV"):
+            x, y = getattr(a, name), getattr(b, name)
+            if x.numel():
+                e = float((x - y).abs().max())
+                worst = max(worst, e)
+                # the plain version's division by a scalar runs as a
+                # multiply by its float reciprocal on the card: 1 ulp
+                torch.testing.assert_close(
+                    x, y, rtol=1e-5, atol=1e-6,
+                    msg=f"apply_pairs {wupd}/{vupd} K={k}: {name}")
+        # bytes the update needs: every uid; the gw, add_cnt and touch
+        # payload of real lanes; and per touched row the leaves its
+        # updaters read and write. The gV payload and V/nV only on rows
+        # past the V gate (all real lanes are touched here)
+        wl = {"ftrl": 3, "adagrad": 2, "sgd": 1}[wupd] + 1  # + cnt
+        vl = {"adagrad": 2, "sgd": 1}[vupd] * k
+        act = int((pb.valid & (base.cnt[pb.uids.clamp(max=num_rows - 1)
+                                        .long()] >= q.V_threshold)).sum())
+        nbytes = 4 * (U + 3 * n_valid + k * act
+                      + 2 * (wl * n_valid + vl * act))
+        work = clone_state(base)
+        rec = dict(
+            ms=cuda_ms(lambda: pair_sweep.apply_pairs(work, pb.uids,
+                                                      payload, q)),
+            plain_ms=cuda_ms(lambda: pair_sweep.apply_pairs_plain(
+                work, pb.uids, payload, q)),
+        )
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 20 * n_valid
+                                                 + 8 * k * act)
+        log(f"apply_pairs {wupd}/{vupd} K={k} ({n_valid} touched rows, "
+            f"{act} past the V gate): {json.dumps(rec)}")
+        if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
+            out["apply_pairs"] = dict(
+                route="cuda", source="difacto_tpu_torch/csrc/apply_pairs.cu",
+                replaces="difacto_tpu/ops/pair_sweep.py:449", **rec,
+                library_ms=None,
+            )
+        del work, a, b
+    out["apply_pairs"]["max_abs_err"] = worst
+    for name, rec in out.items():
+        log(f"kernel {name}: max_abs_err {rec['max_abs_err']:g}  "
+            f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
+            f"library {rec['library_ms']}")
+    return out
+
+
+def check_step_against_cpu(dev):
+    """Phase 3: the device train and eval steps against the CPU plain
+    path on a small batch, from one state (atol 2e-5, rtol 1e-5: sums
+    differ in order between the kernels and index_add_)."""
+    import torch
+
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data.batch_iter import Batch
+    from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+
+    cfg = Config.from_kwargs([("batch_size", "512"), ("num_bits", "14"),
+                              ("max_nnz_per_row", "16"), ("V_dim", "8"),
+                              ("lr_eta", "0.1"), ("l1", "0.1"),
+                              ("V_lr_eta", "0.05"), ("V_threshold", "1")])
+    upd = FMUpdater(cfg.model)
+    gpu = LocalStore(upd, cfg, device=dev)
+    cpu = LocalStore(upd, cfg, device="cpu")
+    sg = gpu.init_state(5)
+    sc = cpu.place_state(clone_state(sg))
+    rng = np.random.default_rng(5)
+    for s in range(4):
+        ids = rng.integers(0, 1 << 14, (512, 16)).astype(np.int32)
+        ids[rng.random((512, 16)) < 0.1] = -1
+        vals = np.where(ids < 0, 0, rng.normal(size=(512, 16))).astype(
+            np.float32)
+        b = Batch(ids, vals, (rng.random(512) > 0.5).astype(np.float32),
+                  np.ones(512, np.float32))
+        sg, mg = gpu.train_step_prepped(sg, prep_batch(b, 1 << 14))
+        sc, mc = cpu.train_step_prepped(sc, prep_batch(b, 1 << 14))
+    for name in ("w", "z", "n", "V", "nV", "cnt"):
+        torch.testing.assert_close(getattr(sg, name).cpu(),
+                                   getattr(sc, name), atol=2e-5, rtol=1e-5,
+                                   msg=f"device step vs CPU: {name}")
+    _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, 1 << 14))
+    _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, 1 << 14))
+    torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
+    log(f"device train/eval steps match the CPU plain path (4 steps, "
+        f"max |dw| {float((sg.w.cpu() - sc.w).abs().max()):g})")
+
+
+def device_profile(prof, wall_s: float, steps: int) -> dict:
+    """Device time per step by kernel name from a torch.profiler trace of
+    a replay epoch, and the device's idle share of the traced wall time
+    (tracing itself slows the host, so the idle share is an upper bound)."""
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            by_name[e.key] = by_name.get(e.key, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    if busy_ms == 0:
+        return {"device_time": "not measured (no device events traced)"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {
+        "traced_wall_ms_per_step": wall_s / steps * 1e3,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+        "top_ms_per_step": [[k[:70], v / 1e3 / steps] for k, v in top],
+    }
+
+
+def write_zipf_libsvm(path: str, rows: int, seed: int) -> None:
+    rng = np.random.default_rng(seed)
+    ids = zipf_ids(rng, rows)
+    labels = (rng.random(rows) > 0.5).astype(np.int64)
+    tok = [f"{i}:1" for i in ids.ravel().tolist()]
+    with open(path, "w") as f:
+        for r in range(rows):
+            f.write(f"{labels[r]} {' '.join(tok[r * NNZ:(r + 1) * NNZ])}\n")
+
+
+def drive_main_path(dev, tmp: str):
+    """Phase 4: SGDLearner at the flagship shapes. Returns (launch counts
+    of the run, timing record)."""
+    import torch
+
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    train = os.path.join(tmp, "flagship.svm")
+    write_zipf_libsvm(train, MAIN_BATCHES * BATCH, seed=10)
+    write_zipf_libsvm(os.path.join(tmp, "flagship_val.svm"), BATCH, seed=11)
+    log(f"main path data written in {time.perf_counter() - t0:.1f} s")
+    cfg = Config.from_kwargs([
+        ("data_in", train), ("data_val", os.path.join(tmp, "flagship_val.svm")),
+        ("batch_size", str(BATCH)), ("max_nnz_per_row", str(NNZ)),
+        ("num_bits", str(NUM_BITS)), ("V_dim", str(K)),
+        ("cache_batches", "1"), ("cache_on_device", "1"),
+        ("report_interval", "0"),
+    ])
+    learner = SGDLearner(cfg)  # the card is the default device
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    first = learner.train_epoch(0)  # streams the file, caches on the card
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed = learner.train_epoch(1)  # replays the cached batches
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner.train_epoch(2)  # the same replay, traced
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    va = learner.eval_pass(cfg.data.data_val)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    steps = MAIN_BATCHES
+    rec = {
+        "epoch0_stream_s": t_stream,
+        "replay_ms_per_step": t_replay / steps * 1e3,
+        "replay_examples_per_s": BATCH * steps / t_replay,
+        "train_logloss": [first.logloss, timed.logloss],
+        "val_logloss": va.logloss, "val_exact_auc": va.exact_auc,
+        "launches": launches,
+        "profile": device_profile(prof, t_prof, steps),
+    }
+    log("main path: " + json.dumps(rec))
+    for v in (first.logloss, timed.logloss, va.logloss):
+        if not np.isfinite(v):
+            raise AssertionError(f"non-finite logloss on the main path: {rec}")
+    if first.num_examples != steps * BATCH or va.num_examples != BATCH:
+        raise AssertionError(f"main path saw the wrong example count: {rec}")
+    for name in ("w", "z", "n", "V", "nV", "cnt"):
+        if not bool(torch.isfinite(getattr(learner.state, name)).all()):
+            raise AssertionError(f"non-finite state leaf {name}")
+    # three train epochs of `steps` steps, then one validation batch
+    want = {"pull_pairs": 3 * steps + 1, "segsum_sorted": 3 * steps,
+            "apply_pairs": 3 * steps}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want} "
+                             "(one per step and kernel)")
+    return launches, rec
+
+
+def drive_cli(tmp: str) -> None:
+    """Phase 5: CLI train with validation and model_out, then
+    task=predict on the checkpoint; the scores must match the CPU's."""
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.data.synthetic import make_ctr_data, write_libsvm
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.ops.metrics import exact_auc
+
+    tr, va = os.path.join(tmp, "train.svm"), os.path.join(tmp, "val.svm")
+    write_libsvm(make_ctr_data(8000, num_fields=10, vocab_per_field=300,
+                               seed=1), tr)
+    write_libsvm(make_ctr_data(2000, num_fields=10, vocab_per_field=300,
+                               seed=2), va)
+    model = os.path.join(tmp, "model")
+    shape = ["batch_size=512", "num_bits=16", "max_nnz_per_row=12",
+             "V_dim=8"]
+    cuda.reset_launches()
+    rc = cli.main([f"data_in={tr}", f"data_val={va}", *shape, "lr_eta=0.1",
+                   "l1=0.1", "V_lr_eta=0.05", "max_num_epochs=2",
+                   f"model_out={model}"])
+    if rc != 0 or not os.path.exists(model + ".npz"):
+        raise AssertionError(f"CLI train failed (rc {rc})")
+    preds = {}
+    for dev in (None, "cpu"):
+        out = os.path.join(tmp, f"pred_{dev}.txt")
+        rc = cli.main([f"data_in={va}", *shape, "task=predict",
+                       f"model_in={model}", f"pred_out={out}"], device=dev)
+        if rc != 0:
+            raise AssertionError(f"CLI predict failed (rc {rc})")
+        preds[dev] = np.loadtxt(out)
+    if min(cuda.LAUNCHES.values()) == 0:
+        raise AssertionError(f"the CLI run skipped a kernel: {cuda.LAUNCHES}")
+    labels = np.array([float(ln.split()[0]) for ln in open(va)])
+    auc = exact_auc(labels, preds[None])
+    log(f"CLI: predict AUC {auc:.6f} over {len(labels)} rows, launches "
+        f"{dict(cuda.LAUNCHES)}")
+    if not auc > 0.6:
+        raise AssertionError(f"CLI validation AUC {auc} <= 0.6")
+    np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
+                               atol=1e-5)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from difacto_tpu_torch.ops import cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {smi}")
+    _, secs, ptxas = cuda.build(verbose=True)
+    log(f"kernels built in {secs:.1f} s (nvcc, sm_90a)\n{ptxas}")
+    cuda.library()
+
+    kernels = check_kernels(dev)
+    check_step_against_cpu(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, main_rec = drive_main_path(dev, tmp)
+        drive_cli(tmp)
+    rows = [{"name": name, **{k: kernels[name][k] for k in (
+        "route", "source", "replaces")}, "launches": launches[name],
+        **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}}
+        for name in ("pull_pairs", "segsum_sorted", "apply_pairs")]
+    log(json.dumps({"kernels": rows}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,258 @@
+"""Typed configuration.
+
+Copy of ``difacto_tpu/config.py`` (the port imports nothing of the JAX
+package): the same dataclasses and the same keys, so a config written for
+the JAX package parses here unchanged and an unknown key stays fatal.
+
+The port carries one slice of the JAX package so far (ROADMAP.md, queue
+A). :meth:`Config.check` makes every setting outside that slice
+raise ``NotImplementedError`` naming the ROADMAP item that will bring it,
+so a config never silently trains something other than what it asks for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+from .base import KWArgs
+
+
+def _coerce(val: str, typ: Any) -> Any:
+    if typ is bool:
+        return val.lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(val)
+    if typ is float:
+        return float(val)
+    return val
+
+
+@dataclass
+class ParamBase:
+    """dmlc::Parameter-style: init from kwargs, return unconsumed pairs."""
+
+    def init(self, kwargs: KWArgs) -> KWArgs:
+        names = {f.name: f for f in dataclasses.fields(self)}
+        rest: KWArgs = []
+        for k, v in kwargs:
+            f = names.get(k)
+            if f is None:
+                rest.append((k, v))
+                continue
+            setattr(self, k, _coerce(v, _resolve_type(f)))
+        self.validate()
+        return rest
+
+    def validate(self) -> None:  # range checks, like DMLC_DECLARE_FIELD().set_range
+        pass
+
+
+def _resolve_type(f: dataclasses.Field) -> type:
+    t = f.type
+    if isinstance(t, type):
+        return t
+    # dataclass stores annotations as strings under `from __future__ import annotations`
+    return {"int": int, "float": float, "str": str, "bool": bool}.get(str(t), str)
+
+
+@dataclass
+class DataParam(ParamBase):
+    """Data pipeline knobs (the data_* fields of the reference's
+    SGDLearnerParam plus the static-shape padding policy)."""
+
+    data_in: str = ""              # training data URI (file, dir, or glob)
+    data_val: str = ""             # validation data URI
+    data_format: str = "libsvm"    # libsvm | libffm | csr (port: libsvm)
+    batch_size: int = 8192         # examples per step
+    shuffle: bool = True           # shuffle batches within a file part
+    num_parts_per_file: int = 1    # split each file into N parts (InputSplit)
+    max_nnz_per_row: int = 64      # pad/truncate each example to this nnz
+    num_bits: int = 22             # hashed feature space = 2**num_bits rows
+    host_localize: bool = True     # dedup ids in the prep threads (port: 1)
+    prep_workers: int = 0          # threads for batch dedup/sort prep;
+                                   # 0 = auto (cpu_count - 2, capped at 4)
+    batch_workers: int = 2         # threads for hashing + [B,L] padding
+                                   # (1 = serial; replays depend on it)
+    cache_batches: bool = False    # keep epoch-0 prepped batches in RAM and
+                                   # reuse them (reference DataStore)
+    cache_on_device: bool = False  # with cache_batches: cache the PLACED
+                                   # batches so later epochs read from
+                                   # device memory
+    cache_compact: bool = False    # JAX memory-saving variant of the
+                                   # cached sorted arrays; same results,
+                                   # the port always caches the full form
+    seed: int = 0
+
+    def validate(self) -> None:
+        assert self.batch_size > 0
+        # <= 30: the padding sentinel is num_rows = 2**num_bits, which must
+        # fit int32 with headroom (2**31 would wrap negative)
+        assert 1 <= self.num_bits <= 30
+        assert self.max_nnz_per_row > 0
+
+
+@dataclass
+class FMParam(ParamBase):
+    """Model + optimizer knobs (reference: SGDUpdaterParam)."""
+
+    # linear term w: FTRL-proximal (reference defaults)
+    lr_eta: float = 0.01           # FTRL eta
+    lr_beta: float = 1.0           # FTRL beta
+    l1: float = 1.0                # L1 on w (drives exact sparsity)
+    l2: float = 0.1                # L2 on w
+    w_updater: str = "ftrl"        # ftrl | adagrad | sgd
+
+    # latent factors V: AdaGrad, frequency-adaptive activation
+    V_dim: int = 0                 # k; 0 = sparse logistic regression
+    V_lr_eta: float = 0.01
+    V_lr_beta: float = 1.0         # AdaGrad epsilon-ish damping
+    V_l2: float = 0.0001
+    V_init_scale: float = 0.01     # V ~ uniform(-scale, +scale)
+    V_threshold: int = 2           # min feature count before V activates
+    V_updater: str = "adagrad"     # adagrad | sgd
+
+    tail_feature_filter: int = 0   # drop features with count < this (count pass)
+
+    num_fields: int = 0            # loss=ffm only (not in the port yet)
+    ffm_block_size: int = 0        # loss=ffm only (not in the port yet)
+
+    def validate(self) -> None:
+        assert self.V_dim >= 0
+        assert self.num_fields >= 0
+        assert self.ffm_block_size >= 0
+        assert self.w_updater in ("ftrl", "adagrad", "sgd")
+        assert self.V_updater in ("adagrad", "sgd")
+
+
+@dataclass
+class LearnerParam(ParamBase):
+    """Trainer driver knobs (reference: SGDLearnerParam)."""
+
+    learner: str = "sgd"           # sgd | bcd (port: sgd)
+    loss: str = "fm"               # fm | logit | ffm (port: fm, logit)
+    task: str = "train"            # train | predict (predict needs model_in)
+    pred_out: str = ""             # write raw margins here when task=predict
+    max_num_epochs: int = 1
+    model_out: str = ""            # checkpoint path prefix
+    model_in: str = ""             # warm-start checkpoint
+    report_interval: int = 100     # steps between progress reports
+    save_interval_epochs: int = 1
+    save_interval_steps: int = 0   # also checkpoint every N steps (0 = off);
+                                   # resume skips the consumed batches
+    exact_auc_cap: int = 4 << 20   # max host-collected (label, score) pairs
+                                   # for the exact validation AUC; past it a
+                                   # uniform reservoir sample of this many
+                                   # pairs replaces the collection. 0
+                                   # disables exact AUC.
+    bcd_num_blocks: int = 256      # learner=bcd only
+    bcd_tile_dir: str = ""         # learner=bcd only
+
+    def validate(self) -> None:
+        assert self.learner in ("sgd", "bcd")
+        assert self.exact_auc_cap >= 0
+
+
+@dataclass
+class ShardParam(ParamBase):
+    """Parallelism and kernel-path knobs."""
+
+    store: str = "auto"            # local | sharded | auto (port: one card,
+                                   # auto = local)
+    num_shards: int = 0            # store=sharded only
+    capacity_factor: float = 2.0   # store=sharded only
+    unique_size: int = 0           # floor of the unique-lane bucket
+    kernel: str = "auto"           # auto | pairs = the hand-written table
+                                   # kernels (ops/pair_sweep.py)
+    layout: str = "auto"           # auto | planar (w/z/n/cnt [N], V/nV [K, N])
+    block_rows: int = 1024         # Pallas block size; the port's kernels
+                                   # take no schedule and ignore it
+    segsum: str = "auto"           # auto | sorted = the segment-sum kernel
+                                   # over the host-sorted slot stream
+    interpret: bool = False        # Pallas interpret mode; no meaning here
+    hot_rows: int = 0              # hot/cold table split (not in the port)
+    hot_count_batches: int = 16    # hot_rows only
+
+
+# Settings outside the port's slice, each named with the ROADMAP item that
+# brings it; Config.check raises NotImplementedError listing them.
+def _slice_violations(cfg: "Config") -> list[str]:
+    d, m, lr, s = cfg.data, cfg.model, cfg.learner, cfg.shard
+    out = []
+    if s.store == "sharded":
+        out.append("store=sharded (ROADMAP A9, ShardedStore)")
+    if lr.learner == "bcd":
+        out.append("learner=bcd (ROADMAP A15, BCD learner)")
+    if lr.loss == "ffm":
+        out.append("loss=ffm (ROADMAP A8, FFM)")
+    if s.hot_rows != 0:
+        out.append("hot_rows != 0 (ROADMAP A13, hot/cold split)")
+    if s.kernel == "pallas":
+        out.append("kernel=pallas (ROADMAP A10, kernels B4/B5)")
+    if s.kernel == "xla" or s.segsum == "scatter":
+        out.append("kernel=xla / segsum=scatter (ROADMAP A14, the XLA "
+                   "gather/scatter path and its layouts)")
+    if s.layout in ("packed", "stacked"):
+        out.append(f"layout={s.layout} (ROADMAP A14, other layouts)")
+    if not d.host_localize:
+        out.append("host_localize=0 (ROADMAP A16, device localize)")
+    if d.data_format in ("libffm", "csr"):
+        out.append(f"data_format={d.data_format} (ROADMAP A18, csr/libffm)")
+    for key in ("data_in", "data_val", "model_in", "model_out", "pred_out"):
+        uri = getattr(d if key.startswith("data") else lr, key)
+        if "://" in uri and not uri.startswith("file://"):
+            out.append(f"{key}={uri} (ROADMAP A19, remote IO)")
+    return out
+
+
+@dataclass
+class Config:
+    data: DataParam = field(default_factory=DataParam)
+    model: FMParam = field(default_factory=FMParam)
+    learner: LearnerParam = field(default_factory=LearnerParam)
+    shard: ShardParam = field(default_factory=ShardParam)
+
+    @classmethod
+    def from_kwargs(cls, kwargs: KWArgs) -> "Config":
+        cfg = cls()
+        rest = kwargs
+        for sub in (cfg.data, cfg.model, cfg.learner, cfg.shard):
+            rest = sub.init(rest)
+        if rest:
+            raise ValueError(f"unknown config keys: {[k for k, _ in rest]}")
+        cfg.check()
+        return cfg
+
+    def check(self) -> None:
+        """Cross-param consistency, as the JAX package checks it, then the
+        port's slice guard."""
+        if self.shard.segsum not in ("auto", "sorted", "scatter"):
+            raise ValueError(
+                f"segsum must be auto|sorted|scatter, got {self.shard.segsum!r}"
+            )
+        if self.shard.kernel not in ("auto", "xla", "pallas", "pairs"):
+            raise ValueError(f"unknown kernel {self.shard.kernel!r}")
+        if self.shard.layout not in ("auto", "packed", "planar", "stacked"):
+            raise ValueError(f"layout must be auto|packed|planar|stacked, "
+                             f"got {self.shard.layout!r}")
+        if self.shard.store not in ("auto", "local", "sharded"):
+            raise ValueError(f"unknown store {self.shard.store!r}")
+        if self.learner.loss not in ("fm", "logit", "ffm"):
+            raise ValueError(f"unknown loss {self.learner.loss!r}")
+        if self.model.num_fields > 0 and self.learner.loss != "ffm":
+            raise ValueError("num_fields is only meaningful with loss=ffm")
+        if self.shard.interpret:
+            raise ValueError(
+                "interpret=1 is a Pallas option; the port runs its kernels' "
+                "plain versions whenever the tensors lie on the CPU"
+            )
+        bad = _slice_violations(self)
+        if bad:
+            raise NotImplementedError(
+                "not in the PyTorch port yet: " + "; ".join(bad)
+            )
+
+    def effective_model_param(self) -> FMParam:
+        """The FMParam the updater/table uses (fm/logit: the model param)."""
+        return dataclasses.replace(self.model)

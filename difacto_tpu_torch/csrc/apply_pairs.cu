@@ -1,0 +1,143 @@
+// Apply: sum the per-lane payload per table row, then update each touched
+// row once, in place.
+//
+// Replaces difacto_tpu/ops/pair_sweep.py::apply_pairs (Pallas kernel
+// _apply_pairs_kernel) with the per-row math of
+// difacto_tpu/ops/sweep_ms.py::fused_table_update. Payload rows are
+// gw | gV[K] | add_cnt | touch, planar [3+K, U]. For every table row whose
+// summed touch is > 0:
+//   * FTRL, AdaGrad or SGD on (w, z, n), masked by the tail filter;
+//   * cnt += add_cnt;
+//   * AdaGrad or SGD on (V, nV), gated by the PRE-update cnt.
+// Rows not touched keep their exact bits; sentinel ids are ignored.
+//
+// Bound: bytes. Each touched row reads and writes its 4 + 2K floats at a
+// random position and reads its 3+K payload floats. The TPU kernel swept
+// host-scheduled (block, window) pairs with one-hot matmuls and carried a
+// block accumulator across sequential grid steps; Hopper blocks run in no
+// order, so instead the uid stream must be non-decreasing (the wrapper
+// asserts it) and the lane that starts a run of equal ids sums the
+// payload over its run in lane order — deterministic, no atomics — then
+// does the update with the formulas in fused_table_update's order, so
+// results match the plain version to float rounding (built with
+// --fmad=false). On the train path ids are unique, so every valid lane
+// starts a run.
+//
+// One thread per run does the whole row: w/z/n, cnt, then the K factor
+// entries. Every factor access hits a 32-byte sector for 4 useful bytes
+// (planar [K, N] V at a random row), which holds the kernel far above its
+// byte bound. A variant that spread the K factor rows over K threads per
+// lane, in a second launch, measured no faster on an H100 (PERF.md), so
+// the one launch stays; a row-major V is the ROADMAP's open question.
+#include <cuda_runtime.h>
+#include <math.h>
+
+struct ApplyParams {
+  float lr_eta, lr_beta, l1, l2;
+  float V_lr_eta, V_lr_beta, V_l2, V_threshold;
+  int tail;        // tail_feature_filter (0 = off)
+  int w_updater;   // 0 ftrl, 1 adagrad, 2 sgd
+  int V_updater;   // 0 adagrad, 1 sgd
+};
+
+__device__ __forceinline__ float run_sum(const float* __restrict__ pay,
+                                         int row, int u, int lo, int hi) {
+  const float* p = pay + (long long)row * u;
+  float s = 0.0f;
+  for (int j = lo; j < hi; ++j) s += p[j];
+  return s;
+}
+
+// The table row of `lane` when the lane starts a run of equal real ids,
+// with the run's end in *end; -1 otherwise.
+__device__ __forceinline__ int run_start(const int* __restrict__ uids,
+                                         int lane, int U, long long N,
+                                         int* end) {
+  int id = uids[lane];
+  if (id < 0 || id >= N) return -1;                 // sentinel
+  if (lane > 0 && uids[lane - 1] == id) return -1;  // not the run's start
+  int e = lane + 1;
+  while (e < U && uids[e] == id) ++e;
+  *end = e;
+  return id;
+}
+
+__global__ void apply_pairs_kernel(float* __restrict__ w, float* __restrict__ z,
+                                   float* __restrict__ nn, float* __restrict__ cnt,
+                                   float* __restrict__ V, float* __restrict__ nV,
+                                   const int* __restrict__ uids,
+                                   const float* __restrict__ pay,
+                                   long long N, int K, int U, ApplyParams p) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= U) return;
+  int end;
+  int id = run_start(uids, lane, U, N, &end);
+  if (id < 0) return;
+  if (!(run_sum(pay, 2 + K, U, lane, end) > 0.0f)) return;  // keep bits
+  float g = run_sum(pay, 0, U, lane, end);
+  float add_cnt = run_sum(pay, 1 + K, U, lane, end);
+  float c = cnt[id];                                // PRE-update count
+  bool tail_ok = p.tail <= 0 || c >= (float)p.tail;
+  if (tail_ok) {
+    float wv = w[id];
+    if (p.w_updater == 0) {          // ftrl
+      float nv = nn[id], zv = z[id];
+      float n_new = nv + g * g;
+      float sigma = (sqrtf(n_new) - sqrtf(nv)) / p.lr_eta;
+      float z_new = zv + g - sigma * wv;
+      float w_new;
+      if (fabsf(z_new) <= p.l1) {
+        w_new = 0.0f;
+      } else {
+        float sgn = z_new > 0.0f ? 1.0f : (z_new < 0.0f ? -1.0f : 0.0f);
+        w_new = -(z_new - sgn * p.l1) /
+                ((p.lr_beta + sqrtf(n_new)) / p.lr_eta + p.l2);
+      }
+      w[id] = w_new;
+      z[id] = z_new;
+      nn[id] = n_new;
+    } else if (p.w_updater == 1) {   // adagrad
+      float g_r = g + p.l2 * wv;
+      float n_new = nn[id] + g_r * g_r;
+      w[id] = wv - p.lr_eta * g_r / (sqrtf(n_new) + p.lr_beta);
+      nn[id] = n_new;
+    } else {                         // sgd
+      w[id] = wv - p.lr_eta * (g + p.l2 * wv);
+    }
+  }
+  cnt[id] = c + add_cnt;
+  if (K > 0 && tail_ok && c >= p.V_threshold) {
+    for (int r = 0; r < K; ++r) {
+      long long at = (long long)r * N + id;
+      float gv = run_sum(pay, 1 + r, U, lane, end);
+      float v = V[at];
+      if (p.V_updater == 0) {        // adagrad
+        float gv_r = gv + p.V_l2 * v;
+        float nv_new = nV[at] + gv_r * gv_r;
+        V[at] = v - p.V_lr_eta * gv_r / (sqrtf(nv_new) + p.V_lr_beta);
+        nV[at] = nv_new;
+      } else {                       // sgd
+        V[at] = v - p.V_lr_eta * (gv + p.V_l2 * v);
+      }
+    }
+  }
+}
+
+extern "C" int dft_apply_pairs(void* w, void* z, void* n, void* cnt, void* V,
+                               void* nV, const void* uids, const void* pay,
+                               long long N, int K, int U, float lr_eta,
+                               float lr_beta, float l1, float l2,
+                               float V_lr_eta, float V_lr_beta, float V_l2,
+                               float V_threshold, int tail, int w_updater,
+                               int V_updater, void* stream) {
+  if (U > 0) {
+    ApplyParams p{lr_eta, lr_beta, l1, l2, V_lr_eta, V_lr_beta, V_l2,
+                  V_threshold, tail, w_updater, V_updater};
+    const int threads = 128;
+    unsigned int blocks = (unsigned int)((U + threads - 1) / threads);
+    apply_pairs_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (float*)w, (float*)z, (float*)n, (float*)cnt, (float*)V, (float*)nV,
+        (const int*)uids, (const float*)pay, N, K, U, p);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,196 @@
+"""Host-side batch localization (dedup) and slot sorting for the prep
+workers.
+
+Copy of the single-table part of ``difacto_tpu/data/prep.py``. The
+reference runs its Localizer (``src/data/localizer.h``) on worker CPU
+threads, overlapped with training; so does this module, in the learner's
+prep thread pool. The dedup shrinks the unique-lane count to the batch's
+actual unique count, rounded up a bucket ladder, and every downstream
+sparse cost (the pull, the segment sum, the apply) scales with it.
+
+Left out here, with the code that needs them: the hot/cold split (ROADMAP
+A13), the sharded per-owner schedules (A9) and the native localizer
+(A17). ``build_sorted_slots`` builds no Pallas schedule (SegMeta,
+PairMeta): those are Mosaic addressing artefacts the Hopper kernels do
+not need.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..ops.segsum import pad_sorted_stream
+from .batch_iter import Batch
+
+# per-thread id->lane scratch tables (see _localize_ids): a fresh np.empty
+# per batch pays its page faults every time; a reused buffer does not.
+# Thread-local because prep fans out to a worker pool
+# (utils/prefetch.py::MappedPrefetchIter).
+_TLS = threading.local()
+
+# direct id->lane LUTs are capped: beyond 2^24 rows a per-thread table
+# would cost 4 B x rows x prep_workers of address space — above the cap
+# the inverse falls back to a searchsorted over the batch's own sorted
+# uniques (memory O(batch), slower)
+_LUT_MAX_ROWS = 1 << 24
+
+
+def _lut_for(num_rows: int) -> np.ndarray:
+    d = getattr(_TLS, "luts", None)
+    if d is None:
+        d = _TLS.luts = {}
+    lut = d.get(num_rows)
+    if lut is None:
+        lut = d[num_rows] = np.empty(num_rows + 1, np.int32)
+    return lut
+
+
+# unique-lane bucket ladder: actual unique count is padded up to one of
+# these (few distinct sizes => few distinct allocation shapes)
+DEFAULT_BUCKETS = (1 << 14, 1 << 15, 1 << 16, 1 << 17, 17 << 13, 3 << 16,
+                   1 << 18, 3 << 17, 1 << 19, 3 << 18, 1 << 20)
+
+
+@dataclass
+class SortedSlots:
+    """The batch's nnz slots reordered by unique lane, so per-key gradient
+    sums become segment sums over a monotone stream (ops/segsum.py). All
+    arrays are padded to a tile multiple; pad slots carry x == 0 and
+    repeat the last real lane (they add nothing)."""
+
+    x_sorted: np.ndarray    # f32 [BLp] vals in sorted-slot order
+    bidx: np.ndarray        # i32 [BLp] example index per sorted slot
+    inv_sorted: np.ndarray  # i32 [BLp] monotone unique lanes
+
+
+@dataclass
+class PreppedBatch:
+    """A Batch plus its host-computed localization. Arrays are NumPy on
+    the host and torch tensors once placed (utils/place.py)."""
+
+    vals: np.ndarray     # f32 [B, L]
+    labels: np.ndarray   # f32 [B]
+    mask: np.ndarray     # f32 [B]
+    uids: np.ndarray     # i32 [Ub] sorted unique hashed ids; sentinel N pad
+    ucounts: np.ndarray  # f32 [Ub]
+    inv: np.ndarray      # i32 [B*L] row-major slot -> unique lane
+    valid: np.ndarray    # bool [Ub]
+    sorted_slots: SortedSlots | None = None
+
+    @property
+    def num_examples(self) -> int:
+        return int(self.mask.sum())
+
+
+def bucket_for(n: int, buckets=DEFAULT_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    # pathological: exact size, 128-aligned like the ladder
+    return (n + 127) // 128 * 128
+
+
+def _localize_ids(ids: np.ndarray, num_rows: int):
+    """Dedup one batch's padded ids (PAD_ID=-1 -> sentinel num_rows,
+    which sorts last). Returns (uids, inv, counts, has_sentinel, n_real).
+
+    numpy's int32 ``np.sort`` is a radix sort while ``np.unique``'s
+    argsort-based inverse is much slower, so the inverse is rebuilt from a
+    direct id->lane lookup table instead. The table is ``np.empty`` (no
+    zeroing; only touched pages materialize)."""
+    flat = ids.reshape(-1)
+    if flat.dtype != np.int32:
+        flat = flat.astype(np.int32)
+    if len(flat) == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                np.zeros(0, np.int64), False, 0)
+    keys = np.where(flat < 0, np.int32(num_rows), flat)
+    sk = np.sort(keys)  # radix for int32
+    first = np.empty(len(sk), bool)
+    first[0] = True
+    np.not_equal(sk[1:], sk[:-1], out=first[1:])
+    idx = np.flatnonzero(first)
+    uids = sk[idx]
+    counts = np.diff(np.append(idx, len(sk)))
+    if num_rows <= _LUT_MAX_ROWS:
+        lut = _lut_for(num_rows)
+        lut[uids] = np.arange(len(uids), dtype=np.int32)
+        inv = lut[keys]
+    else:
+        inv = np.searchsorted(uids, keys).astype(np.int32)
+    has_sentinel = bool(len(uids)) and uids[-1] == num_rows
+    n_real = len(uids) - int(has_sentinel)
+    return uids, inv, counts, has_sentinel, n_real
+
+
+def _pack_localized(uids, inv, counts, has_sentinel, n_real, num_rows, ub):
+    """Pad/truncate one batch's unique set to exactly ``ub`` lanes.
+
+    When the real unique count does not fit (fixed bucket smaller than
+    the batch's uniques), the overflowing ids are DROPPED and counted:
+    lane ub-1 is reserved as an invalid junk lane and every slot of a
+    dropped id (and of input padding) points there. Returns
+    (uids, counts, inv, valid, n_dropped)."""
+    n_keep = min(n_real, ub)
+    if (has_sentinel or n_keep < n_real) and n_keep == ub:
+        n_keep = ub - 1  # reserve a junk lane for sentinel/dropped slots
+    dropped = n_real - n_keep
+    u_out = np.full(ub, num_rows, np.int32)
+    c_out = np.zeros(ub, np.float32)
+    u_out[:n_keep] = uids[:n_keep]
+    c_out[:n_keep] = counts[:n_keep]
+    valid = np.zeros(ub, bool)
+    valid[:n_keep] = True
+    inv = inv.astype(np.int32)
+    if has_sentinel or dropped:
+        inv = np.where(inv >= n_keep, ub - 1, inv)
+    return u_out, c_out, inv, valid, dropped
+
+
+def prep_batch(
+    batch: Batch, num_rows: int, buckets=DEFAULT_BUCKETS,
+    min_ub: int | None = None,
+) -> PreppedBatch:
+    """Localization of one padded batch (reference: Localizer::Compact —
+    sort, dedup, rewrite indices, count).
+
+    ``min_ub`` floors the unique bucket (config ``unique_size``); a rare
+    larger batch still gets the next bucket up."""
+    uids, inv, counts, has_sentinel, n_real = _localize_ids(
+        batch.ids, num_rows
+    )
+    # the bucket must leave a junk lane for sentinel slots when present
+    need = max(n_real + int(has_sentinel), 1)
+    floor = (min_ub + 127) // 128 * 128 if min_ub else 0
+    ub = max(bucket_for(need, buckets), floor)
+    u_out, c_out, inv, valid, dropped = _pack_localized(
+        uids, inv, counts, has_sentinel, n_real, num_rows, ub
+    )
+    assert dropped == 0  # bucket_for always fits (falls back to exact size)
+    return PreppedBatch(
+        vals=batch.vals,
+        labels=batch.labels,
+        mask=batch.mask,
+        uids=u_out,
+        ucounts=c_out,
+        inv=inv.reshape(-1),
+        valid=valid,
+    )
+
+
+def build_sorted_slots(inv: np.ndarray, vals: np.ndarray) -> SortedSlots:
+    """SortedSlots for one prepped batch (``inv`` [B*L], ``vals`` [B, L]):
+    a stable argsort of ``inv`` — host work the reference also did on
+    worker CPUs — run in the prep workers, overlapped with device steps."""
+    L = vals.shape[1]
+    perm = np.argsort(inv, kind="stable")
+    inv_s = pad_sorted_stream(inv[perm].astype(np.int32, copy=False))
+    blp, bl = inv_s.shape[0], perm.shape[0]
+    x = np.zeros(blp, np.float32)
+    x[:bl] = vals.reshape(-1)[perm]
+    bidx = np.zeros(blp, np.int32)
+    bidx[:bl] = (perm // L).astype(np.int32)
+    return SortedSlots(x_sorted=x, bidx=bidx, inv_sorted=inv_s)

@@ -1,0 +1,146 @@
+"""Table kernels of the train and eval steps: pull and apply.
+
+Port of ``difacto_tpu/ops/pair_sweep.py::pull_pairs`` and
+``::apply_pairs``. The TPU kernels walk host-built (table block, 128-lane
+unique window) pairs with one-hot matmuls, because Mosaic addresses only
+aligned tiles (``pair_sweep.py:1-25``). The Hopper kernels
+(csrc/pull_pairs.cu, csrc/apply_pairs.cu) gather and scatter rows
+directly, so they take no schedule: the same inputs map to the same
+outputs.
+
+Each function is a wrapper: a CUDA tensor launches the kernel (or raises
+on what the kernel does not take); a CPU tensor takes the plain PyTorch
+version beside it. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import FMParam
+from ..updaters.updater import FMState
+from . import cuda
+from .sweep_ms import fused_table_update
+
+_W_UPDATERS = {"ftrl": 0, "adagrad": 1, "sgd": 2}
+_V_UPDATERS = {"adagrad": 0, "sgd": 1}
+
+
+# ---------------------------------------------------------------------------
+# pull: rows [1+K, U] = per-unique-id rows (w | activated V), planar
+# ---------------------------------------------------------------------------
+
+
+def pull_pairs_plain(state: FMState, uids: torch.Tensor,
+                     param: FMParam) -> torch.Tensor:
+    """Indexing plus a mask: the plain version of the pull kernel."""
+    n, k = state.num_rows, state.k
+    real = (uids >= 0) & (uids < n)
+    idx = torch.where(real, uids, 0).long()
+    out = torch.empty((1 + k, uids.shape[0]), dtype=torch.float32,
+                      device=uids.device)
+    out[0] = torch.where(real, state.w[idx], 0.0)
+    if k > 0:
+        act = real & (state.cnt[idx] >= float(param.V_threshold))
+        out[1:] = torch.where(act[None, :], state.V[:, idx], 0.0)
+    return out
+
+
+def pull_pairs(state: FMState, uids: torch.Tensor,
+               param: FMParam) -> torch.Tensor:
+    """Planar unique rows [1+K, U] for sorted unique ``uids`` (i32,
+    sentinel ``N`` pads): row 0 is w, rows 1..K are V gated by
+    ``cnt >= V_threshold``; sentinel lanes are 0."""
+    if uids.device.type == "cpu":
+        return pull_pairs_plain(state, uids, param)
+    n, k, u = state.num_rows, state.k, uids.shape[0]
+    dev = state.device
+    for name in ("w", "cnt"):
+        cuda.require(getattr(state, name), name, torch.float32, (n,), dev)
+    cuda.require(state.V, "V", torch.float32, (k, n), dev)
+    cuda.require(uids, "uids", torch.int32, (u,), dev)
+    out = torch.empty((1 + k, u), dtype=torch.float32, device=dev)
+    lib = cuda.library()
+    rc = lib.dft_pull_pairs(
+        state.w.data_ptr(), state.cnt.data_ptr(), state.V.data_ptr(),
+        uids.data_ptr(), out.data_ptr(), n, k, u, float(param.V_threshold),
+        cuda.stream(dev),
+    )
+    cuda.check(rc, "pull_pairs")
+    cuda.LAUNCHES["pull_pairs"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# apply: per-key payload -> fused FTRL/AdaGrad/SGD on the touched rows
+# ---------------------------------------------------------------------------
+
+
+def apply_pairs_plain(state: FMState, uids: torch.Tensor,
+                      payload: torch.Tensor, param: FMParam) -> FMState:
+    """Gather, then ``fused_table_update``, then index write-back — in
+    place on ``state``. Equal ids in ``uids`` (which must be
+    non-decreasing) sum their payload first, in lane order."""
+    n, k = state.num_rows, state.k
+    rid, inverse = torch.unique_consecutive(uids, return_inverse=True)
+    acc = torch.zeros((payload.shape[0], rid.shape[0]), dtype=torch.float32,
+                      device=payload.device)
+    acc.index_add_(1, inverse, payload)
+    keep = (rid >= 0) & (rid < n)
+    rows = rid[keep].long()
+    acc = acc[:, keep]
+    v = state.V[:, rows] if k > 0 else None
+    nv = state.nV[:, rows] if k > 0 else None
+    w_o, z_o, n_o, cnt_o, v_o, nv_o = fused_table_update(
+        acc, state.w[rows], state.z[rows], state.n[rows], state.cnt[rows],
+        v, nv, param, k,
+    )
+    touched = acc[2 + k] > 0.0
+    rt = rows[touched]
+    state.w[rt] = w_o[touched]
+    state.z[rt] = z_o[touched]
+    state.n[rt] = n_o[touched]
+    state.cnt[rt] = cnt_o[touched]
+    if k > 0:
+        state.V[:, rt] = v_o[:, touched]
+        state.nV[:, rt] = nv_o[:, touched]
+    return state
+
+
+def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
+                param: FMParam) -> FMState:
+    """Update ``state`` IN PLACE from the planar payload ``[3+K, U]``
+    (gw | gV | add_cnt | touch) over non-decreasing ``uids`` (i32,
+    sentinel ``N`` pads): once per touched table row, the w updater (tail
+    filter applied), ``cnt += add_cnt``, and the V updater gated by the
+    pre-update count. In place replaces the TPU kernel's
+    ``input_output_aliases``; returns ``state`` for chaining."""
+    if uids.device.type == "cpu":
+        return apply_pairs_plain(state, uids, payload, param)
+    n, k, u = state.num_rows, state.k, uids.shape[0]
+    dev = state.device
+    for name in ("w", "z", "n", "cnt"):
+        cuda.require(getattr(state, name), name, torch.float32, (n,), dev)
+    for name in ("V", "nV"):
+        cuda.require(getattr(state, name), name, torch.float32, (k, n), dev)
+    cuda.require(uids, "uids", torch.int32, (u,), dev)
+    cuda.require(payload, "payload", torch.float32, (3 + k, u), dev)
+    if u > 1:
+        # runs of equal ids must be consecutive; checked on the device,
+        # without a host sync
+        torch._assert_async(torch.all(uids[1:] >= uids[:-1]),
+                            "apply_pairs: uids must be non-decreasing")
+    p = param
+    lib = cuda.library()
+    rc = lib.dft_apply_pairs(
+        state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
+        state.cnt.data_ptr(), state.V.data_ptr(), state.nV.data_ptr(),
+        uids.data_ptr(), payload.data_ptr(), n, k, u,
+        p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta, p.V_l2,
+        float(p.V_threshold), int(p.tail_feature_filter),
+        _W_UPDATERS[p.w_updater], _V_UPDATERS[p.V_updater],
+        cuda.stream(dev),
+    )
+    cuda.check(rc, "apply_pairs")
+    cuda.LAUNCHES["apply_pairs"] += 1
+    return state

@@ -1,0 +1,141 @@
+"""Parameter store: one table on one device.
+
+Port of ``difacto_tpu/parallel/store.py`` :: LocalStore (reference:
+``src/store/store_local.h`` :: StoreLocal, which calls the updater in
+process) on its main path, ``kernel=pairs`` with ``segsum=sorted``:
+
+    pull (ops/pair_sweep.py) -> [B, L] forward -> sorted-slot backward ->
+    segment sum (ops/segsum.py) -> apply (ops/pair_sweep.py), in place.
+
+The eval step is pull -> forward. Both take the host-prepped batch
+(data/prep.py) and run the hand-written kernels when the state lies on
+the card, their plain versions when it lies on the CPU. The sharded store
+waits (ROADMAP A9).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.prep import PreppedBatch, build_sorted_slots
+from ..learners.step import StepMetrics, worker_forward, worker_grads_sorted
+from ..ops.localize import Localized
+from ..ops.pair_sweep import apply_pairs, pull_pairs
+from ..updaters.updater import FMState, FMUpdater, LEAVES
+from ..utils.device import resolve_device
+from ..utils.place import place_batch
+
+
+class LocalStore:
+    """Single-device store (reference: StoreLocal + local Tracker).
+
+    ``device`` defaults to the card; without one it raises unless the
+    caller asks for ``"cpu"`` (utils/device.py). The state's tensors are
+    updated IN PLACE by every train step: the step returns the same
+    FMState object it was given."""
+
+    def __init__(self, updater: FMUpdater, cfg: Config, device=None):
+        self.updater = updater
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.num_rows = 1 << cfg.data.num_bits
+        self.param = updater.param
+
+    def init_state(self, seed: int = 0) -> FMState:
+        return self.updater.init_state(self.num_rows, seed, self.device)
+
+    def place_state(self, host_state: FMState) -> FMState:
+        """Move a host state onto this store's device. A single-file
+        checkpoint from a padded sharded run carries more rows than the
+        hash space; the extra rows must be zero and are cut off."""
+        n_in = host_state.num_rows
+        if n_in > self.num_rows:
+            if bool((host_state.w[self.num_rows:] != 0).any()):
+                raise ValueError(
+                    f"checkpoint has {n_in} rows with nonzero weights past "
+                    f"this store's {self.num_rows}-row hash space — was it "
+                    f"saved with a larger num_bits?"
+                )
+        elif n_in < self.num_rows:
+            raise ValueError(
+                f"checkpoint has {n_in} rows but this store's hash space "
+                f"is {self.num_rows} (num_bits mismatch — retrain or load "
+                f"with the original num_bits)"
+            )
+        k = self.param.V_dim
+        if host_state.k != k:
+            raise ValueError(f"checkpoint has V_dim {host_state.k} but this "
+                             f"store expects {k}")
+        leaves = {}
+        for name in LEAVES:
+            t = getattr(host_state, name)[..., : self.num_rows]
+            leaves[name] = t.to(self.device, torch.float32).contiguous()
+        return FMState(**leaves)
+
+    def count_step(self, state: FMState, ids) -> FMState:
+        """Feature-frequency pass, in place (reference: Store::kFeaCount
+        push used for tail filtering before training)."""
+        ids = torch.as_tensor(np.asarray(ids), device=self.device)
+        return self.updater.add_counts(state, ids)
+
+    def _placed(self, pb: PreppedBatch, need_slots: bool) -> PreppedBatch:
+        """The batch as tensors on this store's device. Host batches get
+        their sorted slots built here when the prep workers did not
+        (kept on the batch, so replayed batches reuse them)."""
+        if need_slots and pb.sorted_slots is None:
+            if isinstance(pb.inv, torch.Tensor):
+                raise ValueError("a placed batch needs its sorted slots "
+                                 "built before placement (data/prep.py)")
+            pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
+        return place_batch(pb, self.device)
+
+    def _pull(self, state: FMState, pb: PreppedBatch) -> torch.Tensor:
+        """Unique rows [U, 1+K] (w | count-gated V) of the batch. Lanes
+        past the batch's real unique count are zero (the valid mask)."""
+        rows_p = pull_pairs(state, pb.uids, self.param)
+        return torch.where(pb.valid[:, None], rows_p.T, 0.0)
+
+    def train_step_prepped(self, state: FMState,
+                           pb: PreppedBatch) -> tuple[FMState, StepMetrics]:
+        """pull -> forward -> sorted backward -> segment sum -> apply. The
+        apply updates ``state`` in place (it replaces the TPU step's
+        donated buffers)."""
+        pb = self._placed(pb, need_slots=True)
+        loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
+                        valid=pb.valid)
+        rows_u = self._pull(state, pb)
+        ss = pb.sorted_slots
+        grads_p, _, metrics = worker_grads_sorted(
+            rows_u, loc, pb.vals, pb.labels, pb.mask,
+            (ss.x_sorted, ss.bidx, ss.inv_sorted),
+        )
+        vf = pb.valid.to(torch.float32)
+        payload = torch.cat([
+            torch.where(pb.valid[None, :], grads_p, 0.0),  # gw | gV planar
+            (loc.counts * vf)[None, :],                    # add_cnt
+            vf[None, :],                                   # touch
+        ], dim=0)
+        state = apply_pairs(state, pb.uids, payload, self.param)
+        return state, metrics
+
+    def eval_step_prepped(self, state: FMState,
+                          pb: PreppedBatch) -> tuple[StepMetrics, torch.Tensor]:
+        """pull -> forward. Returns (metrics, py [B])."""
+        pb = self._placed(pb, need_slots=False)
+        loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
+                        valid=pb.valid)
+        py, metrics = worker_forward(self._pull(state, pb), loc, pb.vals,
+                                     pb.labels, pb.mask)
+        return metrics, py
+
+    def stats(self, state: FMState) -> dict[str, float]:
+        return self.updater.stats(state)
+
+
+def make_store(updater: FMUpdater, cfg: Config, device=None) -> LocalStore:
+    """Store::Create. The port runs on one card: ``store=auto`` and
+    ``store=local`` both give a LocalStore (``sharded`` is refused by the
+    config, ROADMAP A9)."""
+    return LocalStore(updater, cfg, device=device)

@@ -1,0 +1,211 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper of difacto_tpu_torch runs its kernel's plain
+PyTorch version; here those are held against the JAX kernels run in
+interpret mode, at the sizes of tests/test_pair_sweep.py and
+tests/test_segsum.py, from the same NumPy inputs (made by the helpers of
+tests/test_torch_cuda.py, where the hand-written CUDA kernels themselves
+are held against the plain versions on the card).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from difacto_tpu.config import FMParam as JFMParam
+from difacto_tpu.ops import pair_sweep as jps
+from difacto_tpu.ops import segsum as jseg
+from difacto_tpu.ops.sweep_ms import fused_table_update as j_fused
+from difacto_tpu.updaters.updater import FMState as JFMState
+from difacto_tpu.updaters.updater import FMUpdater as JFMUpdater
+from difacto_tpu_torch.ops import pair_sweep, segsum
+from difacto_tpu_torch.ops.sweep_ms import fused_table_update
+from difacto_tpu_torch.updaters.updater import FMUpdater
+from difacto_tpu_torch.utils.checkpoint import state_from_numpy, state_to_numpy
+from test_torch_cuda import (LEAVES, N, U, payload as _payload,
+                             port_params, sorted_uids as _sorted_uids,
+                             state_np as _state_np)
+
+torch.set_num_threads(2)
+
+BLOCK_ROWS = 512
+
+
+def _params(**kw):
+    """The same settings as a JAX FMParam and a port FMParam."""
+    tp = port_params(**kw)
+    jp = JFMParam()
+    for f in dataclasses.fields(tp):
+        setattr(jp, f.name, getattr(tp, f.name))
+    return jp, tp
+
+
+def _jstate(s):
+    return JFMState(**{k: jnp.asarray(v) for k, v in s.items()})
+
+
+def _meta(uids):
+    m = jps.build_pair_meta(uids, N, BLOCK_ROWS)
+    return (jnp.asarray(m.blocks), jnp.asarray(m.wins), jnp.asarray(m.first),
+            jnp.asarray(m.wfirst))
+
+
+@pytest.mark.parametrize("K", [0, 4])
+def test_pull_pairs_matches_jax(K):
+    rng = np.random.default_rng(K)
+    jp, tp = _params(V_dim=K)
+    s = _state_np(K, rng)
+    uids, valid = _sorted_uids(rng)
+    ref = jps.pull_pairs(_jstate(s), jnp.asarray(uids), _meta(uids), jp,
+                         block_rows=BLOCK_ROWS, interpret=True)
+    # lanes no pair visits are undefined in the Pallas output; the store
+    # masks them with `valid` — the port's pull zeroes sentinel lanes
+    ref = np.where(valid[None, :], np.asarray(ref), 0.0)
+    got = pair_sweep.pull_pairs(state_from_numpy(s), torch.from_numpy(uids),
+                                tp)
+    assert got.shape == (1 + K, U)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=0)
+    assert np.all(got.numpy()[:, ~valid] == 0.0)
+
+
+@pytest.mark.parametrize(
+    "K,wupd,vupd,tff",
+    [
+        (4, "ftrl", "adagrad", 0),
+        (0, "ftrl", "adagrad", 0),
+        (2, "adagrad", "sgd", 0),
+        (3, "sgd", "adagrad", 2),
+    ],
+)
+@pytest.mark.parametrize("repeat", [False, True])
+def test_apply_pairs_matches_jax(K, wupd, vupd, tff, repeat):
+    rng = np.random.default_rng(10 + K)
+    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                     tail_feature_filter=tff)
+    s = _state_np(K, rng)
+    uids, valid = _sorted_uids(rng, repeat=repeat)
+    pay = _payload(K, valid, rng)
+    ref = jps.apply_pairs(_jstate(s), jnp.asarray(uids), jnp.asarray(pay),
+                          _meta(uids), jp, block_rows=BLOCK_ROWS,
+                          interpret=True)
+    st = state_from_numpy(s)
+    out = pair_sweep.apply_pairs(st, torch.from_numpy(uids),
+                                 torch.from_numpy(pay), tp)
+    assert out is st  # in place
+    got = state_to_numpy(out)
+    touched = np.zeros(N, bool)
+    touched[uids[valid]] = True
+    for name in LEAVES:
+        a, b = np.asarray(getattr(ref, name)), got[name]
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6, err_msg=name)
+        # untouched rows keep their exact bits
+        assert np.array_equal(b[..., ~touched], s[name][..., ~touched]), name
+
+
+@pytest.mark.parametrize(
+    "K,wupd,vupd,tff",
+    [
+        (4, "ftrl", "adagrad", 0),
+        (0, "ftrl", "adagrad", 0),
+        (2, "adagrad", "sgd", 0),
+        (3, "sgd", "adagrad", 2),
+    ],
+)
+def test_updater_pull_and_update_match_jax_and_the_kernels(K, wupd, vupd,
+                                                           tff):
+    """The updater's plain pull/update (the reference of the table path)
+    against the JAX updater's, and against the pull and apply kernels'
+    plain versions on unique ids."""
+    rng = np.random.default_rng(60 + K)
+    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                     tail_feature_filter=tff)
+    s = _state_np(K, rng)
+    uids, valid = _sorted_uids(rng)
+    pay = _payload(K, valid, rng)
+    ju, tu = JFMUpdater(jp), FMUpdater(tp)
+    t_uids, t_valid = torch.from_numpy(uids), torch.from_numpy(valid)
+
+    ref = np.asarray(ju.pull(_jstate(s), jnp.asarray(uids),
+                             jnp.asarray(valid)))
+    got = tu.pull(state_from_numpy(s), t_uids, t_valid)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    kern = pair_sweep.pull_pairs(state_from_numpy(s), t_uids, tp)
+    np.testing.assert_array_equal(kern.T.numpy(), ref)
+
+    grads, add_cnt = pay[: 1 + K].T, pay[1 + K]
+    ref = ju.update(_jstate(s), jnp.asarray(uids), jnp.asarray(grads),
+                    jnp.asarray(add_cnt), jnp.asarray(valid))
+    got = state_to_numpy(tu.update(state_from_numpy(s), t_uids,
+                                   torch.from_numpy(grads),
+                                   torch.from_numpy(add_cnt), t_valid))
+    kern = state_to_numpy(pair_sweep.apply_pairs(
+        state_from_numpy(s), t_uids, torch.from_numpy(pay), tp))
+    for name in LEAVES:
+        a = np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(got[name], a, rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+        # update adds masked deltas, apply writes new values: they agree
+        # to float rounding
+        np.testing.assert_allclose(kern[name], a, rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 2),
+                                             (2, "adagrad", "sgd", 0),
+                                             (0, "sgd", "adagrad", 0)])
+def test_fused_table_update_matches_jax(K, wupd, vupd, tff):
+    rng = np.random.default_rng(20 + K)
+    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                     tail_feature_filter=tff)
+    R = 300
+    s = {k: (v[..., :R] if v.ndim == 1 else v[:, :R])
+         for k, v in _state_np(K, rng).items()}
+    acc = _payload(K, np.arange(U) < 250, rng)[:, :R]
+    vk = (s["V"], s["nV"]) if K else (None, None)
+    ref = j_fused(jnp.asarray(acc), *(jnp.asarray(s[k]) for k in
+                                      ("w", "z", "n", "cnt")),
+                  *(None if v is None else jnp.asarray(v) for v in vk), jp, K)
+    got = fused_table_update(
+        torch.from_numpy(acc), *(torch.from_numpy(s[k]) for k in
+                                 ("w", "z", "n", "cnt")),
+        *(None if v is None else torch.from_numpy(v) for v in vk), tp, K)
+    for a, b in zip(ref, got):
+        if a is None:
+            assert b is None
+            continue
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _jax_segsum(pay, inv_p, ub):
+    meta = jseg.build_seg_meta(inv_p, ub)
+    return np.asarray(jseg.segsum_sorted(
+        jnp.asarray(pay), jseg.lanes_2d(jnp.asarray(inv_p)),
+        (jnp.asarray(meta.tiles), jnp.asarray(meta.wins),
+         jnp.asarray(meta.first)),
+        ub=ub, interpret=True,
+    ))
+
+
+@pytest.mark.parametrize(
+    "bl,ub,pp,hi", [(4096, 1024, 8, 1024), (5000, 640, 24, 640),
+                    (2048, 8192, 8, 600)]
+)
+def test_segsum_sorted_matches_jax(bl, ub, pp, hi):
+    """``hi`` < ub leaves the top lanes uncovered: they must be exact 0."""
+    rng = np.random.default_rng(bl + ub)
+    lanes = np.sort(rng.integers(0, hi, bl)).astype(np.int32)
+    inv_p = segsum.pad_sorted_stream(lanes)
+    assert np.array_equal(inv_p, jseg.pad_sorted_stream(lanes))
+    pay = rng.normal(size=(pp, inv_p.shape[0])).astype(np.float32)
+    pay[:, bl:] = 0.0
+    ref = _jax_segsum(pay, inv_p, ub)
+    got = segsum.segsum_sorted(torch.from_numpy(pay),
+                               torch.from_numpy(inv_p), ub).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+    covered = np.zeros(ub, bool)
+    covered[lanes] = True
+    assert np.all(got[:, ~covered] == 0.0)

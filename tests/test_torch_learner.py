@@ -1,0 +1,271 @@
+"""The port's learner, CLI and checkpoints against the JAX package, its
+config guard, and its isolation from JAX.
+
+The verify recipe (synthetic CTR data, batch 512, 2^16 rows, K = 8)
+trains under both packages from one start state — a checkpoint both load
+with ``model_in`` — and their validation metrics must agree. Checkpoints
+cross between the packages in both directions and score the same through
+``task=predict``.
+"""
+
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from difacto_tpu.config import Config as JConfig
+from difacto_tpu.data import libsvm as jlibsvm
+from difacto_tpu.data.synthetic import make_ctr_data, write_libsvm
+from difacto_tpu.learners.sgd import SGDLearner as JSGDLearner
+from difacto_tpu.updaters.updater import FMState as JFMState
+from difacto_tpu.utils import checkpoint as jcheckpoint
+from difacto_tpu_torch import cli
+from difacto_tpu_torch.config import Config
+from difacto_tpu_torch.data import libsvm, synthetic
+from difacto_tpu_torch.learners.sgd import SGDLearner
+from difacto_tpu_torch.utils import checkpoint
+from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+BITS, K = 16, 8
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ctr")
+    write_libsvm(make_ctr_data(8000, num_fields=10, vocab_per_field=300,
+                               seed=1), str(d / "train.svm"))
+    write_libsvm(make_ctr_data(2000, num_fields=10, vocab_per_field=300,
+                               seed=2), str(d / "val.svm"))
+    return d
+
+
+def test_synthetic_data_and_parser_match_jax(data):
+    """The port's generator, libsvm writer and parser give the JAX
+    package's bytes and arrays (chip_smoke.py draws its CLI data with the
+    port's copy)."""
+    ref = make_ctr_data(500, num_fields=10, vocab_per_field=300, seed=2)
+    got = synthetic.make_ctr_data(500, num_fields=10, vocab_per_field=300,
+                                  seed=2)
+    for name in ("labels", "indptr", "indices", "values"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    raw = (data / "val.svm").read_bytes()
+    out = data / "port_val.svm"
+    synthetic.write_libsvm(synthetic.make_ctr_data(
+        2000, num_fields=10, vocab_per_field=300, seed=2), str(out))
+    assert out.read_bytes() == raw
+    a, b = jlibsvm.parse_libsvm(raw), libsvm.parse_libsvm(raw)
+    for name in ("labels", "indptr", "indices", "values"):
+        np.testing.assert_array_equal(getattr(b, name), getattr(a, name))
+
+
+def _recipe(d, *extra):
+    return [
+        ("data_in", str(d / "train.svm")), ("data_val", str(d / "val.svm")),
+        ("batch_size", "512"), ("num_bits", str(BITS)),
+        ("max_nnz_per_row", "12"), ("V_dim", str(K)), ("lr_eta", "0.1"),
+        ("l1", "0.1"), ("V_lr_eta", "0.05"), ("max_num_epochs", "2"),
+        ("store", "local"), *extra,
+    ]
+
+
+def _random_state(seed, trained=False):
+    rng = np.random.default_rng(seed)
+    n = 1 << BITS
+    s = {k: np.zeros(n, np.float32) for k in ("w", "z", "n", "cnt")}
+    s["V"] = rng.uniform(-0.01, 0.01, (K, n)).astype(np.float32)
+    s["nV"] = np.zeros((K, n), np.float32)
+    if trained:
+        s["w"] = (rng.normal(size=n) * (rng.random(n) < 0.3)).astype(
+            np.float32)
+        s["V"] = rng.normal(size=(K, n)).astype(np.float32) * 0.2
+        s["cnt"] = rng.integers(0, 5, n).astype(np.float32)
+    return s
+
+
+def test_verify_recipe_matches_jax(data, tmp_path):
+    """Two epochs from one start state. Both train on the same batches in
+    the same order; per-key sums differ by float association only (the
+    sorted segment sum against JAX's scatter-add), which 32 steps of
+    FTRL/AdaGrad keep far below the stated tolerances."""
+    start = str(tmp_path / "start")
+    jcheckpoint.save(start, JFMState(**_random_state(3)), {"epoch": 0})
+    kw = _recipe(data, ("model_in", start))
+    jva = JSGDLearner(JConfig.from_kwargs(kw)).run()
+    va = SGDLearner(Config.from_kwargs(kw), device="cpu").run()
+    assert va.num_examples == jva.num_examples == 2000
+    assert va.logloss == pytest.approx(jva.logloss, rel=1e-5)
+    assert va.exact_auc == pytest.approx(jva.exact_auc, abs=1e-5)
+    assert va.exact_auc > 0.6
+
+
+def test_save_interval_resume_matches_uninterrupted(data, tmp_path):
+    out = str(tmp_path / "mid")
+    kw = _recipe(data, ("model_out", out), ("save_interval_steps", "5"))
+    full = SGDLearner(Config.from_kwargs(kw), device="cpu")
+    full.train_epoch(0)  # 16 steps: the last step-save is at step 15
+    meta = checkpoint._read_meta(out)
+    assert (meta["epoch"], meta["step"]) == (0, 15)
+    resumed = SGDLearner(Config.from_kwargs(
+        _recipe(data, ("model_in", out))), device="cpu")
+    resumed.train_epoch(0)  # skips the 15 consumed batches
+    a, b = state_to_numpy(full.state), state_to_numpy(resumed.state)
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def _predict_port(data, model, out):
+    cli.main([f"data_in={data / 'val.svm'}", "batch_size=512",
+              f"num_bits={BITS}", "max_nnz_per_row=12", f"V_dim={K}",
+              "task=predict", f"model_in={model}", f"pred_out={out}"],
+             device="cpu")
+    return np.loadtxt(out)
+
+
+def _predict_jax(data, model):
+    cfg = JConfig.from_kwargs([
+        ("data_in", str(data / "val.svm")), ("batch_size", "512"),
+        ("num_bits", str(BITS)), ("max_nnz_per_row", "12"),
+        ("V_dim", str(K)), ("model_in", model), ("max_num_epochs", "0"),
+        ("store", "local"),
+    ])
+    py, _ = JSGDLearner(cfg).predict(str(data / "val.svm"))
+    return py
+
+
+def test_jax_checkpoint_predicts_the_same_in_the_port(data, tmp_path):
+    model = str(tmp_path / "jax_model")
+    jcheckpoint.save(model, JFMState(**{
+        k: jnp.asarray(v) for k, v in _random_state(4, trained=True).items()
+    }), {"epoch": 2})
+    ref = _predict_jax(data, model)
+    got = _predict_port(data, model, tmp_path / "pred.txt")
+    assert got.shape == ref.shape == (2000,)
+    # pred_out keeps 6 significant digits
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-5)
+
+
+def test_port_checkpoint_predicts_the_same_in_jax(data, tmp_path):
+    model = str(tmp_path / "port_model")
+    kw = _recipe(data, ("model_out", model), ("max_num_epochs", "1"))
+    SGDLearner(Config.from_kwargs(kw), device="cpu").run()
+    host, meta = jcheckpoint.load(model)  # the JAX package reads it
+    assert meta["format_version"] == 1 and meta["epoch"] == 1
+    assert host.V.shape == (K, 1 << BITS)
+    got = _predict_port(data, model, tmp_path / "pred.txt")
+    ref = _predict_jax(data, model)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-5)
+
+
+def test_config_keys_and_defaults_match_jax():
+    def defaults(cfg):
+        return {f.name: getattr(getattr(cfg, part.name), f.name)
+                for part in dataclasses.fields(cfg)
+                for f in dataclasses.fields(getattr(cfg, part.name))}
+
+    assert defaults(Config()) == defaults(JConfig())
+
+
+def test_unknown_key_is_fatal():
+    with pytest.raises(ValueError, match="unknown config keys"):
+        Config.from_kwargs([("V_dim", "4"), ("no_such_key", "1")])
+
+
+@pytest.mark.parametrize(
+    "key,val,item",
+    [
+        ("store", "sharded", "A9"),
+        ("learner", "bcd", "A15"),
+        ("loss", "ffm", "A8"),
+        ("hot_rows", "1024", "A13"),
+        ("kernel", "pallas", "A10"),
+        ("kernel", "xla", "A14"),
+        ("segsum", "scatter", "A14"),
+        ("layout", "packed", "A14"),
+        ("layout", "stacked", "A14"),
+        ("host_localize", "0", "A16"),
+        ("data_format", "libffm", "A18"),
+        ("data_format", "csr", "A18"),
+        ("data_in", "s3://bucket/train", "A19"),
+        ("model_out", "gs://bucket/model", "A19"),
+    ],
+)
+def test_out_of_slice_setting_raises(key, val, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Config.from_kwargs([(key, val)])
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(data):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = Config.from_kwargs(_recipe(data))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SGDLearner(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([f"data_in={data / 'train.svm'}", "num_bits=12"])
+
+
+_ISOLATION = """
+import sys
+import numpy as np
+import torch
+from difacto_tpu_torch.config import Config
+from difacto_tpu_torch.data.batch_iter import Batch
+from difacto_tpu_torch.data.prep import prep_batch
+from difacto_tpu_torch.parallel.store import make_store
+from difacto_tpu_torch.updaters.updater import FMUpdater
+import difacto_tpu_torch.cli, difacto_tpu_torch.learners.sgd
+cfg = Config.from_kwargs([("batch_size", "8"), ("num_bits", "10"),
+                          ("max_nnz_per_row", "4"), ("V_dim", "2")])
+store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+rng = np.random.default_rng(0)
+b = Batch(rng.integers(0, 1024, (8, 4)).astype(np.int32),
+          np.ones((8, 4), np.float32), np.ones(8, np.float32),
+          np.ones(8, np.float32))
+st, m = store.train_step_prepped(store.init_state(0), prep_batch(b, 1024))
+assert float(m.examples) == 8.0
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "difacto_tpu"
+             or n.startswith("difacto_tpu."))
+print("LEAKED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    r = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_sources_import_no_jax():
+    """Static scan: no ``import jax`` and no import of ``difacto_tpu``
+    (absolute, or relative past the package root) in the port's sources,
+    nor in chip_smoke.py."""
+    files = list((ROOT / "difacto_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+                depth = len(path.relative_to(ROOT).parts) - 1
+                assert node.level <= depth, f"{path}: relative import leaves the package"
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "jaxlib", "difacto_tpu"), \
+                    f"{path} imports {n}"
