@@ -7,17 +7,23 @@ Phases, each a hard failure:
 1. build the hand-written CUDA kernels from ``difacto_tpu_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card at the
    flagship shapes (batch 16384 x 40 nnz with Zipf(1.2) ids, 2^22 rows,
-   K = 16), and time the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call;
-3. hold the device train and eval steps against the CPU plain path on a
-   small batch, from one state;
-4. drive the main path through ``SGDLearner`` at the flagship shapes (an
-   epoch that streams from a libsvm file and caches the batches on the
-   card, then a timed epoch that replays them, then a validation pass),
-   with every launch counter reset just before and read just after;
-5. the CLI on a small synthetic set: train 2 epochs with validation and
-   ``model_out``, then ``task=predict`` on that checkpoint, whose AUC must
-   pass 0.6 and whose scores must match the CPU's.
+   K = 16; the sweep kernels with 1024-row blocks, one stream, and two
+   streams of repeated ids whose integer payload must sum exactly), and
+   time the kernel, the plain version and, where one PyTorch call
+   computes the same function, that call;
+3. hold the device train and eval steps of every kernel path (pairs with
+   the sorted and the scatter backward, the whole-table sweep with
+   either) against the CPU plain path on a small batch, from one state;
+4. drive the flagship through ``SGDLearner`` twice, on the pair kernels
+   (``kernel=auto``) and on the whole-table sweep (``kernel=pallas``):
+   an epoch that streams from a libsvm file and caches the batches on the
+   card, then a timed epoch that replays them, a traced replay and a
+   validation pass, with every launch counter reset just before each
+   drive and read just after;
+5. the CLI on a small synthetic set, on both table paths: train 2 epochs
+   with validation and ``model_out``, then ``task=predict`` on that
+   checkpoint, whose AUC must pass 0.6 and whose scores must match the
+   CPU's.
 
 It prints the card's name and power limit, one JSON line listing the
 kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
@@ -37,10 +43,14 @@ import time
 import numpy as np
 
 BATCH, NNZ, NUM_BITS, K = 16384, 40, 22, 16
+BLOCK_ROWS = 1024         # table block of the sweep kernels (the default)
 MAIN_BATCHES = 8          # batches in the main-path file (one epoch)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
 REPS = 20
+# the kernels of the two table paths, each path's pull first
+PAIRS_KERNELS = ("pull_pairs", "segsum_sorted", "apply_pairs")
+SWEEP_KERNELS = ("sweep_pull", "sweep_apply")
 
 
 def log(msg: str) -> None:
@@ -112,6 +122,21 @@ def clone_state(st):
                       ("w", "z", "n", "V", "nV", "cnt")})
 
 
+def past_gate(pb, state, q) -> int:
+    """How many of the batch's unique ids are past the V gate."""
+    idx = pb.uids.clamp(max=state.num_rows - 1).long()
+    return int((pb.valid & (state.cnt[idx] >= q.V_threshold)).sum())
+
+
+def updater_bytes(wupd: str, vupd: str, k: int, n_rows: int, n_act: int):
+    """Bytes an apply reads and writes in the table: per row it updates,
+    the leaves its updaters use (+ cnt), and V/nV only on the rows past
+    the V gate."""
+    wl = {"ftrl": 3, "adagrad": 2, "sgd": 1}[wupd] + 1
+    vl = {"adagrad": 2, "sgd": 1}[vupd] * k
+    return 4 * 2 * (wl * n_rows + vl * n_act)
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version at the flagship
     shapes. Returns the kernels' records (without launches)."""
@@ -145,8 +170,7 @@ def check_kernels(dev):
     if not torch.equal(got, ref):
         raise AssertionError(f"pull_pairs differs from its plain version "
                              f"(max abs err {err:g}; tolerance: exact)")
-    n_act = int((pb.valid & (st.cnt[pb.uids.clamp(max=num_rows - 1).long()]
-                             >= p.V_threshold)).sum())
+    n_act = past_gate(pb, st, p)
     nbytes = 4 * (U + 2 * n_valid + K * n_act + (1 + K) * U)
     b_ms, b_by = bound(nbytes, 0)
     out["pull_pairs"] = dict(
@@ -232,12 +256,9 @@ def check_kernels(dev):
         # payload of real lanes; and per touched row the leaves its
         # updaters read and write. The gV payload and V/nV only on rows
         # past the V gate (all real lanes are touched here)
-        wl = {"ftrl": 3, "adagrad": 2, "sgd": 1}[wupd] + 1  # + cnt
-        vl = {"adagrad": 2, "sgd": 1}[vupd] * k
-        act = int((pb.valid & (base.cnt[pb.uids.clamp(max=num_rows - 1)
-                                        .long()] >= q.V_threshold)).sum())
-        nbytes = 4 * (U + 3 * n_valid + k * act
-                      + 2 * (wl * n_valid + vl * act))
+        act = past_gate(pb, base, q)
+        nbytes = (4 * (U + 3 * n_valid + k * act)
+                  + updater_bytes(wupd, vupd, k, n_valid, act))
         work = clone_state(base)
         rec = dict(
             ms=cuda_ms(lambda: pair_sweep.apply_pairs(work, pb.uids,
@@ -257,6 +278,7 @@ def check_kernels(dev):
             )
         del work, a, b
     out["apply_pairs"]["max_abs_err"] = worst
+    out.update(check_sweep_kernels(dev, pb, st, g))
     for name, rec in out.items():
         log(f"kernel {name}: max_abs_err {rec['max_abs_err']:g}  "
             f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
@@ -265,10 +287,159 @@ def check_kernels(dev):
     return out
 
 
+def check_sweep_kernels(dev, pb, st, g):
+    """Phase 2, the whole-table sweep kernels (B4 pull, B5 apply): one
+    stream of the flagship batch's sorted unique ids, as ops/sweep.py
+    passes it, then two streams of repeated ids. Returns their records."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.ops import sweep, sweep_ms
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+
+    num_rows, R = 1 << NUM_BITS, BLOCK_ROWS
+    nb = num_rows // R
+    sid = pb.uids  # sorted; the sentinel N on every invalid lane
+    off = sweep.offsets_1(sid, num_rows, R)
+    U = sid.shape[0]
+    n_valid = int(pb.valid.sum())
+    p = FMParam()
+    p.V_dim = K
+    out = {}
+
+    # -- pull: exact (a gather with a mask) --------------------------------
+    got = sweep_ms.sweep_pull_ms(st, sid, off, p, block_rows=R)
+    ref = sweep_ms.sweep_pull_ms_plain(st, sid, off, p, block_rows=R)
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"sweep_pull differs from its plain version "
+                             f"(max abs err {err:g}; tolerance: exact)")
+    n_act = past_gate(pb, st, p)
+    # useful bytes: the ids and offsets, w and cnt of the named rows, V of
+    # the gated ones, the [1+K, U] output; a full sweep reads w, cnt and V
+    # whole instead
+    io = 4 * (U + (nb + 1) + (1 + K) * U)
+    b_ms, b_by = bound(io + 4 * (2 * n_valid + K * n_act), 0)
+    whole_ms = (io + 4 * (2 + K) * num_rows) / HBM_BYTES_PER_S * 1e3
+    out["sweep_pull"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/sweep_pull.cu",
+        replaces="difacto_tpu/ops/sweep_ms.py:140", max_abs_err=err,
+        ms=cuda_ms(lambda: sweep_ms.sweep_pull_ms(st, sid, off, p,
+                                                  block_rows=R)),
+        plain_ms=cuda_ms(lambda: sweep_ms.sweep_pull_ms_plain(
+            st, sid, off, p, block_rows=R)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    log(f"sweep_pull: useful-byte bound {b_ms:.5f} ms; a whole-table "
+        f"sweep would move {io + 4 * (2 + K) * num_rows} B, "
+        f"{whole_ms:.5f} ms")
+
+    # -- apply: every w/V updater pair, and K = 0 --------------------------
+    vf = pb.valid.to(torch.float32)
+    worst = 0.0
+    for k, wupd, vupd in ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
+                          (K, "sgd", "adagrad"), (0, "ftrl", "adagrad")):
+        q = FMParam()
+        q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
+        base = st if k == K else random_state(FMUpdater(q), num_rows, dev,
+                                              seed=3)
+        grads = torch.randn((1 + k, U), generator=g, device=dev) * vf
+        payload = sweep_ms.apply_payload(grads, pb.ucounts, pb.valid)
+        a = sweep_ms.sweep_apply_ms(clone_state(base), sid, payload, off, q,
+                                    block_rows=R)
+        b = sweep_ms.sweep_apply_ms_plain(clone_state(base), sid, payload,
+                                          off, q, block_rows=R)
+        for name in ("w", "z", "n", "cnt", "V", "nV"):
+            x, y = getattr(a, name), getattr(b, name)
+            if x.numel():
+                worst = max(worst, float((x - y).abs().max()))
+                # unique ids: the same sums; the plain version's division
+                # by a scalar is a multiply by its reciprocal: 1 ulp
+                torch.testing.assert_close(
+                    x, y, rtol=1e-5, atol=1e-6,
+                    msg=f"sweep_apply {wupd}/{vupd} K={k}: {name}")
+        act = past_gate(pb, base, q)
+        # useful bytes as for apply_pairs, plus the offsets; a full sweep
+        # reads and writes all 4 + 2k leaves of every row
+        pay_io = 4 * (U + (nb + 1) + 3 * n_valid + k * act)
+        nbytes = pay_io + updater_bytes(wupd, vupd, k, n_valid, act)
+        whole = pay_io + 4 * 2 * (4 + 2 * k) * num_rows
+        work = clone_state(base)
+        rec = dict(
+            ms=cuda_ms(lambda: sweep_ms.sweep_apply_ms(
+                work, sid, payload, off, q, block_rows=R)),
+            plain_ms=cuda_ms(lambda: sweep_ms.sweep_apply_ms_plain(
+                work, sid, payload, off, q, block_rows=R)),
+        )
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 20 * n_valid
+                                                 + 8 * k * act)
+        rec["whole_table_ms"] = whole / HBM_BYTES_PER_S * 1e3
+        log(f"sweep_apply {wupd}/{vupd} K={k} ({n_valid} named rows, {act} "
+            f"past the V gate; a whole-table sweep moves {whole} B): "
+            f"{json.dumps(rec)}")
+        if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
+            out["sweep_apply"] = dict(
+                route="cuda", source="difacto_tpu_torch/csrc/sweep_apply.cu",
+                replaces="difacto_tpu/ops/sweep_ms.py:320",
+                **{k_: rec[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
+                library_ms=None,
+            )
+        del work, a, b
+    out["sweep_apply"]["max_abs_err"] = worst
+
+    # -- two streams of repeated ids: the first 2^16 slots of two seeded
+    # batches, each sorted with a sentinel tail; pull exact, and an
+    # integer payload in [1, 8] through SGD with unit rates on a zero
+    # table (w = -sum gw, V = -sum gV, cnt = sum add_cnt, all exact in
+    # float32), so a slot lost or added twice fails
+    slots = 1 << 16
+    parts, offs, pos = [], [], 0
+    for seed in (20, 21):
+        ids = flagship_batch(seed).ids.reshape(-1)[:slots].astype(np.int64)
+        ids = np.r_[np.sort(ids), np.full(1000, num_rows)]
+        offs.append(np.searchsorted(ids, np.arange(nb + 1) * R) + pos)
+        parts.append(ids)
+        pos += ids.shape[0]
+    sid2 = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
+    off2 = torch.from_numpy(np.stack(offs).astype(np.int32)).to(dev)
+    got = sweep_ms.sweep_pull_ms(st, sid2, off2, p, block_rows=R)
+    if not torch.equal(got, sweep_ms.sweep_pull_ms_plain(st, sid2, off2, p,
+                                                         block_rows=R)):
+        raise AssertionError("sweep_pull differs from its plain version on "
+                             "two streams of repeated ids")
+    q = FMParam()
+    q.V_dim, q.w_updater, q.V_updater, q.V_threshold = K, "sgd", "sgd", 0
+    q.lr_eta, q.l2, q.V_lr_eta, q.V_l2 = 1.0, 0.0, 1.0, 0.0
+    zero = FMUpdater(q).init_state(num_rows, 0, dev)
+    zero.V.zero_()
+    ipay = torch.randint(1, 9, (3 + K, sid2.shape[0]), generator=g,
+                         device=dev).float()
+    a = sweep_ms.sweep_apply_ms(clone_state(zero), sid2, ipay, off2, q,
+                                block_rows=R)
+    b = sweep_ms.sweep_apply_ms_plain(clone_state(zero), sid2, ipay, off2, q,
+                                      block_rows=R)
+    for name in ("w", "z", "n", "cnt", "V", "nV"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"sweep_apply differs from its plain version "
+                                 f"on two streams of an integer payload: "
+                                 f"{name} (tolerance: exact)")
+    hot = int(torch.unique(sid2[sid2 < num_rows], return_counts=True)[1]
+              .max())
+    log(f"sweep kernels on 2 streams of {slots} slots (hottest id {hot} "
+        f"slots over both): pull exact, integer-payload apply exact")
+    return out
+
+
+STEP_PATHS = ((), (("segsum", "scatter"),), (("kernel", "pallas"),),
+              (("kernel", "pallas"), ("segsum", "sorted")))
+
+
 def check_step_against_cpu(dev):
-    """Phase 3: the device train and eval steps against the CPU plain
-    path on a small batch, from one state (atol 2e-5, rtol 1e-5: sums
-    differ in order between the kernels and index_add_)."""
+    """Phase 3: the device train and eval steps of every kernel path
+    against the CPU plain path on a small batch, from one state (atol
+    2e-5, rtol 1e-5: sums differ in order between the kernels and
+    index_add_)."""
     import torch
 
     from difacto_tpu_torch.config import Config
@@ -277,34 +448,37 @@ def check_step_against_cpu(dev):
     from difacto_tpu_torch.parallel.store import LocalStore
     from difacto_tpu_torch.updaters.updater import FMUpdater
 
-    cfg = Config.from_kwargs([("batch_size", "512"), ("num_bits", "14"),
-                              ("max_nnz_per_row", "16"), ("V_dim", "8"),
-                              ("lr_eta", "0.1"), ("l1", "0.1"),
-                              ("V_lr_eta", "0.05"), ("V_threshold", "1")])
-    upd = FMUpdater(cfg.model)
-    gpu = LocalStore(upd, cfg, device=dev)
-    cpu = LocalStore(upd, cfg, device="cpu")
-    sg = gpu.init_state(5)
-    sc = cpu.place_state(clone_state(sg))
-    rng = np.random.default_rng(5)
-    for s in range(4):
-        ids = rng.integers(0, 1 << 14, (512, 16)).astype(np.int32)
-        ids[rng.random((512, 16)) < 0.1] = -1
-        vals = np.where(ids < 0, 0, rng.normal(size=(512, 16))).astype(
-            np.float32)
-        b = Batch(ids, vals, (rng.random(512) > 0.5).astype(np.float32),
-                  np.ones(512, np.float32))
-        sg, mg = gpu.train_step_prepped(sg, prep_batch(b, 1 << 14))
-        sc, mc = cpu.train_step_prepped(sc, prep_batch(b, 1 << 14))
-    for name in ("w", "z", "n", "V", "nV", "cnt"):
-        torch.testing.assert_close(getattr(sg, name).cpu(),
-                                   getattr(sc, name), atol=2e-5, rtol=1e-5,
-                                   msg=f"device step vs CPU: {name}")
-    _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, 1 << 14))
-    _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, 1 << 14))
-    torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
-    log(f"device train/eval steps match the CPU plain path (4 steps, "
-        f"max |dw| {float((sg.w.cpu() - sc.w).abs().max()):g})")
+    for extra in STEP_PATHS:
+        cfg = Config.from_kwargs([("batch_size", "512"), ("num_bits", "14"),
+                                  ("max_nnz_per_row", "16"), ("V_dim", "8"),
+                                  ("lr_eta", "0.1"), ("l1", "0.1"),
+                                  ("V_lr_eta", "0.05"), ("V_threshold", "1"),
+                                  *extra])
+        upd = FMUpdater(cfg.model)
+        gpu = LocalStore(upd, cfg, device=dev)
+        cpu = LocalStore(upd, cfg, device="cpu")
+        sg = gpu.init_state(5)
+        sc = cpu.place_state(clone_state(sg))
+        rng = np.random.default_rng(5)
+        for s in range(4):
+            ids = rng.integers(0, 1 << 14, (512, 16)).astype(np.int32)
+            ids[rng.random((512, 16)) < 0.1] = -1
+            vals = np.where(ids < 0, 0, rng.normal(size=(512, 16))).astype(
+                np.float32)
+            b = Batch(ids, vals, (rng.random(512) > 0.5).astype(np.float32),
+                      np.ones(512, np.float32))
+            sg, mg = gpu.train_step_prepped(sg, prep_batch(b, 1 << 14))
+            sc, mc = cpu.train_step_prepped(sc, prep_batch(b, 1 << 14))
+        for name in ("w", "z", "n", "V", "nV", "cnt"):
+            torch.testing.assert_close(
+                getattr(sg, name).cpu(), getattr(sc, name), atol=2e-5,
+                rtol=1e-5, msg=f"device step vs CPU {extra}: {name}")
+        _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, 1 << 14))
+        _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, 1 << 14))
+        torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
+        log(f"device train/eval steps {dict(extra) or 'kernel=auto'} match "
+            f"the CPU plain path (4 steps, max |dw| "
+            f"{float((sg.w.cpu() - sc.w).abs().max()):g})")
 
 
 def device_profile(prof, wall_s: float, steps: int) -> dict:
@@ -340,26 +514,34 @@ def write_zipf_libsvm(path: str, rows: int, seed: int) -> None:
             f.write(f"{labels[r]} {' '.join(tok[r * NNZ:(r + 1) * NNZ])}\n")
 
 
-def drive_main_path(dev, tmp: str):
-    """Phase 4: SGDLearner at the flagship shapes. Returns (launch counts
-    of the run, timing record)."""
+def write_main_data(tmp: str) -> tuple[str, str]:
+    """The flagship's train file (one epoch) and validation file."""
+    t0 = time.perf_counter()
+    train = os.path.join(tmp, "flagship.svm")
+    val = os.path.join(tmp, "flagship_val.svm")
+    write_zipf_libsvm(train, MAIN_BATCHES * BATCH, seed=10)
+    write_zipf_libsvm(val, BATCH, seed=11)
+    log(f"main path data written in {time.perf_counter() - t0:.1f} s")
+    return train, val
+
+
+def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple):
+    """Phase 4: SGDLearner at the flagship shapes on the kernel path that
+    ``extra`` selects, which must launch each kernel of ``path`` (its pull
+    first) once per step and no other kernel. Returns (launch counts of
+    the run, timing record)."""
     import torch
 
     from difacto_tpu_torch.config import Config
     from difacto_tpu_torch.learners.sgd import SGDLearner
     from difacto_tpu_torch.ops import cuda
 
-    t0 = time.perf_counter()
-    train = os.path.join(tmp, "flagship.svm")
-    write_zipf_libsvm(train, MAIN_BATCHES * BATCH, seed=10)
-    write_zipf_libsvm(os.path.join(tmp, "flagship_val.svm"), BATCH, seed=11)
-    log(f"main path data written in {time.perf_counter() - t0:.1f} s")
     cfg = Config.from_kwargs([
-        ("data_in", train), ("data_val", os.path.join(tmp, "flagship_val.svm")),
+        ("data_in", train), ("data_val", val),
         ("batch_size", str(BATCH)), ("max_nnz_per_row", str(NNZ)),
         ("num_bits", str(NUM_BITS)), ("V_dim", str(K)),
         ("cache_batches", "1"), ("cache_on_device", "1"),
-        ("report_interval", "0"),
+        ("report_interval", "0"), *extra,
     ])
     learner = SGDLearner(cfg)  # the card is the default device
     cuda.reset_launches()
@@ -384,6 +566,7 @@ def drive_main_path(dev, tmp: str):
     launches = dict(cuda.LAUNCHES)
     steps = MAIN_BATCHES
     rec = {
+        "path": dict(extra) or {"kernel": "auto"},
         "epoch0_stream_s": t_stream,
         "replay_ms_per_step": t_replay / steps * 1e3,
         "replay_examples_per_s": BATCH * steps / t_replay,
@@ -401,9 +584,10 @@ def drive_main_path(dev, tmp: str):
     for name in ("w", "z", "n", "V", "nV", "cnt"):
         if not bool(torch.isfinite(getattr(learner.state, name)).all()):
             raise AssertionError(f"non-finite state leaf {name}")
-    # three train epochs of `steps` steps, then one validation batch
-    want = {"pull_pairs": 3 * steps + 1, "segsum_sorted": 3 * steps,
-            "apply_pairs": 3 * steps}
+    # three train epochs of `steps` steps, then one validation batch that
+    # pulls; no launch of another path's kernels
+    want = {name: 3 * steps if name in path else 0 for name in launches}
+    want[path[0]] += 1  # the pull of the validation batch
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want} "
                              "(one per step and kernel)")
@@ -411,8 +595,9 @@ def drive_main_path(dev, tmp: str):
 
 
 def drive_cli(tmp: str) -> None:
-    """Phase 5: CLI train with validation and model_out, then
-    task=predict on the checkpoint; the scores must match the CPU's."""
+    """Phase 5: on each table path, CLI train with validation and
+    model_out, then task=predict on the checkpoint; the scores must match
+    the CPU's."""
     from difacto_tpu_torch import cli
     from difacto_tpu_torch.data.synthetic import make_ctr_data, write_libsvm
     from difacto_tpu_torch.ops import cuda
@@ -423,33 +608,40 @@ def drive_cli(tmp: str) -> None:
                                seed=1), tr)
     write_libsvm(make_ctr_data(2000, num_fields=10, vocab_per_field=300,
                                seed=2), va)
-    model = os.path.join(tmp, "model")
-    shape = ["batch_size=512", "num_bits=16", "max_nnz_per_row=12",
-             "V_dim=8"]
-    cuda.reset_launches()
-    rc = cli.main([f"data_in={tr}", f"data_val={va}", *shape, "lr_eta=0.1",
-                   "l1=0.1", "V_lr_eta=0.05", "max_num_epochs=2",
-                   f"model_out={model}"])
-    if rc != 0 or not os.path.exists(model + ".npz"):
-        raise AssertionError(f"CLI train failed (rc {rc})")
-    preds = {}
-    for dev in (None, "cpu"):
-        out = os.path.join(tmp, f"pred_{dev}.txt")
-        rc = cli.main([f"data_in={va}", *shape, "task=predict",
-                       f"model_in={model}", f"pred_out={out}"], device=dev)
-        if rc != 0:
-            raise AssertionError(f"CLI predict failed (rc {rc})")
-        preds[dev] = np.loadtxt(out)
-    if min(cuda.LAUNCHES.values()) == 0:
-        raise AssertionError(f"the CLI run skipped a kernel: {cuda.LAUNCHES}")
     labels = np.array([float(ln.split()[0]) for ln in open(va)])
-    auc = exact_auc(labels, preds[None])
-    log(f"CLI: predict AUC {auc:.6f} over {len(labels)} rows, launches "
-        f"{dict(cuda.LAUNCHES)}")
-    if not auc > 0.6:
-        raise AssertionError(f"CLI validation AUC {auc} <= 0.6")
-    np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
-                               atol=1e-5)
+    for kernel, path, other in (("auto", PAIRS_KERNELS, SWEEP_KERNELS),
+                                ("pallas", SWEEP_KERNELS, PAIRS_KERNELS)):
+        model = os.path.join(tmp, f"model_{kernel}")
+        shape = ["batch_size=512", "num_bits=16", "max_nnz_per_row=12",
+                 "V_dim=8", f"kernel={kernel}"]
+        cuda.reset_launches()
+        rc = cli.main([f"data_in={tr}", f"data_val={va}", *shape,
+                       "lr_eta=0.1", "l1=0.1", "V_lr_eta=0.05",
+                       "max_num_epochs=2", f"model_out={model}"])
+        if rc != 0 or not os.path.exists(model + ".npz"):
+            raise AssertionError(f"CLI train kernel={kernel} failed (rc {rc})")
+        preds = {}
+        for dev in (None, "cpu"):
+            out = os.path.join(tmp, f"pred_{kernel}_{dev}.txt")
+            rc = cli.main([f"data_in={va}", *shape, "task=predict",
+                           f"model_in={model}", f"pred_out={out}"],
+                          device=dev)
+            if rc != 0:
+                raise AssertionError(f"CLI predict kernel={kernel} failed "
+                                     f"(rc {rc})")
+            preds[dev] = np.loadtxt(out)
+        # the path's kernels ran, the other path's did not
+        if (min(cuda.LAUNCHES[k] for k in path) == 0
+                or any(cuda.LAUNCHES[k] for k in other)):
+            raise AssertionError(f"the CLI run kernel={kernel} went through "
+                                 f"the wrong kernels: {cuda.LAUNCHES}")
+        auc = exact_auc(labels, preds[None])
+        log(f"CLI kernel={kernel}: predict AUC {auc:.6f} over {len(labels)} "
+            f"rows, launches {dict(cuda.LAUNCHES)}")
+        if not auc > 0.6:
+            raise AssertionError(f"CLI validation AUC {auc} <= 0.6")
+        np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
+                                   atol=1e-5)
 
 
 def main() -> int:
@@ -474,15 +666,21 @@ def main() -> int:
 
     kernels = check_kernels(dev)
     check_step_against_cpu(dev)
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches, main_rec = drive_main_path(dev, tmp)
+        files = write_main_data(tmp)
+        # the pull first: it also serves the validation batch
+        for extra, path in (((), PAIRS_KERNELS),
+                            ((("kernel", "pallas"),), SWEEP_KERNELS)):
+            got, _ = drive_main_path(dev, *files, extra, path)
+            launches.update({name: got[name] for name in path})
         drive_cli(tmp)
     rows = [{"name": name, **{k: kernels[name][k] for k in (
         "route", "source", "replaces")}, "launches": launches[name],
         **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")}}
-        for name in ("pull_pairs", "segsum_sorted", "apply_pairs")]
+        for name in PAIRS_KERNELS + SWEEP_KERNELS]
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

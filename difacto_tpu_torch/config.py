@@ -163,13 +163,16 @@ class ShardParam(ParamBase):
     num_shards: int = 0            # store=sharded only
     capacity_factor: float = 2.0   # store=sharded only
     unique_size: int = 0           # floor of the unique-lane bucket
-    kernel: str = "auto"           # auto | pairs = the hand-written table
-                                   # kernels (ops/pair_sweep.py)
+    kernel: str = "auto"           # auto | pairs = the unique-row table
+                                   # kernels (ops/pair_sweep.py); pallas =
+                                   # the whole-table sweep (ops/sweep.py)
     layout: str = "auto"           # auto | planar (w/z/n/cnt [N], V/nV [K, N])
-    block_rows: int = 1024         # Pallas block size; the port's kernels
-                                   # take no schedule and ignore it
-    segsum: str = "auto"           # auto | sorted = the segment-sum kernel
-                                   # over the host-sorted slot stream
+    block_rows: int = 1024         # table block of the sweep kernels
+                                   # (kernel=pallas); must divide the rows
+    segsum: str = "auto"           # sorted = the segment-sum kernel over the
+                                   # host-sorted slot stream; scatter =
+                                   # index_add_; auto = sorted for pairs,
+                                   # scatter for pallas
     interpret: bool = False        # Pallas interpret mode; no meaning here
     hot_rows: int = 0              # hot/cold table split (not in the port)
     hot_count_batches: int = 16    # hot_rows only
@@ -188,11 +191,9 @@ def _slice_violations(cfg: "Config") -> list[str]:
         out.append("loss=ffm (ROADMAP A8, FFM)")
     if s.hot_rows != 0:
         out.append("hot_rows != 0 (ROADMAP A13, hot/cold split)")
-    if s.kernel == "pallas":
-        out.append("kernel=pallas (ROADMAP A10, kernels B4/B5)")
-    if s.kernel == "xla" or s.segsum == "scatter":
-        out.append("kernel=xla / segsum=scatter (ROADMAP A14, the XLA "
-                   "gather/scatter path and its layouts)")
+    if s.kernel == "xla":
+        out.append("kernel=xla (ROADMAP A14, the XLA gather/scatter path "
+                   "and its layouts)")
     if s.layout in ("packed", "stacked"):
         out.append(f"layout={s.layout} (ROADMAP A14, other layouts)")
     if not d.host_localize:

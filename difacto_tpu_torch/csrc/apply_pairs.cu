@@ -18,7 +18,8 @@
 // order, so instead the uid stream must be non-decreasing (the wrapper
 // asserts it) and the lane that starts a run of equal ids sums the
 // payload over its run in lane order — deterministic, no atomics — then
-// does the update with the formulas in fused_table_update's order, so
+// does the update with the formulas in fused_table_update's order
+// (csrc/table_update.cuh, shared with csrc/sweep_apply.cu), so
 // results match the plain version to float rounding (built with
 // --fmad=false). On the train path ids are unique, so every valid lane
 // starts a run.
@@ -30,15 +31,8 @@
 // lane, in a second launch, measured no faster on an H100 (PERF.md), so
 // the one launch stays; a row-major V is the ROADMAP's open question.
 #include <cuda_runtime.h>
-#include <math.h>
 
-struct ApplyParams {
-  float lr_eta, lr_beta, l1, l2;
-  float V_lr_eta, V_lr_beta, V_l2, V_threshold;
-  int tail;        // tail_feature_filter (0 = off)
-  int w_updater;   // 0 ftrl, 1 adagrad, 2 sgd
-  int V_updater;   // 0 adagrad, 1 sgd
-};
+#include "table_update.cuh"
 
 __device__ __forceinline__ float run_sum(const float* __restrict__ pay,
                                          int row, int u, int lo, int hi) {
@@ -74,52 +68,15 @@ __global__ void apply_pairs_kernel(float* __restrict__ w, float* __restrict__ z,
   int id = run_start(uids, lane, U, N, &end);
   if (id < 0) return;
   if (!(run_sum(pay, 2 + K, U, lane, end) > 0.0f)) return;  // keep bits
-  float g = run_sum(pay, 0, U, lane, end);
   float add_cnt = run_sum(pay, 1 + K, U, lane, end);
   float c = cnt[id];                                // PRE-update count
   bool tail_ok = p.tail <= 0 || c >= (float)p.tail;
-  if (tail_ok) {
-    float wv = w[id];
-    if (p.w_updater == 0) {          // ftrl
-      float nv = nn[id], zv = z[id];
-      float n_new = nv + g * g;
-      float sigma = (sqrtf(n_new) - sqrtf(nv)) / p.lr_eta;
-      float z_new = zv + g - sigma * wv;
-      float w_new;
-      if (fabsf(z_new) <= p.l1) {
-        w_new = 0.0f;
-      } else {
-        float sgn = z_new > 0.0f ? 1.0f : (z_new < 0.0f ? -1.0f : 0.0f);
-        w_new = -(z_new - sgn * p.l1) /
-                ((p.lr_beta + sqrtf(n_new)) / p.lr_eta + p.l2);
-      }
-      w[id] = w_new;
-      z[id] = z_new;
-      nn[id] = n_new;
-    } else if (p.w_updater == 1) {   // adagrad
-      float g_r = g + p.l2 * wv;
-      float n_new = nn[id] + g_r * g_r;
-      w[id] = wv - p.lr_eta * g_r / (sqrtf(n_new) + p.lr_beta);
-      nn[id] = n_new;
-    } else {                         // sgd
-      w[id] = wv - p.lr_eta * (g + p.l2 * wv);
-    }
-  }
+  if (tail_ok) update_w(w, z, nn, id, run_sum(pay, 0, U, lane, end), p);
   cnt[id] = c + add_cnt;
   if (K > 0 && tail_ok && c >= p.V_threshold) {
-    for (int r = 0; r < K; ++r) {
-      long long at = (long long)r * N + id;
-      float gv = run_sum(pay, 1 + r, U, lane, end);
-      float v = V[at];
-      if (p.V_updater == 0) {        // adagrad
-        float gv_r = gv + p.V_l2 * v;
-        float nv_new = nV[at] + gv_r * gv_r;
-        V[at] = v - p.V_lr_eta * gv_r / (sqrtf(nv_new) + p.V_lr_beta);
-        nV[at] = nv_new;
-      } else {                       // sgd
-        V[at] = v - p.V_lr_eta * (gv + p.V_l2 * v);
-      }
-    }
+    for (int r = 0; r < K; ++r)
+      update_v(V, nV, (long long)r * N + id, run_sum(pay, 1 + r, U, lane, end),
+               p);
   }
 }
 

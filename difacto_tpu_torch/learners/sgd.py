@@ -201,8 +201,9 @@ class SGDLearner:
         skip = self._resume_step if epoch == self._epoch else 0
         if skip:
             log.info("resuming epoch %d at step %d", epoch, skip)
+        # the sorted slots only where the store's backward reads them
         for batch in self._iter(cfg.data.data_in, shuffle=True, epoch=epoch,
-                                sorted_slots=True):
+                                sorted_slots=self.store.sorted_grads):
             if step < skip:
                 step += 1
                 continue

@@ -8,11 +8,12 @@ where the gradients go; the math here is the same for both.
 
 Two per-key aggregations:
 
-* :func:`worker_grads` — the scatter path, with ``index_add_``: the plain
-  baseline that the sorted path is held against;
-* :func:`worker_grads_sorted` — the main path: the backward runs in
-  host-sorted slot order and the per-key sums come from the segment-sum
-  kernel (ops/segsum.py).
+* :func:`worker_grads` — the scatter path (``segsum=scatter``, and
+  ``kernel=pallas``'s default), with ``index_add_``;
+* :func:`worker_grads_sorted` — the sorted path (``segsum=sorted``, and
+  ``kernel=pairs``'s default): the backward runs in host-sorted slot
+  order and the per-key sums come from the segment-sum kernel
+  (ops/segsum.py).
 """
 
 from __future__ import annotations

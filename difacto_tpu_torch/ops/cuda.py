@@ -4,16 +4,18 @@ The sources under ``difacto_tpu_torch/csrc/`` have a plain C interface.
 On first use they are compiled for Hopper (``sm_90a``) by ``nvcc``, one
 process per source started together, and linked into one shared library
 under ``build/torch_kernels/<hash>/`` beside the package (git-ignored),
-keyed by a hash of the sources and flags; ``ctypes`` loads it. Every
-pointer and the stream go through ``ctypes.c_void_p``; each C entry
-returns ``cudaGetLastError()`` and :func:`check` raises if it is not 0.
+keyed by a hash of the sources, their headers and the flags; ``ctypes``
+loads it. Every pointer and the stream go through ``ctypes.c_void_p``;
+each C entry returns ``cudaGetLastError()`` and :func:`check` raises if
+it is not 0.
 
 Nothing here runs at import: the CPU tests import every module, on hosts
 that may have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (ops/pair_sweep.py,
-ops/segsum.py): each wrapper adds one where it launches its kernel and
-nowhere else, so a run can show which kernels its path went through.
+ops/segsum.py, ops/sweep_ms.py): each wrapper adds one where it launches
+its kernel and nowhere else, so a run can show which kernels its path
+went through.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu")
+SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu", "sweep_pull.cu",
+           "sweep_apply.cu")
+HEADERS = ("table_update.cuh", "sweep.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # --fmad=false: no fused multiply-adds, so each kernel rounds exactly as
@@ -38,7 +42,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libdifacto_torch_kernels.so"
 
-LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0}
+LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
+            "sweep_pull": 0, "sweep_apply": 0}
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -51,6 +56,13 @@ _SIGNATURES = {
     + [_I, _I, _I, _VP],
     # payT, lanes, out, head, tail, seg_lo, seg_hi, pp, blp, ub, stream
     "dft_segsum_sorted": [_VP] * 7 + [_I, _I, _I, _VP],
+    # w, cnt, V, sid, offsets, out, N, K, nnz, S, nb, R, V_threshold, stream
+    "dft_sweep_pull": [_VP] * 6 + [_LL] + [_I] * 5 + [_F, _VP],
+    # w, z, n, cnt, V, nV, sid, payload, offsets, N, K, nnz, S, nb, R,
+    # lr_eta, lr_beta, l1, l2, V_lr_eta, V_lr_beta, V_l2, V_threshold,
+    # tail_feature_filter, w_updater, V_updater, stream
+    "dft_sweep_apply": [_VP] * 9 + [_LL] + [_I] * 5 + [_F] * 8
+    + [_I, _I, _I, _VP],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -66,7 +78,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH + CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

@@ -20,10 +20,7 @@ import torch
 from ..config import FMParam
 from ..updaters.updater import FMState
 from . import cuda
-from .sweep_ms import fused_table_update
-
-_W_UPDATERS = {"ftrl": 0, "adagrad": 1, "sgd": 2}
-_V_UPDATERS = {"adagrad": 0, "sgd": 1}
+from .sweep_ms import V_UPDATERS, W_UPDATERS, fused_table_update, gather_rows
 
 
 # ---------------------------------------------------------------------------
@@ -34,16 +31,8 @@ _V_UPDATERS = {"adagrad": 0, "sgd": 1}
 def pull_pairs_plain(state: FMState, uids: torch.Tensor,
                      param: FMParam) -> torch.Tensor:
     """Indexing plus a mask: the plain version of the pull kernel."""
-    n, k = state.num_rows, state.k
-    real = (uids >= 0) & (uids < n)
-    idx = torch.where(real, uids, 0).long()
-    out = torch.empty((1 + k, uids.shape[0]), dtype=torch.float32,
-                      device=uids.device)
-    out[0] = torch.where(real, state.w[idx], 0.0)
-    if k > 0:
-        act = real & (state.cnt[idx] >= float(param.V_threshold))
-        out[1:] = torch.where(act[None, :], state.V[:, idx], 0.0)
-    return out
+    return gather_rows(state, uids, (uids >= 0) & (uids < state.num_rows),
+                       param)
 
 
 def pull_pairs(state: FMState, uids: torch.Tensor,
@@ -138,7 +127,7 @@ def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
         uids.data_ptr(), payload.data_ptr(), n, k, u,
         p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta, p.V_l2,
         float(p.V_threshold), int(p.tail_feature_filter),
-        _W_UPDATERS[p.w_updater], _V_UPDATERS[p.V_updater],
+        W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater],
         cuda.stream(dev),
     )
     cuda.check(rc, "apply_pairs")

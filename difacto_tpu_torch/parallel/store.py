@@ -2,15 +2,25 @@
 
 Port of ``difacto_tpu/parallel/store.py`` :: LocalStore (reference:
 ``src/store/store_local.h`` :: StoreLocal, which calls the updater in
-process) on its main path, ``kernel=pairs`` with ``segsum=sorted``:
+process). A train step is
 
-    pull (ops/pair_sweep.py) -> [B, L] forward -> sorted-slot backward ->
-    segment sum (ops/segsum.py) -> apply (ops/pair_sweep.py), in place.
+    pull -> [B, L] forward -> backward -> per-key sums -> apply, in place,
 
-The eval step is pull -> forward. Both take the host-prepped batch
-(data/prep.py) and run the hand-written kernels when the state lies on
-the card, their plain versions when it lies on the CPU. The sharded store
-waits (ROADMAP A9).
+and an eval step is pull -> forward. The config picks the table kernels
+and the per-key aggregation, as the JAX store does
+(``store.py:243-249``, ``:626-689``):
+
+* ``kernel=auto|pairs``: pull and apply of the batch's unique rows
+  (ops/pair_sweep.py, B1, B2);
+* ``kernel=pallas``: the whole-table sweep (ops/sweep.py, B4, B5);
+* ``segsum=sorted``: the sorted-slot backward and the segment-sum kernel
+  (learners/step.py::worker_grads_sorted, B3); ``segsum=scatter``: the
+  ``index_add_`` backward (worker_grads); ``segsum=auto``: sorted for
+  pairs, scatter for pallas.
+
+Both take the host-prepped batch (data/prep.py) and run the hand-written
+kernels when the state lies on the card, their plain versions when it
+lies on the CPU. The sharded store waits (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -20,9 +30,12 @@ import torch
 
 from ..config import Config
 from ..data.prep import PreppedBatch, build_sorted_slots
-from ..learners.step import StepMetrics, worker_forward, worker_grads_sorted
+from ..learners.step import (StepMetrics, worker_forward, worker_grads,
+                             worker_grads_sorted)
 from ..ops.localize import Localized
 from ..ops.pair_sweep import apply_pairs, pull_pairs
+from ..ops.sweep import sweep_apply, sweep_pull
+from ..ops.sweep_ms import apply_payload
 from ..updaters.updater import FMState, FMUpdater, LEAVES
 from ..utils.device import resolve_device
 from ..utils.place import place_batch
@@ -42,6 +55,12 @@ class LocalStore:
         self.device = resolve_device(device)
         self.num_rows = 1 << cfg.data.num_bits
         self.param = updater.param
+        s = cfg.shard
+        self.pallas = s.kernel == "pallas"
+        self.block_rows = min(s.block_rows, self.num_rows)
+        # segsum=auto: the sorted backward on pairs, scatter on pallas
+        self.sorted_grads = s.segsum == "sorted" or (
+            s.segsum == "auto" and not self.pallas)
 
     def init_state(self, seed: int = 0) -> FMState:
         return self.updater.init_state(self.num_rows, seed, self.device)
@@ -94,31 +113,43 @@ class LocalStore:
     def _pull(self, state: FMState, pb: PreppedBatch) -> torch.Tensor:
         """Unique rows [U, 1+K] (w | count-gated V) of the batch. Lanes
         past the batch's real unique count are zero (the valid mask)."""
+        if self.pallas:
+            return sweep_pull(state, pb.uids, pb.valid, self.param,
+                              block_rows=self.block_rows)
         rows_p = pull_pairs(state, pb.uids, self.param)
         return torch.where(pb.valid[:, None], rows_p.T, 0.0)
 
+    def _apply(self, state: FMState, pb: PreppedBatch,
+               grads: torch.Tensor) -> FMState:
+        """The in-place table update from planar per-key gradients
+        [1+K, U]."""
+        if self.pallas:
+            return sweep_apply(state, pb.uids, grads, pb.ucounts, pb.valid,
+                               self.param, block_rows=self.block_rows)
+        return apply_pairs(state, pb.uids,
+                           apply_payload(grads, pb.ucounts, pb.valid),
+                           self.param)
+
     def train_step_prepped(self, state: FMState,
                            pb: PreppedBatch) -> tuple[FMState, StepMetrics]:
-        """pull -> forward -> sorted backward -> segment sum -> apply. The
-        apply updates ``state`` in place (it replaces the TPU step's
-        donated buffers)."""
-        pb = self._placed(pb, need_slots=True)
+        """pull -> forward -> backward -> per-key sums -> apply. The apply
+        updates ``state`` in place (it replaces the TPU step's donated
+        buffers)."""
+        pb = self._placed(pb, need_slots=self.sorted_grads)
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
         rows_u = self._pull(state, pb)
-        ss = pb.sorted_slots
-        grads_p, _, metrics = worker_grads_sorted(
-            rows_u, loc, pb.vals, pb.labels, pb.mask,
-            (ss.x_sorted, ss.bidx, ss.inv_sorted),
-        )
-        vf = pb.valid.to(torch.float32)
-        payload = torch.cat([
-            torch.where(pb.valid[None, :], grads_p, 0.0),  # gw | gV planar
-            (loc.counts * vf)[None, :],                    # add_cnt
-            vf[None, :],                                   # touch
-        ], dim=0)
-        state = apply_pairs(state, pb.uids, payload, self.param)
-        return state, metrics
+        if self.sorted_grads:
+            ss = pb.sorted_slots
+            grads, _, metrics = worker_grads_sorted(
+                rows_u, loc, pb.vals, pb.labels, pb.mask,
+                (ss.x_sorted, ss.bidx, ss.inv_sorted),
+            )
+        else:
+            grads_u, _, metrics = worker_grads(rows_u, loc, pb.vals,
+                                               pb.labels, pb.mask)
+            grads = grads_u.T
+        return self._apply(state, pb, grads), metrics
 
     def eval_step_prepped(self, state: FMState,
                           pb: PreppedBatch) -> tuple[StepMetrics, torch.Tensor]:

@@ -2,8 +2,8 @@
 
 On the CPU each wrapper of difacto_tpu_torch runs its kernel's plain
 PyTorch version; here those are held against the JAX kernels run in
-interpret mode, at the sizes of tests/test_pair_sweep.py and
-tests/test_segsum.py, from the same NumPy inputs (made by the helpers of
+interpret mode, at the sizes of tests/test_pair_sweep.py,
+tests/test_segsum.py and tests/test_sweep.py, from the same NumPy inputs (made by the helpers of
 tests/test_torch_cuda.py, where the hand-written CUDA kernels themselves
 are held against the plain versions on the card).
 """
@@ -18,20 +18,24 @@ import torch
 from difacto_tpu.config import FMParam as JFMParam
 from difacto_tpu.ops import pair_sweep as jps
 from difacto_tpu.ops import segsum as jseg
+from difacto_tpu.ops import sweep as jsweep
+from difacto_tpu.ops import sweep_ms as jsweep_ms
 from difacto_tpu.ops.sweep_ms import fused_table_update as j_fused
 from difacto_tpu.updaters.updater import FMState as JFMState
 from difacto_tpu.updaters.updater import FMUpdater as JFMUpdater
-from difacto_tpu_torch.ops import pair_sweep, segsum
+from difacto_tpu_torch.ops import pair_sweep, segsum, sweep, sweep_ms
 from difacto_tpu_torch.ops.sweep_ms import fused_table_update
 from difacto_tpu_torch.updaters.updater import FMUpdater
 from difacto_tpu_torch.utils.checkpoint import state_from_numpy, state_to_numpy
-from test_torch_cuda import (LEAVES, N, U, payload as _payload,
-                             port_params, sorted_uids as _sorted_uids,
+from test_torch_cuda import (LEAVES, N, N2, R2, U, id_streams,
+                             payload as _payload, port_params,
+                             slot_payload, sorted_uids as _sorted_uids,
                              state_np as _state_np)
 
 torch.set_num_threads(2)
 
 BLOCK_ROWS = 512
+T = torch.from_numpy
 
 
 def _params(**kw):
@@ -209,3 +213,107 @@ def test_segsum_sorted_matches_jax(bl, ub, pp, hi):
     covered = np.zeros(ub, bool)
     covered[lanes] = True
     assert np.all(got[:, ~covered] == 0.0)
+
+
+SWEEP_CASES = [
+    (4, "ftrl", "adagrad", 0),
+    (0, "ftrl", "adagrad", 0),
+    (2, "adagrad", "sgd", 0),
+    (3, "sgd", "adagrad", 2),
+]
+
+
+def _sweep_both(s, uids, valid, grads, addc, jp, tp, n=N):
+    """Pull then apply through JAX's ops/sweep.py (interpret mode) and the
+    port's; asserts the pull (exact) and the in-place apply (atol 1e-5,
+    rows no id names keep their bits)."""
+    ref = jsweep.sweep_pull(_jstate(s), jnp.asarray(uids), jnp.asarray(valid),
+                            jp, block_rows=BLOCK_ROWS, interpret=True)
+    got = sweep.sweep_pull(state_from_numpy(s), T(uids), T(valid), tp,
+                           block_rows=BLOCK_ROWS)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ref = jsweep.sweep_apply(_jstate(s), jnp.asarray(uids), jnp.asarray(grads),
+                             jnp.asarray(addc), jnp.asarray(valid), jp,
+                             block_rows=BLOCK_ROWS, interpret=True)
+    st = state_from_numpy(s)
+    # the port takes the per-key gradients planar [1+K, U]
+    out = sweep.sweep_apply(st, T(uids), T(grads.T.copy()), T(addc),
+                            T(valid), tp, block_rows=BLOCK_ROWS)
+    assert out is st  # in place
+    got = state_to_numpy(out)
+    named = np.zeros(n, bool)
+    named[uids[valid]] = True
+    for name in LEAVES:
+        a = np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(got[name], a, rtol=0, atol=1e-5,
+                                   err_msg=name)
+        assert np.array_equal(got[name][..., ~named], s[name][..., ~named])
+
+
+@pytest.mark.parametrize("K,wupd,vupd,tff", SWEEP_CASES)
+def test_sweep_pull_and_apply_match_jax(K, wupd, vupd, tff):
+    """tests/test_sweep.py's cases: N 4096, block_rows 512."""
+    rng = np.random.default_rng(90 + K)
+    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                     tail_feature_filter=tff)
+    s = _state_np(K, rng)
+    uids, valid = _sorted_uids(rng)
+    grads = rng.normal(size=(U, 1 + K)).astype(np.float32)
+    addc = rng.integers(1, 4, U).astype(np.float32)
+    _sweep_both(s, uids, valid, grads, addc, jp, tp)
+
+
+def test_sweep_dense_block_matches_jax():
+    """tests/test_sweep.py's dense case: 400 ids in one 512-row block."""
+    K, n, u = 2, 1024, 400
+    rng = np.random.default_rng(4)
+    jp, tp = _params(V_dim=K, V_threshold=0)
+    s = _state_np(K, rng, n=n)
+    uids = np.sort(rng.choice(512, size=u, replace=False)).astype(np.int32)
+    valid = np.ones(u, bool)
+    grads = rng.normal(size=(u, 1 + K)).astype(np.float32)
+    _sweep_both(s, uids, valid, grads, np.ones(u, np.float32), jp, tp, n=n)
+
+
+@pytest.mark.parametrize("K", [0, 3])
+def test_sweep_ms_two_streams_with_duplicates_match_jax(K):
+    """The multi-stream kernels themselves: two sorted streams with ids
+    repeated within and across them, sentinel tails, one empty block."""
+    rng = np.random.default_rng(100 + K)
+    jp, tp = _params(V_dim=K)
+    s = _state_np(K, rng, n=N2)
+    sid, off = id_streams(rng)
+    pay = slot_payload(K, sid.shape[0], rng)
+    real = sid < N2
+    ref = np.asarray(jsweep_ms.sweep_pull_ms(
+        _jstate(s), jnp.asarray(sid), jnp.asarray(off), jp, block_rows=R2,
+        interpret=True))
+    got = sweep_ms.sweep_pull_ms(state_from_numpy(s), T(sid), T(off), tp,
+                                 block_rows=R2).numpy()
+    # the sentinel slots are undefined in the TPU kernel, zero in the port
+    np.testing.assert_array_equal(got[:, real], ref[:, real])
+    assert np.all(got[:, ~real] == 0.0)
+    ref = jsweep_ms.sweep_apply_ms(
+        _jstate(s), jnp.asarray(sid), jnp.asarray(pay), jnp.asarray(off), jp,
+        block_rows=R2, interpret=True)
+    got = state_to_numpy(sweep_ms.sweep_apply_ms(
+        state_from_numpy(s), T(sid), T(pay), T(off), tp, block_rows=R2))
+    for name in LEAVES:
+        np.testing.assert_allclose(got[name], np.asarray(getattr(ref, name)),
+                                   rtol=0, atol=1e-5, err_msg=name)
+    cnt = s["cnt"].copy()
+    np.add.at(cnt, sid[real], pay[1 + K][real])
+    np.testing.assert_array_equal(got["cnt"], cnt)
+
+
+def test_sweep_wrappers_refuse_a_ragged_table():
+    p = port_params(V_dim=2)
+    st = state_from_numpy(_state_np(2, np.random.default_rng(0), n=N2))
+    sid = torch.full((8,), N2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of block_rows"):
+        sweep_ms.sweep_pull_ms(st, sid, torch.zeros((1, 4), dtype=torch.int32),
+                               p, block_rows=300)
+    with pytest.raises(ValueError, match="offsets has shape"):
+        sweep_ms.sweep_apply_ms(st, sid, torch.zeros((5, 8)),
+                                torch.zeros((1, 3), dtype=torch.int32), p,
+                                block_rows=R2)

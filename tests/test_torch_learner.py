@@ -30,6 +30,8 @@ from difacto_tpu_torch import cli
 from difacto_tpu_torch.config import Config
 from difacto_tpu_torch.data import libsvm, synthetic
 from difacto_tpu_torch.learners.sgd import SGDLearner
+from difacto_tpu_torch.parallel.store import make_store
+from difacto_tpu_torch.updaters.updater import FMUpdater
 from difacto_tpu_torch.utils import checkpoint
 from difacto_tpu_torch.utils.checkpoint import state_to_numpy
 
@@ -108,6 +110,26 @@ def test_verify_recipe_matches_jax(data, tmp_path):
     assert va.exact_auc > 0.6
 
 
+def test_verify_recipe_pallas_matches_jax(data, tmp_path):
+    """The whole-table sweep path (kernel=pallas: B4, the scatter
+    backward, B5) trains the verify recipe as the JAX learner does on the
+    same path (its Pallas kernels in interpret mode), and the CLI scores
+    the result with kernel=pallas as JAX's predict does."""
+    start, model = str(tmp_path / "start"), str(tmp_path / "model")
+    jcheckpoint.save(start, JFMState(**_random_state(3)), {"epoch": 0})
+    kw = _recipe(data, ("model_in", start), ("kernel", "pallas"))
+    jva = JSGDLearner(JConfig.from_kwargs(kw + [("interpret", "1")])).run()
+    va = SGDLearner(Config.from_kwargs(kw + [("model_out", model)]),
+                    device="cpu").run()
+    assert va.num_examples == jva.num_examples == 2000
+    assert va.logloss == pytest.approx(jva.logloss, rel=1e-5)
+    assert va.exact_auc == pytest.approx(jva.exact_auc, abs=1e-5)
+    assert va.exact_auc > 0.6
+    got = _predict_port(data, model, tmp_path / "pred.txt", "kernel=pallas")
+    np.testing.assert_allclose(got, _predict_jax(data, model), rtol=2e-5,
+                               atol=1e-5)
+
+
 def test_save_interval_resume_matches_uninterrupted(data, tmp_path):
     out = str(tmp_path / "mid")
     kw = _recipe(data, ("model_out", out), ("save_interval_steps", "5"))
@@ -123,11 +145,11 @@ def test_save_interval_resume_matches_uninterrupted(data, tmp_path):
         np.testing.assert_array_equal(a[name], b[name], err_msg=name)
 
 
-def _predict_port(data, model, out):
+def _predict_port(data, model, out, *extra):
     cli.main([f"data_in={data / 'val.svm'}", "batch_size=512",
               f"num_bits={BITS}", "max_nnz_per_row=12", f"V_dim={K}",
-              "task=predict", f"model_in={model}", f"pred_out={out}"],
-             device="cpu")
+              "task=predict", f"model_in={model}", f"pred_out={out}",
+              *extra], device="cpu")
     return np.loadtxt(out)
 
 
@@ -187,9 +209,7 @@ def test_unknown_key_is_fatal():
         ("learner", "bcd", "A15"),
         ("loss", "ffm", "A8"),
         ("hot_rows", "1024", "A13"),
-        ("kernel", "pallas", "A10"),
         ("kernel", "xla", "A14"),
-        ("segsum", "scatter", "A14"),
         ("layout", "packed", "A14"),
         ("layout", "stacked", "A14"),
         ("host_localize", "0", "A16"),
@@ -202,6 +222,22 @@ def test_unknown_key_is_fatal():
 def test_out_of_slice_setting_raises(key, val, item):
     with pytest.raises(NotImplementedError, match=item):
         Config.from_kwargs([(key, val)])
+
+
+@pytest.mark.parametrize(
+    "kw,pallas,sorted_grads",
+    [
+        ((("kernel", "pallas"),), True, False),
+        ((("segsum", "scatter"),), False, False),
+    ],
+)
+def test_kernel_settings_are_accepted(kw, pallas, sorted_grads):
+    """kernel=pallas and segsum=scatter are in the port (they raised
+    before the whole-table sweep came); segsum=auto is sorted on pairs
+    and scatter on pallas, as the JAX store resolves it."""
+    cfg = Config.from_kwargs([("num_bits", "12"), *kw])
+    store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+    assert (store.pallas, store.sorted_grads) == (pallas, sorted_grads)
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(data):

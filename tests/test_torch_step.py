@@ -4,7 +4,8 @@ Same NumPy inputs through both packages on the CPU: the loss math, the
 histogram AUC, the per-key gradients (the port's sorted segment-sum path
 and its scatter baseline against JAX's scatter path), and the slice as a
 whole — five prepped train steps of the port's LocalStore against the JAX
-LocalStore on its XLA path (kernel=xla, segsum=scatter), from one state
+LocalStore on its XLA path (kernel=xla, segsum=scatter) and on each
+kernel path the port takes (Pallas in interpret mode), from one state
 carried across by ``state_from_numpy``, then the eval scores.
 """
 
@@ -182,8 +183,15 @@ def test_local_store_matches_jax_xla_path(K, extra):
     cfg = Config.from_kwargs(_kw(K, extra))
     jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg)
     store = LocalStore(FMUpdater(cfg.model), cfg, device="cpu")
-    s0 = _start_state(K)
-    if cfg.model.tail_feature_filter:
+    _five_steps_and_eval(jstore, store, N)
+
+
+def _five_steps_and_eval(jstore, store, N):
+    """Five prepped train steps of both stores from one NumPy state, then
+    an eval batch (leaves atol 2e-5 rtol 1e-5; logloss rtol 1e-5)."""
+    p = store.param
+    s0 = _start_state(p.V_dim)
+    if p.tail_feature_filter:
         # counts from a count pass, so the tail filter masks some rows
         s0["cnt"] = np.random.default_rng(1).integers(0, 4, N).astype(
             np.float32)
@@ -205,6 +213,32 @@ def test_local_store_matches_jax_xla_path(K, extra):
     np.testing.assert_allclose(py.numpy(), np.asarray(jpy), atol=2e-5,
                                rtol=1e-5)
     np.testing.assert_allclose(m.auc_hist.numpy(), np.asarray(jm.auc_hist))
+
+
+@pytest.mark.parametrize(
+    "K,extra",
+    [
+        (4, (("kernel", "pallas"),)),
+        (0, (("kernel", "pallas"),)),
+        (4, (("kernel", "pallas"), ("segsum", "sorted"))),
+        (4, (("kernel", "pallas"), ("segsum", "sorted"),
+             ("w_updater", "sgd"), ("tail_feature_filter", "2"))),
+        (4, (("kernel", "pairs"), ("segsum", "scatter"))),
+    ],
+)
+def test_local_store_kernel_paths_match_jax(K, extra):
+    """The whole-table sweep (kernel=pallas, with the scatter or the
+    sorted backward) and the pair kernels with the scatter backward,
+    against JAX's LocalStore on the same path with its Pallas kernels in
+    interpret mode."""
+    N = 1 << 12
+    jcfg = JConfig.from_kwargs(_kw(K, extra))
+    cfg = Config.from_kwargs(_kw(K, extra))
+    jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg, interpret=True)
+    store = LocalStore(FMUpdater(cfg.model), cfg, device="cpu")
+    assert store.pallas == jstore.pallas
+    assert store.sorted_grads == jstore.sorted_grads
+    _five_steps_and_eval(jstore, store, N)
 
 
 def test_local_store_count_step_matches_jax():
