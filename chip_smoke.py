@@ -8,14 +8,16 @@ Phases, each a hard failure:
 2. hold each kernel against its plain PyTorch version on the card at the
    flagship shapes (batch 16384 x 40 nnz with Zipf(1.2) ids, 2^22 rows,
    K = 16; the sweep kernels with 1024-row blocks, one stream, and two
-   streams of repeated ids whose integer payload must sum exactly), and
-   time the kernel, the plain version and, where one PyTorch call
-   computes the same function, that call;
+   streams of repeated ids whose integer payload must sum exactly; the
+   probes' kernels at their probes' shapes, ``apply_pairs2`` also against
+   ``apply_pairs``), and time the kernel, the plain version and, where
+   one PyTorch call computes the same function, that call;
 3. hold the device train and eval steps of every kernel path (pairs with
    the sorted and the scatter backward, the whole-table sweep with
    either) against the CPU plain path on a small batch, from one state;
-4. drive the flagship through ``SGDLearner`` twice, on the pair kernels
-   (``kernel=auto``) and on the whole-table sweep (``kernel=pallas``):
+4. drive the flagship through ``SGDLearner`` three times, on the pair
+   kernels (``kernel=auto``) and on the whole-table sweep
+   (``kernel=pallas``, with the scatter and with the sorted backward):
    an epoch that streams from a libsvm file and caches the batches on the
    card, then a timed epoch that replays them, a traced replay and a
    validation pass, with every launch counter reset just before each
@@ -23,12 +25,16 @@ Phases, each a hard failure:
 5. the CLI on a small synthetic set, on both table paths: train 2 epochs
    with validation and ``model_out``, then ``task=predict`` on that
    checkpoint, whose AUC must pass 0.6 and whose scores must match the
-   CPU's.
+   CPU's;
+6. run the four kernel probes (``difacto_tpu_torch/probes``) in process
+   at their full shapes; each must return 0 and launch its kernels.
 
 It prints the card's name and power limit, one JSON line listing the
 kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
 needs a card: without one (or without the rest of the repository) it
 exits non-zero and prints no result. It imports nothing of JAX.
+``python3 chip_smoke.py --kernels-only`` stops after phase 2 and prints
+no result line: a short first run for a new kernel.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ REPS = 20
 # the kernels of the two table paths, each path's pull first
 PAIRS_KERNELS = ("pull_pairs", "segsum_sorted", "apply_pairs")
 SWEEP_KERNELS = ("sweep_pull", "sweep_apply")
+SWEEP_SORTED_KERNELS = ("sweep_pull", "segsum_sorted", "sweep_apply")
 
 
 def log(msg: str) -> None:
@@ -58,45 +65,33 @@ def log(msg: str) -> None:
 
 
 def zipf_ids(rng, rows: int) -> np.ndarray:
-    """Zipf(1.2) raw feature ids, as bench.py's make_batches draws them
-    (Criteo's power-law key distribution)."""
-    z = rng.zipf(1.2, size=(rows, NNZ)).astype(np.uint64)
-    with np.errstate(over="ignore"):
-        return ((z * np.uint64(0x9E3779B97F4A7C15))
-                % np.uint64(1 << NUM_BITS)).astype(np.int64)
+    from difacto_tpu_torch.probes import common
+
+    return common.zipf_ids(rng, rows, NNZ, NUM_BITS)
 
 
 def flagship_batch(seed: int):
-    from difacto_tpu_torch.data.batch_iter import Batch
+    from difacto_tpu_torch.probes import common
 
-    rng = np.random.default_rng(seed)
-    ids = zipf_ids(rng, BATCH).astype(np.int32)
-    return Batch(ids, np.ones((BATCH, NNZ), np.float32),
-                 (rng.random(BATCH) > 0.5).astype(np.float32),
-                 np.ones(BATCH, np.float32))
+    return common.flagship_batch(seed, BATCH, NNZ, NUM_BITS)
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
-    a warm-up call, by CUDA events."""
-    import torch
+    from difacto_tpu_torch.probes import common
 
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    return common.cuda_ms(fn, reps)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f64_sum_tolerance(n_terms, abs_sum):
+    """Any float32 summation order is within (n-1) u sum|x| of the exact
+    sum of n terms (u = 2^-24)."""
+    return (n_terms - 1).clamp(min=0) * 2.0 ** -24 * abs_sum
 
 
 def random_state(updater, num_rows, dev, seed):
@@ -190,11 +185,9 @@ def check_kernels(dev):
     payT[:, BATCH * NNZ:] = 0.0
     got = segsum.segsum_sorted(payT, lanes, U)
     ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
-    # any float32 order is within (n-1) u sum|x| of the exact sum over a
-    # segment of n slots (u = 2^-24)
     seg_n = torch.bincount(lanes.long(), minlength=U).double()
-    abs_sum = segsum.segsum_sorted_plain(payT.abs().double(), lanes, U)
-    tol = (seg_n - 1).clamp(min=0) * 2.0 ** -24 * abs_sum
+    tol = f64_sum_tolerance(seg_n, segsum.segsum_sorted_plain(
+        payT.abs().double(), lanes, U))
     diff = (got.double() - ref).abs()
     err = float(diff.max())
     if not bool((diff <= tol).all()):
@@ -228,9 +221,16 @@ def check_kernels(dev):
         library_ms=cuda_ms(lambda: acc.index_add_(1, lanes_l, payT)),
     )
 
-    # -- apply: every w/V updater pair, and K = 0 --------------------------
+    # -- apply, both designs (B2 one row per thread, B6 two): every w/V
+    # updater pair, and K = 0; B6 also against B2's kernel ----------------
     vf = pb.valid.to(torch.float32)
-    worst = 0.0
+    designs = {"apply_pairs": (pair_sweep.apply_pairs,
+                               pair_sweep.apply_pairs_plain,
+                               "difacto_tpu/ops/pair_sweep.py:449"),
+               "apply_pairs2": (pair_sweep.apply_pairs2,
+                                pair_sweep.apply_pairs2_plain,
+                                "difacto_tpu/ops/pair_sweep.py:565")}
+    worst = dict.fromkeys(designs, 0.0)
     for k, wupd, vupd in ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
                           (K, "sgd", "adagrad"), (0, "ftrl", "adagrad")):
         q = FMParam()
@@ -239,19 +239,6 @@ def check_kernels(dev):
         base = st if k == K else random_state(qu, num_rows, dev, seed=3)
         grads = torch.randn((1 + k, U), generator=g, device=dev) * vf
         payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
-        a = pair_sweep.apply_pairs(clone_state(base), pb.uids, payload, q)
-        b = pair_sweep.apply_pairs_plain(clone_state(base), pb.uids,
-                                         payload, q)
-        for name in ("w", "z", "n", "cnt", "V", "nV"):
-            x, y = getattr(a, name), getattr(b, name)
-            if x.numel():
-                e = float((x - y).abs().max())
-                worst = max(worst, e)
-                # the plain version's division by a scalar runs as a
-                # multiply by its float reciprocal on the card: 1 ulp
-                torch.testing.assert_close(
-                    x, y, rtol=1e-5, atol=1e-6,
-                    msg=f"apply_pairs {wupd}/{vupd} K={k}: {name}")
         # bytes the update needs: every uid; the gw, add_cnt and touch
         # payload of real lanes; and per touched row the leaves its
         # updaters read and write. The gV payload and V/nV only on rows
@@ -259,26 +246,49 @@ def check_kernels(dev):
         act = past_gate(pb, base, q)
         nbytes = (4 * (U + 3 * n_valid + k * act)
                   + updater_bytes(wupd, vupd, k, n_valid, act))
-        work = clone_state(base)
-        rec = dict(
-            ms=cuda_ms(lambda: pair_sweep.apply_pairs(work, pb.uids,
-                                                      payload, q)),
-            plain_ms=cuda_ms(lambda: pair_sweep.apply_pairs_plain(
-                work, pb.uids, payload, q)),
-        )
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 20 * n_valid
-                                                 + 8 * k * act)
-        log(f"apply_pairs {wupd}/{vupd} K={k} ({n_valid} touched rows, "
-            f"{act} past the V gate): {json.dumps(rec)}")
-        if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
-            out["apply_pairs"] = dict(
-                route="cuda", source="difacto_tpu_torch/csrc/apply_pairs.cu",
-                replaces="difacto_tpu/ops/pair_sweep.py:449", **rec,
-                library_ms=None,
+        results = {}
+        for name, (kernel, plain, replaces) in designs.items():
+            a = kernel(clone_state(base), pb.uids, payload, q)
+            b = plain(clone_state(base), pb.uids, payload, q)
+            # the plain version's division by a scalar runs as a multiply
+            # by its float reciprocal on the card: 1 ulp. The two kernels
+            # do the same sums in the same order: held to the same bound
+            refs = [("its plain version", b)]
+            if name == "apply_pairs2":
+                refs.append(("apply_pairs", results["apply_pairs"]))
+            for leaf in ("w", "z", "n", "cnt", "V", "nV"):
+                x = getattr(a, leaf)
+                if not x.numel():
+                    continue
+                for what, ref in refs:
+                    y = getattr(ref, leaf)
+                    worst[name] = max(worst[name], float((x - y).abs().max()))
+                    torch.testing.assert_close(
+                        x, y, rtol=1e-5, atol=1e-6,
+                        msg=f"{name} {wupd}/{vupd} K={k} against {what}: "
+                            f"{leaf}")
+            results[name] = a
+            work = clone_state(base)
+            rec = dict(
+                ms=cuda_ms(lambda: kernel(work, pb.uids, payload, q)),
+                plain_ms=cuda_ms(lambda: plain(work, pb.uids, payload, q)),
             )
-        del work, a, b
-    out["apply_pairs"]["max_abs_err"] = worst
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 20 * n_valid
+                                                     + 8 * k * act)
+            log(f"{name} {wupd}/{vupd} K={k} ({n_valid} touched rows, "
+                f"{act} past the V gate): {json.dumps(rec)}")
+            if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
+                out[name] = dict(
+                    route="cuda",
+                    source=f"difacto_tpu_torch/csrc/{name}.cu",
+                    replaces=replaces, **rec, library_ms=None,
+                )
+            del work, a, b
+        del results
+    for name in designs:
+        out[name]["max_abs_err"] = worst[name]
     out.update(check_sweep_kernels(dev, pb, st, g))
+    out.update(check_probe_kernels(dev, pb, st, g))
     for name, rec in out.items():
         log(f"kernel {name}: max_abs_err {rec['max_abs_err']:g}  "
             f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
@@ -429,6 +439,265 @@ def check_sweep_kernels(dev, pb, st, g):
     log(f"sweep kernels on 2 streams of {slots} slots (hottest id {hot} "
         f"slots over both): pull exact, integer-payload apply exact")
     return out
+
+
+def check_probe_kernels(dev, pb, st, g):
+    """Phase 2, the probes' kernels (S1 packed pull/apply, S2 bisect, S3
+    slot accumulate) at their probes' shapes. Returns their records."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.ops import pair_sweep
+    from difacto_tpu_torch.probes import bench_slot_accum as sa
+    from difacto_tpu_torch.probes import bisect_apply as bis
+    from difacto_tpu_torch.probes import common
+    from difacto_tpu_torch.probes import hw_packed_pairs as packed
+
+    out = {}
+    U = pb.uids.shape[0]
+    n_valid = int(pb.valid.sum())
+    p = FMParam()
+    p.V_dim = K
+    n_act = past_gate(pb, st, p)
+
+    # -- S1a packed pull: exact against its plain version and against B1's
+    # kernel on the unpacked state (a gather with a mask) -----------------
+    A, B = packed.pack_state(st)
+    got = packed.pull_packed(A, pb.uids, p)
+    for what, ref in (("its plain version",
+                       packed.pull_packed_plain(A, pb.uids, p)),
+                      ("pull_pairs", pair_sweep.pull_pairs(st, pb.uids, p))):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"pull_packed differs from {what} (max abs "
+                                 f"err {float((got - ref).abs().max()):g}; "
+                                 "tolerance: exact)")
+    b_ms, b_by = bound(4 * (U + 2 * n_valid + K * n_act + (1 + K) * U), 0)
+    out["pull_packed"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/packed_pairs.cu",
+        replaces="scripts/hw_packed_pairs.py:133", max_abs_err=0.0,
+        ms=cuda_ms(lambda: packed.pull_packed(A, pb.uids, p)),
+        plain_ms=cuda_ms(lambda: packed.pull_packed_plain(A, pb.uids, p)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+    # -- S1b packed apply: the tolerance apply_pairs is held to -----------
+    vf = pb.valid.to(torch.float32)
+    grads = torch.randn((1 + K, U), generator=g, device=dev) * vf
+    payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
+    a2, b2 = packed.apply_packed(A.clone(), B.clone(), pb.uids, payload, p)
+    ap, bp = packed.apply_packed_plain(A.clone(), B.clone(), pb.uids,
+                                       payload, p)
+    s2 = pair_sweep.apply_pairs(clone_state(st), pb.uids, payload, p)
+    err = 0.0
+    for what, ref in (("its plain version", packed.unpack_state(ap, bp)),
+                      ("apply_pairs", s2)):
+        mine = packed.unpack_state(a2, b2)
+        for leaf in ("w", "z", "n", "cnt", "V", "nV"):
+            x, y = getattr(mine, leaf), getattr(ref, leaf)
+            err = max(err, float((x - y).abs().max()))
+            torch.testing.assert_close(
+                x, y, rtol=1e-5, atol=1e-6,
+                msg=f"apply_packed against {what}: {leaf}")
+    del ap, bp, s2
+    nbytes = (4 * (U + 3 * n_valid + K * n_act)
+              + updater_bytes("ftrl", "adagrad", K, n_valid, n_act))
+    b_ms, b_by = bound(nbytes, 20 * n_valid + 8 * K * n_act)
+    out["apply_packed"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/packed_pairs.cu",
+        replaces="scripts/hw_packed_pairs.py:197", max_abs_err=err,
+        ms=cuda_ms(lambda: packed.apply_packed(a2, b2, pb.uids, payload, p)),
+        plain_ms=cuda_ms(lambda: packed.apply_packed_plain(
+            a2, b2, pb.uids, payload, p)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    del A, B, a2, b2
+
+    # -- S2 bisect: the probe's stream (unique ids) for the times; a
+    # stream of repeated ids with one hot id for the sums -----------------
+    n = 1 << bis.N_LOG2
+    rng = np.random.default_rng(6)
+    sid, pay = bis.make_stream(rng, n, bis.U, dev)
+    ids = np.sort(np.r_[rng.integers(0, n, 300000), np.full(500, 777)])
+    sid_r = torch.from_numpy(np.r_[ids, np.full(1000, n)].astype(np.int32)
+                             ).to(dev)
+    nnz_r = sid_r.shape[0]
+    pay_r = torch.randn((bis.PP, nnz_r), generator=g, device=dev)
+    ipay_r = torch.randint(1, 9, (bis.PP, nnz_r), generator=g,
+                           device=dev).float()
+    w = torch.randn(n, generator=g, device=dev)
+    seg_n = bis.row_sums(sid_r, torch.ones((1, nnz_r), dtype=torch.float64,
+                                           device=dev), n)[0]
+    got = bis.bisect_w(sid_r, pay_r, w)
+    ref = w.double() + bis.row_sums(sid_r, pay_r[:1].double(), n)[0]
+    tol = f64_sum_tolerance(
+        seg_n + 1, w.abs().double()
+        + bis.row_sums(sid_r, pay_r[:1].abs().double(), n)[0])
+    diff = (got.double() - ref).abs()
+    err_w = float(diff.max())
+    if not bool((diff <= tol).all()):
+        raise AssertionError("bisect_w differs from the float64 sums beyond "
+                             f"the float32 summation bound (max {err_w:g})")
+    iw = torch.randint(-8, 9, (n,), generator=g, device=dev).float()
+    if not torch.equal(bis.bisect_w(sid_r, ipay_r, iw),
+                       bis.bisect_w_plain(sid_r, ipay_r, iw)):
+        raise AssertionError("bisect_w differs from its plain version on an "
+                             "integer payload (tolerance: exact)")
+    for variant in ("scanonly", "loadonly"):
+        for s_, p_ in ((sid, pay), (sid_r, pay_r)):
+            if not torch.equal(bis.bisect_w(s_, p_, w, variant), w):
+                raise AssertionError(f"bisect_w {variant} changed w")
+    log(f"bisect_w: {nnz_r} slots, hottest id {int(seg_n.max())} slots; max "
+        f"abs err {err_w:g} against the float64 sums; integer payload "
+        f"exact; scanonly and loadonly return w")
+    real = int((sid < n).sum())
+    idx, pay0 = sid[:real].long(), pay[0, :real].contiguous()
+    w_bytes = 4 * (sid.shape[0] + real + 2 * n)
+    b_ms, b_by = bound(w_bytes, real + n)
+    out["bisect_w"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/bisect_apply.cu",
+        replaces="scripts/bisect_apply.py:98", max_abs_err=err_w,
+        ms=cuda_ms(lambda: bis.bisect_w(sid, pay, w)),
+        plain_ms=cuda_ms(lambda: bis.bisect_w_plain(sid, pay, w)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: w.index_add(0, idx, pay0)),
+    )
+    # these kernels take microseconds, so the event times above are the
+    # host's enqueue rate; the stage split reads the kernels' own time
+    stages = {v: common.kernel_ms(lambda: bis.bisect_w(sid, pay, w, v))
+              for v in ("highest", "scanonly", "loadonly")}
+    stages["index_add"] = common.kernel_ms(lambda: w.index_add(0, idx, pay0))
+    log("bisect_w kernel time at the probe's shapes by torch.profiler "
+        f"(ms): {json.dumps(stages)}")
+
+    # bisect_ftrl4: the count leaf is a pure sum (float64 bound, exact on
+    # integers, as n = sum g^2 from 0 is); w, z, n go through FTRL, whose
+    # division by a scalar the plain version runs as a multiply by the
+    # reciprocal: rtol 1e-5, atol 1e-6 as apply_pairs
+    leaves = [torch.randn(n, generator=g, device=dev) * s_
+              for s_ in (0.1, 1.0, 0.0, 0.0)]
+    leaves[2] = torch.rand(n, generator=g, device=dev)
+    leaves[3] = torch.randint(0, 4, (n,), generator=g, device=dev).float()
+    got4 = bis.bisect_ftrl4(sid_r, pay_r, *leaves)
+    ref4 = bis.bisect_ftrl4_plain(sid_r, pay_r, *leaves)
+    err4 = 0.0
+    for name, x, y in zip("wznc", got4, ref4):
+        err4 = max(err4, float((x - y).abs().max()))
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6,
+                                   msg=f"bisect_ftrl4: {name}")
+    ref_c = leaves[3].double() + bis.row_sums(sid_r, pay_r[2:3].double(), n)[0]
+    tol = f64_sum_tolerance(
+        seg_n + 1, leaves[3].double()
+        + bis.row_sums(sid_r, pay_r[2:3].abs().double(), n)[0])
+    if not bool(((got4[3].double() - ref_c).abs() <= tol).all()):
+        raise AssertionError("bisect_ftrl4: c differs from the float64 sums "
+                             "beyond the float32 summation bound")
+    zero = [torch.zeros(n, device=dev) for _ in range(4)]
+    goti = bis.bisect_ftrl4(sid_r, ipay_r, *zero)
+    refi = bis.bisect_ftrl4_plain(sid_r, ipay_r, *zero)
+    for name, x, y in zip("wznc", goti, refi):
+        if name in "nc" and not torch.equal(x, y):
+            raise AssertionError(f"bisect_ftrl4 differs from its plain "
+                                 f"version on an integer payload: {name} "
+                                 "(tolerance: exact)")
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+    inpl = [t.clone() for t in leaves]
+    same = bis.bisect_ftrl4(sid_r, pay_r, *inpl, inplace=True)
+    for name, x, y, z_ in zip("wznc", same, got4, inpl):
+        if x is not z_ or not torch.equal(x, y):
+            raise AssertionError(f"bisect_ftrl4 in place differs from out of "
+                                 f"place: {name}")
+    st4 = [torch.zeros(n, device=dev) for _ in range(4)]
+    b_ms, b_by = bound(4 * (sid.shape[0] + 3 * real + 8 * n), 3 * real
+                       + 20 * n)
+    out["bisect_ftrl4"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/bisect_apply.cu",
+        replaces="scripts/bisect_apply.py:190", max_abs_err=err4,
+        ms=cuda_ms(lambda: bis.bisect_ftrl4(sid, pay, *st4)),
+        plain_ms=cuda_ms(lambda: bis.bisect_ftrl4_plain(sid, pay, *st4)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    ftrl4 = {
+        "in_place_ms": cuda_ms(lambda: bis.bisect_ftrl4(sid, pay, *st4,
+                                                        inplace=True)),
+        "kernel_ms": common.kernel_ms(lambda: bis.bisect_ftrl4(sid, pay,
+                                                               *st4)),
+        "kernel_in_place_ms": common.kernel_ms(lambda: bis.bisect_ftrl4(
+            sid, pay, *st4, inplace=True)),
+    }
+    log(f"bisect_ftrl4 at the probe's shapes: {json.dumps(ftrl4)}")
+    del sid_r, pay_r, ipay_r, leaves, got4, ref4, goti, refi, inpl, same
+
+    # -- S3 slot accumulate: the probe's shapes; each row's ~512 slots
+    # span several 128-slot chunks -----------------------------------------
+    nslots = 1 << sa.LOG2
+    ids = np.sort(rng.integers(0, sa.R, nslots)).astype(np.int32)
+    ids[ids == 5] = 6                      # a row no slot names; 6 is hot
+    sid3 = torch.from_numpy(ids).to(dev)
+    pay3 = torch.randn((nslots, sa.PP), generator=g, device=dev)
+    got = sa.slot_accum(sid3, pay3)
+    ref = sa.slot_accum_plain(sid3, pay3.double())
+    seg3 = torch.bincount(sid3.long(), minlength=sa.R).double()[:, None]
+    tol = f64_sum_tolerance(seg3, sa.slot_accum_plain(sid3,
+                                                      pay3.abs().double()))
+    diff = (got.double() - ref).abs()
+    err3 = float(diff.max())
+    if not bool((diff <= tol).all()):
+        raise AssertionError("slot_accum differs from the float64 sums "
+                             f"beyond the float32 summation bound ({err3:g})")
+    if not bool((got[5] == 0).all()):
+        raise AssertionError("slot_accum: a row no slot names is not 0")
+    ipay3 = torch.randint(1, 9, (nslots, sa.PP), generator=g,
+                          device=dev).float()
+    if not torch.equal(sa.slot_accum(sid3, ipay3),
+                       sa.slot_accum_plain(sid3, ipay3)):
+        raise AssertionError("slot_accum differs from its plain version on "
+                             "an integer payload (tolerance: exact)")
+    del ipay3
+    log(f"slot_accum: {nslots} slots, hottest row {int(seg3.max())} slots; "
+        f"max abs err {err3:g} against the float64 sums; integer payload "
+        f"exact")
+    sid3_l = sid3.long()
+    acc = torch.zeros((sa.R, sa.PP), device=dev)
+    b_ms, b_by = bound(4 * (nslots * sa.PP + nslots + sa.R * sa.PP),
+                       nslots * sa.PP)
+    out["slot_accum"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/slot_accum.cu",
+        replaces="scripts/bench_slot_accum.py:65", max_abs_err=err3,
+        ms=cuda_ms(lambda: sa.slot_accum(sid3, pay3)),
+        plain_ms=cuda_ms(lambda: sa.slot_accum_plain(sid3, pay3)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: acc.index_add_(0, sid3_l, pay3)),
+    )
+    return out
+
+
+PROBE_KERNELS = ("apply_pairs2", "pull_packed", "apply_packed", "bisect_w",
+                 "bisect_ftrl4", "slot_accum")
+
+
+def drive_probes(dev) -> dict:
+    """Phase 6: each probe's ``main`` in process at its full shapes. A
+    probe that raises or returns non-zero fails the run. Returns the
+    launch counts of the phase, every probe kernel's above 0."""
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.probes import (bench_slot_accum, bisect_apply,
+                                          hw_apply2, hw_packed_pairs)
+
+    cuda.reset_launches()
+    runs = [(hw_apply2, []), (hw_packed_pairs, []), (bench_slot_accum, [])]
+    runs += [(bisect_apply, [v]) for v in (
+        "highest", "default", "scanonly", "loadonly", "ftrl4",
+        "ftrl4_inplace")]
+    for mod, argv in runs:
+        rc = mod.main(argv, device=dev)
+        if rc != 0:
+            raise AssertionError(f"probe {mod.__name__} {argv} returned {rc}")
+    launches = dict(cuda.LAUNCHES)
+    log(f"probes: launches {launches}")
+    idle = [k for k in PROBE_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"the probes never launched {idle}")
+    return launches
 
 
 STEP_PATHS = ((), (("segsum", "scatter"),), (("kernel", "pallas"),),
@@ -665,22 +934,29 @@ def main() -> int:
     cuda.library()
 
     kernels = check_kernels(dev)
+    if "--kernels-only" in sys.argv[1:]:  # a short first run of a new kernel
+        log(json.dumps({"kernels_checked": sorted(kernels)}))
+        return 0
     check_step_against_cpu(dev)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         files = write_main_data(tmp)
         # the pull first: it also serves the validation batch
         for extra, path in (((), PAIRS_KERNELS),
-                            ((("kernel", "pallas"),), SWEEP_KERNELS)):
+                            ((("kernel", "pallas"),), SWEEP_KERNELS),
+                            ((("kernel", "pallas"), ("segsum", "sorted")),
+                             SWEEP_SORTED_KERNELS)):
             got, _ = drive_main_path(dev, *files, extra, path)
             launches.update({name: got[name] for name in path})
         drive_cli(tmp)
+    probed = drive_probes(dev)
+    launches.update({name: probed[name] for name in PROBE_KERNELS})
     rows = [{"name": name, **{k: kernels[name][k] for k in (
         "route", "source", "replaces")}, "launches": launches[name],
         **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")}}
-        for name in PAIRS_KERNELS + SWEEP_KERNELS]
+        for name in PAIRS_KERNELS + SWEEP_KERNELS + PROBE_KERNELS]
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

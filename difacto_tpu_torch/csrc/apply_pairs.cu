@@ -32,29 +32,8 @@
 // the one launch stays; a row-major V is the ROADMAP's open question.
 #include <cuda_runtime.h>
 
+#include "pair_runs.cuh"
 #include "table_update.cuh"
-
-__device__ __forceinline__ float run_sum(const float* __restrict__ pay,
-                                         int row, int u, int lo, int hi) {
-  const float* p = pay + (long long)row * u;
-  float s = 0.0f;
-  for (int j = lo; j < hi; ++j) s += p[j];
-  return s;
-}
-
-// The table row of `lane` when the lane starts a run of equal real ids,
-// with the run's end in *end; -1 otherwise.
-__device__ __forceinline__ int run_start(const int* __restrict__ uids,
-                                         int lane, int U, long long N,
-                                         int* end) {
-  int id = uids[lane];
-  if (id < 0 || id >= N) return -1;                 // sentinel
-  if (lane > 0 && uids[lane - 1] == id) return -1;  // not the run's start
-  int e = lane + 1;
-  while (e < U && uids[e] == id) ++e;
-  *end = e;
-  return id;
-}
 
 __global__ void apply_pairs_kernel(float* __restrict__ w, float* __restrict__ z,
                                    float* __restrict__ nn, float* __restrict__ cnt,

@@ -13,9 +13,9 @@ Nothing here runs at import: the CPU tests import every module, on hosts
 that may have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (ops/pair_sweep.py,
-ops/segsum.py, ops/sweep_ms.py): each wrapper adds one where it launches
-its kernel and nowhere else, so a run can show which kernels its path
-went through.
+ops/segsum.py, ops/sweep_ms.py and the probes' wrappers under probes/):
+each wrapper adds one where it launches its kernel and nowhere else, so
+a run can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu", "sweep_pull.cu",
-           "sweep_apply.cu")
-HEADERS = ("table_update.cuh", "sweep.cuh")
+           "sweep_apply.cu", "apply_pairs2.cu", "packed_pairs.cu",
+           "bisect_apply.cu", "slot_accum.cu")
+HEADERS = ("table_update.cuh", "sweep.cuh", "pair_runs.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # --fmad=false: no fused multiply-adds, so each kernel rounds exactly as
@@ -43,7 +44,9 @@ CFLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libdifacto_torch_kernels.so"
 
 LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
-            "sweep_pull": 0, "sweep_apply": 0}
+            "sweep_pull": 0, "sweep_apply": 0, "apply_pairs2": 0,
+            "pull_packed": 0, "apply_packed": 0, "bisect_w": 0,
+            "bisect_ftrl4": 0, "slot_accum": 0}
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -63,6 +66,21 @@ _SIGNATURES = {
     # tail_feature_filter, w_updater, V_updater, stream
     "dft_sweep_apply": [_VP] * 9 + [_LL] + [_I] * 5 + [_F] * 8
     + [_I, _I, _I, _VP],
+    # as dft_apply_pairs
+    "dft_apply_pairs2": [_VP] * 8 + [_LL, _I, _I] + [_F] * 8
+    + [_I, _I, _I, _VP],
+    # A, uids, out, N, K, U, V_threshold, stream
+    "dft_pull_packed": [_VP] * 3 + [_LL, _I, _I, _F, _VP],
+    # A, B, uids, payload, N, K, U, then as dft_apply_pairs from lr_eta on
+    "dft_apply_packed": [_VP] * 4 + [_LL, _I, _I] + [_F] * 8
+    + [_I, _I, _I, _VP],
+    # sid, pay, w, w_out, N, nnz, block_rows, variant, stream
+    "dft_bisect_w": [_VP] * 4 + [_LL, _I, _I, _I, _VP],
+    # sid, pay, w, z, n, c, w_out, z_out, n_out, c_out, N, nnz, block_rows,
+    # stream
+    "dft_bisect_ftrl4": [_VP] * 10 + [_LL, _I, _I, _VP],
+    # sid, pay, out, head, tail, nslots, num_rows, stream
+    "dft_slot_accum": [_VP] * 5 + [_I, _I, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,12 +1,12 @@
 """Table kernels of the train and eval steps: pull and apply.
 
-Port of ``difacto_tpu/ops/pair_sweep.py::pull_pairs`` and
-``::apply_pairs``. The TPU kernels walk host-built (table block, 128-lane
-unique window) pairs with one-hot matmuls, because Mosaic addresses only
-aligned tiles (``pair_sweep.py:1-25``). The Hopper kernels
-(csrc/pull_pairs.cu, csrc/apply_pairs.cu) gather and scatter rows
-directly, so they take no schedule: the same inputs map to the same
-outputs.
+Port of ``difacto_tpu/ops/pair_sweep.py::pull_pairs``, ``::apply_pairs``
+and ``::apply_pairs2``. The TPU kernels walk host-built (table block,
+128-lane unique window) pairs with one-hot matmuls, because Mosaic
+addresses only aligned tiles (``pair_sweep.py:1-25``). The Hopper kernels
+(csrc/pull_pairs.cu, csrc/apply_pairs.cu, csrc/apply_pairs2.cu) gather
+and scatter rows directly, so they take no schedule: the same inputs map
+to the same outputs.
 
 Each function is a wrapper: a CUDA tensor launches the kernel (or raises
 on what the kernel does not take); a CPU tensor takes the plain PyTorch
@@ -96,16 +96,10 @@ def apply_pairs_plain(state: FMState, uids: torch.Tensor,
     return state
 
 
-def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
-                param: FMParam) -> FMState:
-    """Update ``state`` IN PLACE from the planar payload ``[3+K, U]``
-    (gw | gV | add_cnt | touch) over non-decreasing ``uids`` (i32,
-    sentinel ``N`` pads): once per touched table row, the w updater (tail
-    filter applied), ``cnt += add_cnt``, and the V updater gated by the
-    pre-update count. In place replaces the TPU kernel's
-    ``input_output_aliases``; returns ``state`` for chaining."""
-    if uids.device.type == "cpu":
-        return apply_pairs_plain(state, uids, payload, param)
+def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
+                  payload: torch.Tensor, param: FMParam) -> FMState:
+    """Check what the apply kernels take and launch the one named
+    ``entry`` (``apply_pairs`` or ``apply_pairs2``: one contract)."""
     n, k, u = state.num_rows, state.k, uids.shape[0]
     dev = state.device
     for name in ("w", "z", "n", "cnt"):
@@ -118,10 +112,9 @@ def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
         # runs of equal ids must be consecutive; checked on the device,
         # without a host sync
         torch._assert_async(torch.all(uids[1:] >= uids[:-1]),
-                            "apply_pairs: uids must be non-decreasing")
+                            f"{entry}: uids must be non-decreasing")
     p = param
-    lib = cuda.library()
-    rc = lib.dft_apply_pairs(
+    rc = getattr(cuda.library(), "dft_" + entry)(
         state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
         state.cnt.data_ptr(), state.V.data_ptr(), state.nV.data_ptr(),
         uids.data_ptr(), payload.data_ptr(), n, k, u,
@@ -130,6 +123,45 @@ def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
         W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater],
         cuda.stream(dev),
     )
-    cuda.check(rc, "apply_pairs")
-    cuda.LAUNCHES["apply_pairs"] += 1
+    cuda.check(rc, entry)
+    cuda.LAUNCHES[entry] += 1
     return state
+
+
+def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
+                param: FMParam) -> FMState:
+    """Update ``state`` IN PLACE from the planar payload ``[3+K, U]``
+    (gw | gV | add_cnt | touch) over non-decreasing ``uids`` (i32,
+    sentinel ``N`` pads): once per touched table row, the w updater (tail
+    filter applied), ``cnt += add_cnt``, and the V updater gated by the
+    pre-update count. In place replaces the TPU kernel's
+    ``input_output_aliases``; returns ``state`` for chaining."""
+    if uids.device.type == "cpu":
+        return apply_pairs_plain(state, uids, payload, param)
+    return _launch_apply("apply_pairs", state, uids, payload, param)
+
+
+# ---------------------------------------------------------------------------
+# apply, second design: two table rows per thread (csrc/apply_pairs2.cu)
+# ---------------------------------------------------------------------------
+
+
+def apply_pairs2_plain(state: FMState, uids: torch.Tensor,
+                       payload: torch.Tensor, param: FMParam) -> FMState:
+    """The plain version of ``apply_pairs2``: the two designs compute one
+    function, so it is :func:`apply_pairs_plain`."""
+    return apply_pairs_plain(state, uids, payload, param)
+
+
+def apply_pairs2(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
+                 param: FMParam) -> FMState:
+    """:func:`apply_pairs` by a second kernel design, in which each thread
+    updates two table rows and starts both rows' loads before either
+    row's arithmetic. Port of ``difacto_tpu/ops/pair_sweep.py::
+    apply_pairs2``, whose ``DualPairMeta`` schedule (two unique windows
+    per grid step) is Mosaic's mechanism: this wrapper takes none. No path
+    of the package calls it; probes/hw_apply2.py times it against
+    :func:`apply_pairs`."""
+    if uids.device.type == "cpu":
+        return apply_pairs2_plain(state, uids, payload, param)
+    return _launch_apply("apply_pairs2", state, uids, payload, param)

@@ -22,6 +22,9 @@ import torch
 
 from difacto_tpu_torch.config import FMParam
 from difacto_tpu_torch.ops import cuda, pair_sweep, segsum, sweep_ms
+from difacto_tpu_torch.probes import bench_slot_accum as slot_probe
+from difacto_tpu_torch.probes import bisect_apply as bisect_probe
+from difacto_tpu_torch.probes import hw_packed_pairs as packed_probe
 from difacto_tpu_torch.utils.checkpoint import state_from_numpy
 
 torch.set_num_threads(2)
@@ -294,3 +297,233 @@ def test_cuda_sweep_traps_on_an_unsorted_stream(card, kernel):
     out = r.stdout + r.stderr
     assert r.returncode != 0, out
     assert "device-side assert" in out or "must be sorted" in out, out
+
+
+# ---------------------------------------------------------------------------
+# the probes' kernels (difacto_tpu_torch/probes): apply_pairs2, the packed
+# pull and apply, the bisect kernels, the slot accumulate
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
+                                             (0, "ftrl", "adagrad", 0),
+                                             (2, "adagrad", "sgd", 0),
+                                             (3, "sgd", "adagrad", 2)])
+@pytest.mark.parametrize("repeat", [False, True])
+def test_cuda_apply2_matches_plain_and_apply_pairs(card, K, wupd, vupd, tff,
+                                                   repeat):
+    rng = np.random.default_rng(40 + K)
+    p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                    tail_feature_filter=tff)
+    s = state_np(K, rng)
+    uids, valid = sorted_uids(rng, repeat=repeat)
+    pay = torch.from_numpy(payload(K, valid, rng)).to(card)
+    uids = torch.from_numpy(uids).to(card)
+    n0 = cuda.LAUNCHES["apply_pairs2"]
+    a = pair_sweep.apply_pairs2(state_from_numpy(s, card), uids, pay, p)
+    assert cuda.LAUNCHES["apply_pairs2"] == n0 + 1
+    b = pair_sweep.apply_pairs2_plain(state_from_numpy(s, card), uids, pay, p)
+    c = pair_sweep.apply_pairs(state_from_numpy(s, card), uids, pay, p)
+    for name in LEAVES:
+        # against the plain version: its division by a scalar runs as a
+        # multiply by the reciprocal on the card, 1 ulp
+        torch.testing.assert_close(getattr(a, name), getattr(b, name),
+                                   rtol=1e-5, atol=1e-6, msg=name)
+        # against the first design: the same sums in the same order and
+        # the same arithmetic, so the same bits
+        assert torch.equal(getattr(a, name), getattr(c, name)), name
+
+
+@pytest.mark.parametrize("u", [0, 1, 7])
+def test_cuda_apply2_short_streams(card, u):
+    """No lane, one lane (a thread whose second row does not exist) and an
+    odd count."""
+    rng = np.random.default_rng(45)
+    K = 3
+    p = port_params(V_dim=K, V_threshold=0)
+    s = state_np(K, rng)
+    uids = np.sort(rng.choice(N, size=u, replace=False)).astype(np.int32)
+    pay = np.concatenate([rng.normal(size=(1 + K, u)), np.ones((2, u))]
+                         ).astype(np.float32)
+    uids = torch.from_numpy(uids).to(card)
+    pay = torch.from_numpy(pay).to(card)
+    a = pair_sweep.apply_pairs2(state_from_numpy(s, card), uids, pay, p)
+    b = pair_sweep.apply_pairs2_plain(state_from_numpy(s, card), uids, pay, p)
+    for name in LEAVES:
+        torch.testing.assert_close(getattr(a, name), getattr(b, name),
+                                   rtol=1e-5, atol=1e-6, msg=name)
+    assert int((a.cnt != torch.from_numpy(s["cnt"]).to(card)).sum()) == u
+
+
+_UNSORTED_PAIRS = """
+import sys
+import numpy as np
+import torch
+from difacto_tpu_torch.ops import pair_sweep
+from difacto_tpu_torch.utils.checkpoint import state_from_numpy
+from test_torch_cuda import payload, port_params, sorted_uids, state_np
+
+rng = np.random.default_rng(0)
+p = port_params(V_dim=4)
+st = state_from_numpy(state_np(4, rng), device="cuda")
+uids, valid = sorted_uids(rng)
+uids[10], uids[11] = uids[11], uids[10]  # a descent
+pay = torch.from_numpy(payload(4, valid, rng)).cuda()
+getattr(pair_sweep, sys.argv[1])(st, torch.from_numpy(uids).cuda(), pay, p)
+torch.cuda.synchronize()
+"""
+
+
+@pytest.mark.parametrize("kernel", ["apply_pairs", "apply_pairs2"])
+def test_cuda_apply_refuses_an_unsorted_stream(card, kernel):
+    """Both apply designs sum runs of consecutive equal ids, so the
+    wrappers assert a non-decreasing stream on the device. The assert ends
+    the process's CUDA context, hence the subprocess."""
+    here = pathlib.Path(__file__).resolve().parent
+    r = subprocess.run(
+        [sys.executable, "-c", _UNSORTED_PAIRS, kernel], cwd=here.parent,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(here.parent), str(here)])},
+    )
+    out = r.stdout + r.stderr
+    assert r.returncode != 0, out
+    assert "device-side assert" in out or "non-decreasing" in out, out
+
+
+@pytest.mark.parametrize("K", [0, 4])
+def test_cuda_pull_packed_matches_plain_and_pull_pairs(card, K):
+    rng = np.random.default_rng(90 + K)
+    p = port_params(V_dim=K)
+    st = state_from_numpy(state_np(K, rng), device=card)
+    a, _ = packed_probe.pack_state(st)
+    uids = torch.from_numpy(sorted_uids(rng)[0]).to(card)
+    n0 = cuda.LAUNCHES["pull_packed"]
+    got = packed_probe.pull_packed(a, uids, p)
+    assert cuda.LAUNCHES["pull_packed"] == n0 + 1
+    # a gather with a mask: exact
+    assert torch.equal(got, packed_probe.pull_packed_plain(a, uids, p))
+    assert torch.equal(got, pair_sweep.pull_pairs(st, uids, p))
+    assert torch.equal(packed_probe.pull_packed(a, uids[:0], p),
+                       torch.empty((1 + K, 0), device=card))
+
+
+@pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
+                                             (0, "ftrl", "adagrad", 0),
+                                             (2, "adagrad", "sgd", 0),
+                                             (3, "sgd", "adagrad", 2)])
+@pytest.mark.parametrize("repeat", [False, True])
+def test_cuda_apply_packed_matches_plain_and_apply_pairs(card, K, wupd, vupd,
+                                                         tff, repeat):
+    rng = np.random.default_rng(95 + K)
+    p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                    tail_feature_filter=tff)
+    s = state_np(K, rng)
+    uids, valid = sorted_uids(rng, repeat=repeat)
+    pay = torch.from_numpy(payload(K, valid, rng)).to(card)
+    uids = torch.from_numpy(uids).to(card)
+    a, b = packed_probe.pack_state(state_from_numpy(s, card))
+    n0 = cuda.LAUNCHES["apply_packed"]
+    a2, b2 = packed_probe.apply_packed(a.clone(), b.clone(), uids, pay, p)
+    assert cuda.LAUNCHES["apply_packed"] == n0 + 1
+    got = packed_probe.unpack_state(a2, b2)
+    ref = packed_probe.unpack_state(*packed_probe.apply_packed_plain(
+        a.clone(), b.clone(), uids, pay, p))
+    cur = pair_sweep.apply_pairs(state_from_numpy(s, card), uids, pay, p)
+    for name in LEAVES:
+        # 1 ulp against the plain version (its scalar division), the same
+        # bits as the unpacked kernel (the same arithmetic)
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
+                                   rtol=1e-5, atol=1e-6, msg=name)
+        assert torch.equal(getattr(got, name), getattr(cur, name)), name
+
+
+def bisect_stream(rng, n=N, u=700, hot=90, pad=40):
+    """Sorted slot ids with repeats, one hot id and a sentinel tail, and a
+    payload [8, nnz] (floats, and integers in [1, 8])."""
+    ids = np.sort(np.r_[rng.integers(0, n, u), np.full(hot, n // 3)])
+    sid = np.r_[ids, np.full(pad, n)].astype(np.int32)
+    pay = rng.normal(size=(8, sid.shape[0])).astype(np.float32)
+    ipay = rng.integers(1, 9, size=pay.shape).astype(np.float32)
+    return sid, pay, ipay
+
+
+@pytest.mark.parametrize("block_rows", [1024, 256, 1000])
+def test_cuda_bisect_w_matches_plain(card, block_rows):
+    rng = np.random.default_rng(100)
+    sid, pay, ipay = (torch.from_numpy(a).to(card) for a in bisect_stream(rng))
+    w = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(card)
+    n0 = cuda.LAUNCHES["bisect_w"]
+    got = bisect_probe.bisect_w(sid, pay, w, block_rows=block_rows)
+    assert cuda.LAUNCHES["bisect_w"] == n0 + 1
+    # runs of up to ~90 slots summed in slot order, the plain version's
+    # index_add_ in another: a few ulp of the sum
+    torch.testing.assert_close(got, bisect_probe.bisect_w_plain(sid, pay, w),
+                               rtol=1e-5, atol=1e-5)
+    iw = torch.round(w * 4)
+    assert torch.equal(bisect_probe.bisect_w(sid, ipay, iw,
+                                             block_rows=block_rows),
+                       bisect_probe.bisect_w_plain(sid, ipay, iw))
+    for variant in ("scanonly", "loadonly"):
+        assert torch.equal(bisect_probe.bisect_w(sid, pay, w, variant,
+                                                 block_rows), w)
+    # an empty stream adds nothing
+    assert torch.equal(bisect_probe.bisect_w(sid[:0], pay[:, :0].contiguous(),
+                                             w, block_rows=block_rows), w)
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_cuda_bisect_ftrl4_matches_plain(card, inplace):
+    rng = np.random.default_rng(101)
+    sid, pay, ipay = (torch.from_numpy(a).to(card) for a in bisect_stream(rng))
+    s = state_np(0, rng)
+    leaves = [torch.from_numpy(s[k]).to(card) for k in ("w", "z", "n", "cnt")]
+    n0 = cuda.LAUNCHES["bisect_ftrl4"]
+    mine = [t.clone() for t in leaves]
+    got = bisect_probe.bisect_ftrl4(sid, pay, *mine, inplace=inplace)
+    assert cuda.LAUNCHES["bisect_ftrl4"] == n0 + 1
+    ref = bisect_probe.bisect_ftrl4_plain(sid, pay, *leaves)
+    for x, y, mine_t, orig in zip(got, ref, mine, leaves):
+        # sums in another order than index_add_, and the plain version's
+        # scalar division as a reciprocal multiply: a few ulp
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        assert (x is mine_t) == inplace
+        if not inplace:
+            assert torch.equal(mine_t, orig)  # inputs untouched
+    # an integer payload on a zero state: the sums, hence n = g^2 and the
+    # count, are exact
+    zero = [torch.zeros(N, device=card) for _ in range(4)]
+    got = bisect_probe.bisect_ftrl4(sid, ipay, *zero)
+    ref = bisect_probe.bisect_ftrl4_plain(sid, ipay, *zero)
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    assert bool((got[3] > 0).any())
+
+
+@pytest.mark.parametrize("nslots,rows", [(0, 8), (100, 8), (5000, 64),
+                                         (40000, 3)])
+def test_cuda_slot_accum_matches_plain(card, nslots, rows):
+    """From no slot to hot rows that span ~100 of the 128-slot chunks
+    (40000 slots into 3 rows); one row in the middle gets no slot."""
+    rng = np.random.default_rng(110 + rows)
+    ids = np.sort(rng.integers(0, rows, nslots)).astype(np.int32)
+    ids[ids == 1] = 2
+    sid = torch.from_numpy(ids).to(card)
+    pay = torch.from_numpy(rng.normal(size=(nslots, 128)).astype(np.float32)
+                           ).to(card)
+    n0 = cuda.LAUNCHES["slot_accum"]
+    got = slot_probe.slot_accum(sid, pay, rows)
+    assert cuda.LAUNCHES["slot_accum"] == n0 + 1
+    # against the float64 sums: any float32 order is within
+    # (n-1) * 2^-24 * sum|x| over a row of n slots
+    ref = slot_probe.slot_accum_plain(sid, pay.double(), rows)
+    seg_n = torch.bincount(sid.long(), minlength=rows).double()[:, None]
+    tol = ((seg_n - 1).clamp(min=0) * 2.0 ** -24
+           * slot_probe.slot_accum_plain(sid, pay.abs().double(), rows))
+    assert bool(((got.double() - ref).abs() <= tol).all())
+    assert bool((got[1] == 0).all())
+    ipay = torch.from_numpy(rng.integers(1, 9, size=(nslots, 128)).astype(
+        np.float32)).to(card)
+    assert torch.equal(slot_probe.slot_accum(sid, ipay, rows),
+                       slot_probe.slot_accum_plain(sid, ipay, rows))
+    again = slot_probe.slot_accum(sid, pay, rows)
+    assert torch.equal(got, again)  # no atomics: the same bits every time

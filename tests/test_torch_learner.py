@@ -260,6 +260,8 @@ from difacto_tpu_torch.data.prep import prep_batch
 from difacto_tpu_torch.parallel.store import make_store
 from difacto_tpu_torch.updaters.updater import FMUpdater
 import difacto_tpu_torch.cli, difacto_tpu_torch.learners.sgd
+from difacto_tpu_torch.probes import (bench_slot_accum, bisect_apply,
+                                      hw_apply2, hw_packed_pairs)
 cfg = Config.from_kwargs([("batch_size", "8"), ("num_bits", "10"),
                           ("max_nnz_per_row", "4"), ("V_dim", "2")])
 store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
@@ -269,9 +271,14 @@ b = Batch(rng.integers(0, 1024, (8, 4)).astype(np.int32),
           np.ones(8, np.float32))
 st, m = store.train_step_prepped(store.init_state(0), prep_batch(b, 1024))
 assert float(m.examples) == 8.0
+small = ["batch=64", "nnz=4", "num_bits=10", "k=2", "iters=1"]
+assert hw_apply2.main(small + ["u=512"], device="cpu") == 0
+assert hw_packed_pairs.main(small, device="cpu") == 0
+assert bisect_apply.main(["ftrl4", "n_log2=10", "u=50"], device="cpu") == 0
+assert bench_slot_accum.main(["8", "rows=8"], device="cpu") == 0
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "difacto_tpu"
-             or n.startswith("difacto_tpu."))
+             or n.startswith("difacto_tpu.") or n == "bench")
 print("LEAKED", bad)
 sys.exit(1 if bad else 0)
 """
@@ -285,9 +292,10 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def test_port_sources_import_no_jax():
-    """Static scan: no ``import jax`` and no import of ``difacto_tpu``
-    (absolute, or relative past the package root) in the port's sources,
-    nor in chip_smoke.py."""
+    """Static scan: no ``import jax``, no import of ``difacto_tpu``
+    (absolute, or relative past the package root) and none of the JAX
+    package's root ``bench.py`` in the port's sources (the probes
+    included), nor in chip_smoke.py."""
     files = list((ROOT / "difacto_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     for path in files:
@@ -303,5 +311,5 @@ def test_port_sources_import_no_jax():
                 continue
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "difacto_tpu"), \
+                assert top not in ("jax", "jaxlib", "difacto_tpu", "bench"), \
                     f"{path} imports {n}"
