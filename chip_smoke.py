@@ -10,19 +10,23 @@ Phases, each a hard failure:
    K = 16; the sweep kernels with 1024-row blocks, one stream, and two
    streams of repeated ids whose integer payload must sum exactly; the
    probes' kernels at their probes' shapes, ``apply_pairs2`` also against
-   ``apply_pairs``), and time the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call;
-3. hold the device train and eval steps of every kernel path (pairs with
-   the sorted and the scatter backward, the whole-table sweep with
-   either) against the CPU plain path on a small batch, from one state;
-4. drive the flagship through ``SGDLearner`` three times, on the pair
-   kernels (``kernel=auto``) and on the whole-table sweep
+   ``apply_pairs``; the pull and apply over the row-major table against
+   their plain versions and, bit for bit, against the planar kernels),
+   and time the kernel, the plain version and, where one PyTorch call
+   computes the same function, that call;
+3. hold the device train and eval steps of every kernel path (pairs over
+   the planar and over the row-major table, with the sorted and the
+   scatter backward, the whole-table sweep with either) against the CPU
+   plain path on a small batch, from one state;
+4. drive the flagship through ``SGDLearner`` four times, on the pair
+   kernels (``kernel=auto`` with ``layout=planar`` and with
+   ``layout=packed``) and on the whole-table sweep
    (``kernel=pallas``, with the scatter and with the sorted backward):
    an epoch that streams from a libsvm file and caches the batches on the
    card, then a timed epoch that replays them, a traced replay and a
    validation pass, with every launch counter reset just before each
    drive and read just after;
-5. the CLI on a small synthetic set, on both table paths: train 2 epochs
+5. the CLI on a small synthetic set, on the three table paths: train 2 epochs
    with validation and ``model_out``, then ``task=predict`` on that
    checkpoint, whose AUC must pass 0.6 and whose scores must match the
    CPU's;
@@ -56,8 +60,11 @@ F32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
 REPS = 20
 # the kernels of the two table paths, each path's pull first
 PAIRS_KERNELS = ("pull_pairs", "segsum_sorted", "apply_pairs")
+ROWMAJOR_KERNELS = ("pull_rowmajor", "segsum_sorted", "apply_rowmajor")
 SWEEP_KERNELS = ("sweep_pull", "sweep_apply")
 SWEEP_SORTED_KERNELS = ("sweep_pull", "segsum_sorted", "sweep_apply")
+UPDATER_CASES = ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
+                 (K, "sgd", "adagrad"), (0, "ftrl", "adagrad"))
 
 
 def log(msg: str) -> None:
@@ -231,8 +238,7 @@ def check_kernels(dev):
                                 pair_sweep.apply_pairs2_plain,
                                 "difacto_tpu/ops/pair_sweep.py:565")}
     worst = dict.fromkeys(designs, 0.0)
-    for k, wupd, vupd in ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
-                          (K, "sgd", "adagrad"), (0, "ftrl", "adagrad")):
+    for k, wupd, vupd in UPDATER_CASES:
         q = FMParam()
         q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
         qu = FMUpdater(q)
@@ -289,11 +295,182 @@ def check_kernels(dev):
         out[name]["max_abs_err"] = worst[name]
     out.update(check_sweep_kernels(dev, pb, st, g))
     out.update(check_probe_kernels(dev, pb, st, g))
+    out.update(check_rowmajor_kernels(dev, pb, st, out))
     for name, rec in out.items():
         log(f"kernel {name}: max_abs_err {rec['max_abs_err']:g}  "
             f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
             f"library {rec['library_ms']}")
+    return out
+
+
+def check_rowmajor_kernels(dev, pb, st, planar_recs):
+    """Phase 2, the pull and apply over the row-major table
+    (layout=packed, csrc/rowmajor_pairs.cu): against their plain versions
+    and, bit for bit, against the planar kernels B1 and B2 on the same
+    state; each timed in turns with its planar counterpart, for every
+    updater pair and K = 0. Returns their records, and adds the planar
+    kernels' own time (``kernel_ms``) to theirs in ``planar_recs``."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.ops import pair_sweep
+    from difacto_tpu_torch.probes.common import kernel_ms
+    from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
+                                                    unpack_state)
+
+    num_rows = 1 << NUM_BITS
+    U = pb.uids.shape[0]
+    n_valid = int(pb.valid.sum())
+    p = FMParam()
+    p.V_dim = K
+    out, faster = {}, {}
+    # its own draws: the checks before it keep theirs wherever this runs
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+
+    flush = torch.empty(1 << 26, device=dev)  # 256 MB: five times the L2
+
+    def in_turns(planar, rowmajor):
+        """(planar ms, row-major ms) by CUDA events over the wrapper
+        calls, each the mean of two timings taken in the order planar,
+        row-major, row-major, planar; and each kernel's own time from
+        torch.profiler, which for kernels this short is the better
+        figure (the event time is the host's enqueue rate, and the planar
+        apply's wrapper also launches an order check of three small
+        kernels): {"warm": [row-major, planar], "cold": [...]} in ms,
+        warm as the event loop runs them (the same rows every call, so
+        they sit in the L2), cold after a write of 256 MB."""
+        a, b = cuda_ms(planar), cuda_ms(rowmajor)
+        b2, a2 = cuda_ms(rowmajor), cuda_ms(planar)
+        own = {"warm": [kernel_ms(rowmajor, name="rowmajor_"),
+                        kernel_ms(planar, name="_pairs_kernel")],
+               "cold": [kernel_ms(lambda: (flush.zero_(), rowmajor()),
+                                  name="rowmajor_"),
+                        kernel_ms(lambda: (flush.zero_(), planar()),
+                                  name="_pairs_kernel")]}
+        return (a + a2) / 2, (b + b2) / 2, own
+
+    def no_slower(own):
+        return all(r <= p_ for r, p_ in own.values())
+
+    # -- pull: exact (a gather with a mask); the narrower pieces too -------
+    tb = pack_state(st)
+    got = pair_sweep.pull_pairs(tb, pb.uids, p)
+    refs = [("its plain version", pair_sweep.pull_pairs_plain(tb, pb.uids, p)),
+            ("pull_pairs", pair_sweep.pull_pairs(st, pb.uids, p))]
+    refs += [(f"its {v}-float pieces",
+              pair_sweep._pull_rowmajor(tb, pb.uids, p, vec=v)) for v in (1, 2)]
+    for what, ref in refs:
+        if not torch.equal(got, ref):
+            raise AssertionError(f"pull_rowmajor differs from {what} (max abs "
+                                 f"err {float((got - ref).abs().max()):g}; "
+                                 "tolerance: exact)")
+    n_act = past_gate(pb, st, p)
+    b_ms, b_by = bound(4 * (U + 2 * n_valid + K * n_act + (1 + K) * U), 0)
+    planar_ms, ms, own = in_turns(
+        lambda: pair_sweep.pull_pairs(st, pb.uids, p),
+        lambda: pair_sweep.pull_pairs(tb, pb.uids, p))
+    out["pull_rowmajor"] = dict(
+        route="cuda", source="difacto_tpu_torch/csrc/rowmajor_pairs.cu",
+        replaces="difacto_tpu/ops/pair_sweep.py:346", max_abs_err=0.0, ms=ms,
+        plain_ms=cuda_ms(lambda: pair_sweep.pull_pairs_plain(tb, pb.uids, p)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        kernel_ms=own["warm"][0],
+    )
+    planar_recs["pull_pairs"]["kernel_ms"] = own["warm"][1]
+    faster[f"pull K={K}"] = no_slower(own)
+    scalar_ms = cuda_ms(lambda: pair_sweep._pull_rowmajor(tb, pb.uids, p,
+                                                          vec=1))
+    log(f"pull_rowmajor K={K}: {ms:.4f} ms against pull_pairs {planar_ms:.4f} "
+        f"ms in turns; kernel time [row-major, planar] {json.dumps(own)}; "
+        f"scalar path (1-float pieces) {scalar_ms:.4f} ms")
+    q0 = FMParam()
+    q0.V_dim = 0
+    st0 = random_state(FMUpdater(q0), num_rows, dev, seed=3)
+    tb0 = pack_state(st0)
+    if not torch.equal(pair_sweep.pull_pairs(tb0, pb.uids, q0),
+                       pair_sweep.pull_pairs(st0, pb.uids, q0)):
+        raise AssertionError("pull_rowmajor K=0 differs from pull_pairs")
+    planar_ms, ms, own = in_turns(
+        lambda: pair_sweep.pull_pairs(st0, pb.uids, q0),
+        lambda: pair_sweep.pull_pairs(tb0, pb.uids, q0))
+    faster["pull K=0"] = no_slower(own)
+    log(f"pull_rowmajor K=0: {ms:.4f} ms against pull_pairs {planar_ms:.4f} "
+        f"ms; kernel time [row-major, planar] {json.dumps(own)}")
+    del tb, tb0
+
+    # -- apply: every updater pair and K = 0; the bits of B2's kernel ------
+    vf = pb.valid.to(torch.float32)
+    worst = 0.0
+    for k, wupd, vupd in UPDATER_CASES:
+        q = FMParam()
+        q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
+        base = st if k == K else st0
+        grads = torch.randn((1 + k, U), generator=g, device=dev) * vf
+        payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
+        act = past_gate(pb, base, q)
+        a = unpack_state(pair_sweep.apply_pairs(pack_state(base), pb.uids,
+                                                payload, q))
+        b = unpack_state(pair_sweep.apply_pairs_plain(pack_state(base),
+                                                      pb.uids, payload, q))
+        c = pair_sweep.apply_pairs(clone_state(base), pb.uids, payload, q)
+        narrow = {v: unpack_state(pair_sweep._apply_rowmajor(
+            pack_state(base), pb.uids, payload, q, vec=v)) for v in (1, 2)}
+        for leaf in ("w", "z", "n", "cnt", "V", "nV"):
+            x = getattr(a, leaf)
+            if not x.numel():
+                continue
+            # the same sums in the same order and the same arithmetic as
+            # the planar kernel: the same bits, whatever the piece width
+            for what, ref in [("apply_pairs", c)] + [
+                    (f"its {v}-float pieces", s_) for v, s_ in narrow.items()]:
+                if not torch.equal(x, getattr(ref, leaf)):
+                    raise AssertionError(
+                        f"apply_rowmajor {wupd}/{vupd} K={k} differs from "
+                        f"{what}: {leaf} (tolerance: bit-equal)")
+            # the plain version's division by a scalar runs as a multiply
+            # by its float reciprocal on the card: 1 ulp
+            worst = max(worst, float((x - getattr(b, leaf)).abs().max()))
+            torch.testing.assert_close(
+                x, getattr(b, leaf), rtol=1e-5, atol=1e-6,
+                msg=f"apply_rowmajor {wupd}/{vupd} K={k} against its plain "
+                    f"version: {leaf}")
+        del a, b, c, narrow
+        work, work_p = pack_state(base), clone_state(base)
+        planar_ms, ms, own = in_turns(
+            lambda: pair_sweep.apply_pairs(work_p, pb.uids, payload, q),
+            lambda: pair_sweep.apply_pairs(work, pb.uids, payload, q))
+        nbytes = (4 * (U + 3 * n_valid + k * act)
+                  + updater_bytes(wupd, vupd, k, n_valid, act))
+        rec = dict(ms=ms, plain_ms=cuda_ms(
+            lambda: pair_sweep.apply_pairs_plain(work, pb.uids, payload, q)))
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 20 * n_valid
+                                                 + 8 * k * act)
+        faster[f"apply {wupd}/{vupd} K={k}"] = no_slower(own)
+        scalar_ms = cuda_ms(lambda: pair_sweep._apply_rowmajor(
+            work, pb.uids, payload, q, vec=1))
+        log(f"apply_rowmajor {wupd}/{vupd} K={k} ({n_valid} touched rows, "
+            f"{act} past the V gate): {json.dumps(rec)}; apply_pairs in "
+            f"turns {planar_ms:.4f} ms; kernel time [row-major, planar] "
+            f"{json.dumps(own)}; scalar path {scalar_ms:.4f} ms")
+        if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
+            out["apply_rowmajor"] = dict(
+                route="cuda",
+                source="difacto_tpu_torch/csrc/rowmajor_pairs.cu",
+                replaces="difacto_tpu/ops/pair_sweep.py:449", **rec,
+                library_ms=None, kernel_ms=own["warm"][0],
+            )
+            planar_recs["apply_pairs"]["kernel_ms"] = own["warm"][1]
+        del work, work_p
+    out["apply_rowmajor"]["max_abs_err"] = worst
+    by_k = {f"K={k}": all(v for name, v in faster.items()
+                          if name.endswith(f"K={k}")) for k in (K, 0)}
+    log(f"row-major kernels no slower than the planar ones by kernel time, "
+        f"warm and cold: {json.dumps(faster)}; every case of one width: "
+        f"{json.dumps(by_k)} (what parallel/store.py::_resolve_layout gives "
+        "layout=auto on the pairs path was decided on this line: packed "
+        "for the widths where every case holds)")
     return out
 
 
@@ -347,8 +524,7 @@ def check_sweep_kernels(dev, pb, st, g):
     # -- apply: every w/V updater pair, and K = 0 --------------------------
     vf = pb.valid.to(torch.float32)
     worst = 0.0
-    for k, wupd, vupd in ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
-                          (K, "sgd", "adagrad"), (0, "ftrl", "adagrad")):
+    for k, wupd, vupd in UPDATER_CASES:
         q = FMParam()
         q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
         base = st if k == K else random_state(FMUpdater(q), num_rows, dev,
@@ -546,26 +722,38 @@ def check_probe_kernels(dev, pb, st, g):
         for s_, p_ in ((sid, pay), (sid_r, pay_r)):
             if not torch.equal(bis.bisect_w(s_, p_, w, variant), w):
                 raise AssertionError(f"bisect_w {variant} changed w")
+    # the first design sums each run in the same slot order: the same bits
+    for s_, p_ in ((sid, pay), (sid_r, pay_r), (sid_r, ipay_r)):
+        if not torch.equal(bis.bisect_w(s_, p_, w, "rowscan"),
+                           bis.bisect_w(s_, p_, w)):
+            raise AssertionError("bisect_w rowscan differs from the sparse "
+                                 "design (tolerance: bit-equal)")
     log(f"bisect_w: {nnz_r} slots, hottest id {int(seg_n.max())} slots; max "
         f"abs err {err_w:g} against the float64 sums; integer payload "
-        f"exact; scanonly and loadonly return w")
+        f"exact; scanonly and loadonly return w; rowscan gives the same bits")
     real = int((sid < n).sum())
     idx, pay0 = sid[:real].long(), pay[0, :real].contiguous()
     w_bytes = 4 * (sid.shape[0] + real + 2 * n)
     b_ms, b_by = bound(w_bytes, real + n)
-    out["bisect_w"] = dict(
-        route="cuda", source="difacto_tpu_torch/csrc/bisect_apply.cu",
-        replaces="scripts/bisect_apply.py:98", max_abs_err=err_w,
-        ms=cuda_ms(lambda: bis.bisect_w(sid, pay, w)),
-        plain_ms=cuda_ms(lambda: bis.bisect_w_plain(sid, pay, w)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: w.index_add(0, idx, pay0)),
-    )
+    plain_ms = cuda_ms(lambda: bis.bisect_w_plain(sid, pay, w))
+    library_ms = cuda_ms(lambda: w.index_add(0, idx, pay0))
+    for name, variant in (("bisect_w", "highest"),
+                          ("bisect_rowscan", "rowscan")):
+        out[name] = dict(
+            route="cuda", source="difacto_tpu_torch/csrc/bisect_apply.cu",
+            replaces="scripts/bisect_apply.py:98", max_abs_err=err_w,
+            ms=cuda_ms(lambda: bis.bisect_w(sid, pay, w, variant)),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms,
+        )
     # these kernels take microseconds, so the event times above are the
     # host's enqueue rate; the stage split reads the kernels' own time
     stages = {v: common.kernel_ms(lambda: bis.bisect_w(sid, pay, w, v))
-              for v in ("highest", "scanonly", "loadonly")}
+              for v in ("highest", "scanonly", "loadonly", "rowscan")}
     stages["index_add"] = common.kernel_ms(lambda: w.index_add(0, idx, pay0))
+    stages["clone"] = common.kernel_ms(lambda: w.clone())  # the copy alone
+    out["bisect_w"]["kernel_ms"] = stages["highest"]
+    out["bisect_rowscan"]["kernel_ms"] = stages["rowscan"]
     log("bisect_w kernel time at the probe's shapes by torch.profiler "
         f"(ms): {json.dumps(stages)}")
 
@@ -672,7 +860,7 @@ def check_probe_kernels(dev, pb, st, g):
 
 
 PROBE_KERNELS = ("apply_pairs2", "pull_packed", "apply_packed", "bisect_w",
-                 "bisect_ftrl4", "slot_accum")
+                 "bisect_rowscan", "bisect_ftrl4", "slot_accum")
 
 
 def drive_probes(dev) -> dict:
@@ -686,7 +874,7 @@ def drive_probes(dev) -> dict:
     cuda.reset_launches()
     runs = [(hw_apply2, []), (hw_packed_pairs, []), (bench_slot_accum, [])]
     runs += [(bisect_apply, [v]) for v in (
-        "highest", "default", "scanonly", "loadonly", "ftrl4",
+        "highest", "default", "scanonly", "loadonly", "rowscan", "ftrl4",
         "ftrl4_inplace")]
     for mod, argv in runs:
         rc = mod.main(argv, device=dev)
@@ -700,7 +888,10 @@ def drive_probes(dev) -> dict:
     return launches
 
 
-STEP_PATHS = ((), (("segsum", "scatter"),), (("kernel", "pallas"),),
+STEP_PATHS = ((), (("layout", "planar"),), (("layout", "packed"),),
+              (("segsum", "scatter"),),
+              (("layout", "packed"), ("segsum", "scatter")),
+              (("kernel", "pallas"),),
               (("kernel", "pallas"), ("segsum", "sorted")))
 
 
@@ -835,7 +1026,7 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple):
     launches = dict(cuda.LAUNCHES)
     steps = MAIN_BATCHES
     rec = {
-        "path": dict(extra) or {"kernel": "auto"},
+        "path": {"kernel": "auto", **dict(extra)},
         "epoch0_stream_s": t_stream,
         "replay_ms_per_step": t_replay / steps * 1e3,
         "replay_examples_per_s": BATCH * steps / t_replay,
@@ -878,39 +1069,51 @@ def drive_cli(tmp: str) -> None:
     write_libsvm(make_ctr_data(2000, num_fields=10, vocab_per_field=300,
                                seed=2), va)
     labels = np.array([float(ln.split()[0]) for ln in open(va)])
-    for kernel, path, other in (("auto", PAIRS_KERNELS, SWEEP_KERNELS),
-                                ("pallas", SWEEP_KERNELS, PAIRS_KERNELS)):
-        model = os.path.join(tmp, f"model_{kernel}")
+    aucs = {}
+    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS)
+    for kernel, layout, path in (("auto", "planar", PAIRS_KERNELS),
+                                 ("auto", "packed", ROWMAJOR_KERNELS),
+                                 ("pallas", "auto", SWEEP_KERNELS)):
+        other = table_kernels - set(path)
+        model = os.path.join(tmp, f"model_{kernel}_{layout}")
         shape = ["batch_size=512", "num_bits=16", "max_nnz_per_row=12",
-                 "V_dim=8", f"kernel={kernel}"]
+                 "V_dim=8", f"kernel={kernel}", f"layout={layout}"]
         cuda.reset_launches()
         rc = cli.main([f"data_in={tr}", f"data_val={va}", *shape,
                        "lr_eta=0.1", "l1=0.1", "V_lr_eta=0.05",
                        "max_num_epochs=2", f"model_out={model}"])
         if rc != 0 or not os.path.exists(model + ".npz"):
-            raise AssertionError(f"CLI train kernel={kernel} failed (rc {rc})")
+            raise AssertionError(f"CLI train kernel={kernel} layout={layout} "
+                                 f"failed (rc {rc})")
         preds = {}
         for dev in (None, "cpu"):
-            out = os.path.join(tmp, f"pred_{kernel}_{dev}.txt")
+            out = os.path.join(tmp, f"pred_{kernel}_{layout}_{dev}.txt")
             rc = cli.main([f"data_in={va}", *shape, "task=predict",
                            f"model_in={model}", f"pred_out={out}"],
                           device=dev)
             if rc != 0:
-                raise AssertionError(f"CLI predict kernel={kernel} failed "
-                                     f"(rc {rc})")
+                raise AssertionError(f"CLI predict kernel={kernel} "
+                                     f"layout={layout} failed (rc {rc})")
             preds[dev] = np.loadtxt(out)
         # the path's kernels ran, the other path's did not
         if (min(cuda.LAUNCHES[k] for k in path) == 0
                 or any(cuda.LAUNCHES[k] for k in other)):
-            raise AssertionError(f"the CLI run kernel={kernel} went through "
-                                 f"the wrong kernels: {cuda.LAUNCHES}")
+            raise AssertionError(f"the CLI run kernel={kernel} layout={layout} "
+                                 f"went through the wrong kernels: "
+                                 f"{cuda.LAUNCHES}")
         auc = exact_auc(labels, preds[None])
-        log(f"CLI kernel={kernel}: predict AUC {auc:.6f} over {len(labels)} "
-            f"rows, launches {dict(cuda.LAUNCHES)}")
+        aucs[kernel, layout] = auc
+        log(f"CLI kernel={kernel} layout={layout}: predict AUC {auc:.6f} over "
+            f"{len(labels)} rows, launches {dict(cuda.LAUNCHES)}")
         if not auc > 0.6:
             raise AssertionError(f"CLI validation AUC {auc} <= 0.6")
         np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
                                    atol=1e-5)
+    # the two layouts of the pairs path train the same model (the verify
+    # recipe's tolerance on AUC)
+    if abs(aucs["auto", "packed"] - aucs["auto", "planar"]) > 1e-5:
+        raise AssertionError(f"layout=packed and layout=planar disagree: "
+                             f"{aucs}")
 
 
 def main() -> int:
@@ -942,7 +1145,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         files = write_main_data(tmp)
         # the pull first: it also serves the validation batch
-        for extra, path in (((), PAIRS_KERNELS),
+        for extra, path in (((("layout", "planar"),), PAIRS_KERNELS),
+                            ((("layout", "packed"),), ROWMAJOR_KERNELS),
                             ((("kernel", "pallas"),), SWEEP_KERNELS),
                             ((("kernel", "pallas"), ("segsum", "sorted")),
                              SWEEP_SORTED_KERNELS)):
@@ -955,8 +1159,12 @@ def main() -> int:
         "route", "source", "replaces")}, "launches": launches[name],
         **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
-                                         "library_ms")}}
-        for name in PAIRS_KERNELS + SWEEP_KERNELS + PROBE_KERNELS]
+                                         "library_ms")},
+        # the kernel's own time by torch.profiler, for the kernels short
+        # enough that `ms` (CUDA events) is the host's enqueue rate
+        **{k: v for k, v in kernels[name].items() if k == "kernel_ms"}}
+        for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
+        + SWEEP_KERNELS + PROBE_KERNELS]
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -166,7 +166,10 @@ class ShardParam(ParamBase):
     kernel: str = "auto"           # auto | pairs = the unique-row table
                                    # kernels (ops/pair_sweep.py); pallas =
                                    # the whole-table sweep (ops/sweep.py)
-    layout: str = "auto"           # auto | planar (w/z/n/cnt [N], V/nV [K, N])
+    layout: str = "auto"           # planar (w/z/n/cnt [N], V/nV [K, N]) |
+                                   # packed (one row-major [N, 4+2K] table;
+                                   # kernel=auto|pairs only) | auto (see
+                                   # parallel/store.py::_resolve_layout)
     block_rows: int = 1024         # table block of the sweep kernels
                                    # (kernel=pallas); must divide the rows
     segsum: str = "auto"           # sorted = the segment-sum kernel over the
@@ -194,8 +197,8 @@ def _slice_violations(cfg: "Config") -> list[str]:
     if s.kernel == "xla":
         out.append("kernel=xla (ROADMAP A14, the XLA gather/scatter path "
                    "and its layouts)")
-    if s.layout in ("packed", "stacked"):
-        out.append(f"layout={s.layout} (ROADMAP A14, other layouts)")
+    if s.layout == "stacked":
+        out.append("layout=stacked (ROADMAP A14, the XLA path's layout)")
     if not d.host_localize:
         out.append("host_localize=0 (ROADMAP A16, device localize)")
     if d.data_format in ("libffm", "csr"):

@@ -1,0 +1,284 @@
+// Pull and apply over the ROW-MAJOR table (layout=packed): one array
+//   tbl [N, 4+2K], columns w | z | n | cnt | V[K] | nV[K],
+// so that one id's state is 16 + 8K contiguous bytes (144 at K = 16).
+//
+// Second design, for this card, of the functions of csrc/pull_pairs.cu
+// and csrc/apply_pairs.cu (the Pallas kernels _pull_pairs_kernel and
+// _apply_pairs_kernel of difacto_tpu/ops/pair_sweep.py), with the same
+// contracts apart from the table's layout:
+//
+//   pull:  out [1+K, U] planar; row 0 is w[uid], rows 1..K are V[uid],
+//          zero unless cnt[uid] >= V_threshold; sentinel lanes (uid
+//          outside [0, N)) are 0 in every row.
+//   apply: payload [3+K, U] planar, gw | gV[K] | add_cnt | touch, over
+//          non-decreasing uids (a descent fails a device-side assert);
+//          the lane that starts a run of equal ids sums the run in lane
+//          order (csrc/pair_runs.cuh) and updates the row once, in place:
+//          the w updater under the tail filter, cnt += add_cnt, the V
+//          updater gated by the PRE-update cnt. Rows not touched keep
+//          their exact bits; no atomics. The math is
+//          csrc/table_update.cuh's step_w / step_v, so the result has the
+//          bits of csrc/apply_pairs.cu's on the same inputs.
+//
+// Bound: bytes, and on this card the number of 32-byte sectors touched
+// rather than the bytes in them. The planar kernels spend one sector per
+// 4-byte leaf entry (36 sectors per row of K = 16 in the apply, 18 in the
+// pull), and every thread arrangement tried on them ran at the same
+// sector rate. Here a row's leaves share sectors: the pull reads bytes
+// 0..16+4K (3-4 sectors), the apply reads and writes 5-6.
+//
+// Design, both kernels: a warp owns 32 consecutive lanes, in two phases.
+//   A  thread t takes lane t: the uid (coalesced), the row's head
+//      w|z|n|cnt as one 16-byte load. That decides the gate, so a row
+//      below the V threshold costs its first sector and nothing else. The
+//      apply also sums the lane's gw, add_cnt and touch here (coalesced
+//      payload rows), steps w and writes the head back.
+//   B  the 32 x K/VEC pieces of VEC consecutive V entries are dealt to
+//      the threads piece-fastest, so that neighbouring threads move
+//      neighbouring 16-byte pieces of one row; id, gate and run end come
+//      from the lane's thread by shuffle. The apply takes the gV payload
+//      for its piece from the warp's shared-memory tile [K][32], which
+//      cp.async filled with one 128-byte payload row a copy while phase A
+//      ran, steps (V, nV) and writes both pieces back. The pull stages
+//      its pieces in a shared-memory tile [1+K][32] per warp and then
+//      writes the planar output one row per 128-byte store.
+// VEC is 4 when K % 4 == 0 and the table is 16-byte aligned (V and nV
+// pieces then pair up as float4), 2 when K is even, 1 (the scalar path)
+// for odd K: the same kernel template, narrower pieces.
+//
+// Measured on an H100 (PERF.md, section 6): the kernels' own times are
+// 0.005 ms (pull) and 0.014 ms (apply) with the touched rows in the L2,
+// 0.013 and 0.026 ms with the L2 flushed, against 0.026-0.037 and 0.20 ms
+// for the planar kernels. Tried beside it, each in turns in one run:
+//  - the gV payload read straight from the planar payload in phase B (8
+//    consecutive lanes of a payload row per 4 pieces, whole sectors): 8-9 %
+//    slower at K = 16 (0.0150 and 0.0284 ms) than the cp.async tile; kept
+//    only for the lanes of a run that outlasts the warp;
+//  - 2 and 8 warps a block instead of 4: no difference in the apply or
+//    the K = 16 pull; 2 warps slow the K = 0 pull (0.0026 against 0.0021);
+//  - the narrower pieces (`vec` 1 or 2 at even K): a few percent to a
+//    fifth slower; they stay only as the path of the K that need them;
+//  - the apply's order check as three small kernels launched by the
+//    wrapper cost the step more than this kernel does; it is the assert
+//    in phase A now.
+// TMA was not tried: the rows are scattered 144-byte pieces.
+#include <assert.h>
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "pair_runs.cuh"
+#include "table_update.cuh"
+
+#define RM_WARPS 4                 // warps per block
+#define RM_THREADS (32 * RM_WARPS)
+#define RM_TILE_LD 33              // tile row pitch: 32 lanes + 1 pad
+
+template <int VEC>
+__global__ void __launch_bounds__(RM_THREADS)
+rowmajor_pull_kernel(const float* __restrict__ tbl,
+                     const int* __restrict__ uids, float* __restrict__ out,
+                     long long N, int K, int U, float thr) {
+  extern __shared__ float smem[];
+  const int t = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lane0 = (blockIdx.x * RM_WARPS + warp) * 32;
+  if (lane0 >= U) return;          // the whole warp: no block barrier below
+  const int D = 4 + 2 * K;
+  const int lane = lane0 + t;
+  // phase A: the head of this thread's lane
+  int id = lane < U ? uids[lane] : -1;
+  if (id < 0 || id >= N) id = -1;  // sentinel
+  float w = 0.0f;
+  bool act = false;
+  if (id >= 0) {
+    const float* row = tbl + (long long)id * D;
+    if (VEC == 4) {
+      float h[4];
+      ld_vec<4>(row, h);
+      w = h[0];
+      act = h[3] >= thr;
+    } else {
+      w = row[0];
+      act = K > 0 && row[3] >= thr;
+    }
+  }
+  if (K == 0) {
+    if (lane < U) out[lane] = w;
+    return;
+  }
+  float* tile = smem + (size_t)warp * (1 + K) * RM_TILE_LD;
+  tile[t] = w;
+  // phase B: the V pieces of the warp's 32 rows, piece-fastest
+  const int PV = K / VEC;
+  for (int it = 0; it < PV; ++it) {
+    const int q = it * 32 + t;
+    const int ll = q / PV;
+    const int piece = q - ll * PV;
+    const int rid = __shfl_sync(0xffffffffu, id, ll);
+    const int ract = __shfl_sync(0xffffffffu, (int)act, ll);
+    float v[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) v[c] = 0.0f;
+    if (ract) ld_vec<VEC>(tbl + (long long)rid * D + 4 + piece * VEC, v);
+#pragma unroll
+    for (int c = 0; c < VEC; ++c)
+      tile[(1 + piece * VEC + c) * RM_TILE_LD + ll] = v[c];
+  }
+  __syncwarp();
+  if (lane < U) {
+    for (int r = 0; r <= K; ++r)
+      out[(long long)r * U + lane] = tile[r * RM_TILE_LD + t];
+  }
+}
+
+// The table is read and written here: no __restrict__ on it.
+template <int VEC>
+__global__ void __launch_bounds__(RM_THREADS)
+rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
+                      const float* __restrict__ pay, long long N, int K,
+                      int U, ApplyParams p) {
+  extern __shared__ float smem[];
+  const int t = threadIdx.x & 31;
+  const int lane0 = (blockIdx.x * RM_WARPS + (threadIdx.x >> 5)) * 32;
+  if (lane0 >= U) return;
+  const int D = 4 + 2 * K;
+  const int lane = lane0 + t;
+  // the warp's tile [K][32] of the gV payload, one 128-byte row a copy,
+  // on its way to shared memory (cp.async) while phase A runs
+  float* tile = smem + (size_t)(threadIdx.x >> 5) * K * 32;
+  if (lane < U)
+    for (int r = 0; r < K; ++r)
+      __pipeline_memcpy_async(tile + r * 32 + t,
+                              pay + (long long)(1 + r) * U + lane, 4);
+  __pipeline_commit();
+  // phase A: the lane that starts a run updates the row's head
+  int id = -1, end = 0;
+  if (lane < U) {
+    // runs of equal ids must be consecutive. Checked here, on ids the
+    // lane reads anyway, and not by the wrapper: a check outside the
+    // kernel costs the step three more launches
+    assert((lane == 0 || uids[lane - 1] <= uids[lane]) &&
+           "apply_rowmajor: uids must be non-decreasing");
+    id = run_start(uids, lane, U, N, &end);
+  }
+  bool active = false;
+  if (id >= 0 && run_sum(pay, 2 + K, U, lane, end) > 0.0f) {  // else keep bits
+    float add_cnt = run_sum(pay, 1 + K, U, lane, end);
+    float* row = tbl + (long long)id * D;
+    float h[4];
+    load_head<VEC>(row, h);
+    const float c = h[3];                           // PRE-update count
+    const bool tail_ok = p.tail <= 0 || c >= (float)p.tail;
+    if (tail_ok) {
+      WRow o = step_w(WRow{h[0], h[1], h[2]}, run_sum(pay, 0, U, lane, end), p);
+      h[0] = o.w;
+      h[1] = o.z;
+      h[2] = o.n;
+    }
+    h[3] = c + add_cnt;
+    store_head<VEC>(row, h);
+    active = K > 0 && tail_ok && c >= p.V_threshold;
+  }
+  // phase B: the (V, nV) pieces of the rows past the gate, piece-fastest
+  const int PV = K / VEC;
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  for (int it = 0; it < PV; ++it) {
+    const int q = it * 32 + t;
+    const int ll = q / PV;
+    const int piece = q - ll * PV;
+    const int rid = __shfl_sync(0xffffffffu, id, ll);
+    const int rend = __shfl_sync(0xffffffffu, end, ll);
+    const int ract = __shfl_sync(0xffffffffu, (int)active, ll);
+    if (ract) {
+      float* v = tbl + (long long)rid * D + 4 + piece * VEC;
+      VEnt e[VEC];
+      load_v_row<VEC>(v, K, e, p);
+      // the run's lanes inside the warp's tile, then (a run that outlasts
+      // the warp) the rest from the payload: lane order, as run_sum
+      const int cut = min(rend, lane0 + 32);
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        const int r = piece * VEC + c;
+        float gv = 0.0f;
+        for (int j = ll; j < cut - lane0; ++j) gv += tile[r * 32 + j];
+        for (int j = cut; j < rend; ++j) gv += pay[(long long)(1 + r) * U + j];
+        e[c] = step_v(e[c], gv, p);
+      }
+      store_v_row<VEC>(v, K, e, p);
+    }
+  }
+}
+
+// The widest piece the row layout and the table's address allow, capped
+// by `vec` when it is 1, 2 or 4 (0 = no cap).
+static int pick_vec(const void* tbl, int K, int vec) {
+  const uintptr_t a = (uintptr_t)tbl;
+  int best = 1;
+  if (K % 4 == 0 && a % 16 == 0) best = 4;
+  else if (K % 2 == 0 && a % 8 == 0) best = 2;
+  if (vec > 0 && vec < best) best = vec;
+  return best;
+}
+
+// A kernel that asks for more than 48 KB of dynamic shared memory (a wide
+// K) must be allowed it first.
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+extern "C" int dft_pull_rowmajor(const void* tbl, const void* uids, void* out,
+                                 long long N, int K, int U, float thr, int vec,
+                                 void* stream) {
+  if (U <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned int blocks = (unsigned int)((U + RM_THREADS - 1) / RM_THREADS);
+  const size_t smem =
+      K > 0 ? sizeof(float) * RM_WARPS * (size_t)(1 + K) * RM_TILE_LD : 0;
+#define RM_PULL(V)                                                          \
+  do {                                                                      \
+    cudaError_t e = allow_smem(rowmajor_pull_kernel<V>, smem);              \
+    if (e != cudaSuccess) return (int)e;                                    \
+    rowmajor_pull_kernel<V><<<blocks, RM_THREADS, smem, st>>>(              \
+        (const float*)tbl, (const int*)uids, (float*)out, N, K, U, thr);    \
+  } while (0)
+  switch (pick_vec(tbl, K, vec)) {
+    case 4: RM_PULL(4); break;
+    case 2: RM_PULL(2); break;
+    default: RM_PULL(1); break;
+  }
+#undef RM_PULL
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dft_apply_rowmajor(void* tbl, const void* uids, const void* pay,
+                                  long long N, int K, int U, float lr_eta,
+                                  float lr_beta, float l1, float l2,
+                                  float V_lr_eta, float V_lr_beta, float V_l2,
+                                  float V_threshold, int tail, int w_updater,
+                                  int V_updater, int vec, void* stream) {
+  if (U <= 0) return (int)cudaGetLastError();
+  ApplyParams p{lr_eta, lr_beta, l1, l2, V_lr_eta, V_lr_beta, V_l2,
+                V_threshold, tail, w_updater, V_updater};
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned int blocks = (unsigned int)((U + RM_THREADS - 1) / RM_THREADS);
+  const size_t smem = sizeof(float) * RM_WARPS * (size_t)K * 32;
+#define RM_APPLY(V)                                                         \
+  do {                                                                      \
+    cudaError_t e = allow_smem(rowmajor_apply_kernel<V>, smem);             \
+    if (e != cudaSuccess) return (int)e;                                    \
+    rowmajor_apply_kernel<V><<<blocks, RM_THREADS, smem, st>>>(             \
+        (float*)tbl, (const int*)uids, (const float*)pay, N, K, U, p);      \
+  } while (0)
+  switch (pick_vec(tbl, K, vec)) {
+    case 4: RM_APPLY(4); break;
+    case 2: RM_APPLY(2); break;
+    default: RM_APPLY(1); break;
+  }
+#undef RM_APPLY
+  return (int)cudaGetLastError();
+}

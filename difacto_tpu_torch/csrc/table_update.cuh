@@ -1,13 +1,17 @@
 // The per-row optimizer math of the apply kernels (csrc/apply_pairs.cu,
 // csrc/apply_pairs2.cu, csrc/packed_pairs.cu, csrc/sweep_apply.cu,
-// csrc/bisect_apply.cu), in the formula order of
+// csrc/bisect_apply.cu, csrc/rowmajor_pairs.cu), in the formula order of
 // difacto_tpu_torch/ops/sweep_ms.py::fused_table_update, so that a kernel
 // built with --fmad=false rounds as the plain version does.
 //
 // Each update comes in three stages — load, step, store — so that a
 // kernel can start the loads of several rows before any row's arithmetic
 // (csrc/apply_pairs2.cu); update_w and update_v chain the three for the
-// kernels that do one row at a time.
+// kernels that do one row at a time. The load and store stages exist for
+// both table layouts: planar leaves (one array per leaf, V and nV [K, N])
+// and the row-major table [N, 4+2K] with columns w|z|n|cnt|V|nV
+// (csrc/rowmajor_pairs.cu), whose stages move VEC consecutive floats of a
+// row at a time. The step stages are the one copy of the formulas.
 #pragma once
 #include <math.h>
 
@@ -107,4 +111,77 @@ __device__ __forceinline__ void store_v(float* V, float* nV, long long at,
 __device__ __forceinline__ void update_v(float* V, float* nV, long long at,
                                          float gv, const ApplyParams& p) {
   store_v(V, nV, at, step_v(load_v(V, nV, at, p), gv, p), p);
+}
+
+// ---- row-major stages: VEC consecutive floats of a table row ------------
+// VEC = 4 moves 16 bytes (the row must be 16-byte aligned: K even and an
+// aligned table), VEC = 2 moves 8, VEC = 1 is the scalar path.
+template <int VEC>
+__device__ __forceinline__ void ld_vec(const float* p, float* d);
+template <>
+__device__ __forceinline__ void ld_vec<4>(const float* p, float* d) {
+  float4 v = *reinterpret_cast<const float4*>(p);
+  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void ld_vec<2>(const float* p, float* d) {
+  float2 v = *reinterpret_cast<const float2*>(p);
+  d[0] = v.x; d[1] = v.y;
+}
+template <>
+__device__ __forceinline__ void ld_vec<1>(const float* p, float* d) {
+  d[0] = *p;
+}
+
+template <int VEC>
+__device__ __forceinline__ void st_vec(float* p, const float* s);
+template <>
+__device__ __forceinline__ void st_vec<4>(float* p, const float* s) {
+  *reinterpret_cast<float4*>(p) = make_float4(s[0], s[1], s[2], s[3]);
+}
+template <>
+__device__ __forceinline__ void st_vec<2>(float* p, const float* s) {
+  *reinterpret_cast<float2*>(p) = make_float2(s[0], s[1]);
+}
+template <>
+__device__ __forceinline__ void st_vec<1>(float* p, const float* s) {
+  *p = s[0];
+}
+
+// The head w|z|n|cnt of a row-major table row, whole (h[4]).
+template <int VEC>
+__device__ __forceinline__ void load_head(const float* row, float* h) {
+#pragma unroll
+  for (int i = 0; i < 4; i += VEC) ld_vec<VEC>(row + i, h + i);
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_head(float* row, const float* h) {
+#pragma unroll
+  for (int i = 0; i < 4; i += VEC) st_vec<VEC>(row + i, h + i);
+}
+
+// VEC factor entries V[j..j+VEC) of a row with their accumulators: `v`
+// points at the row's V[j], the accumulators lie K floats further.
+template <int VEC>
+__device__ __forceinline__ void load_v_row(const float* v, int K, VEnt* e,
+                                           const ApplyParams& p) {
+  float a[VEC], b[VEC];
+  ld_vec<VEC>(v, a);
+  if (p.V_updater == 0) ld_vec<VEC>(v + K, b);
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) {
+    e[c].v = a[c];
+    e[c].nv = p.V_updater == 0 ? b[c] : 0.0f;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_v_row(float* v, int K, const VEnt* e,
+                                            const ApplyParams& p) {
+  float a[VEC], b[VEC];
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) { a[c] = e[c].v; b[c] = e[c].nv; }
+  st_vec<VEC>(v, a);
+  if (p.V_updater == 0) st_vec<VEC>(v + K, b);
 }

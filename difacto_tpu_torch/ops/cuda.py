@@ -34,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu", "sweep_pull.cu",
            "sweep_apply.cu", "apply_pairs2.cu", "packed_pairs.cu",
-           "bisect_apply.cu", "slot_accum.cu")
+           "bisect_apply.cu", "slot_accum.cu", "rowmajor_pairs.cu")
 HEADERS = ("table_update.cuh", "sweep.cuh", "pair_runs.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -46,7 +46,8 @@ LIB_NAME = "libdifacto_torch_kernels.so"
 LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
             "sweep_pull": 0, "sweep_apply": 0, "apply_pairs2": 0,
             "pull_packed": 0, "apply_packed": 0, "bisect_w": 0,
-            "bisect_ftrl4": 0, "slot_accum": 0}
+            "bisect_ftrl4": 0, "slot_accum": 0, "bisect_rowscan": 0,
+            "pull_rowmajor": 0, "apply_rowmajor": 0}
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -81,6 +82,12 @@ _SIGNATURES = {
     "dft_bisect_ftrl4": [_VP] * 10 + [_LL, _I, _I, _VP],
     # sid, pay, out, head, tail, nslots, num_rows, stream
     "dft_slot_accum": [_VP] * 5 + [_I, _I, _VP],
+    # tbl, uids, out, N, K, U, V_threshold, vec, stream
+    "dft_pull_rowmajor": [_VP] * 3 + [_LL, _I, _I, _F, _I, _VP],
+    # tbl, uids, payload, N, K, U, then as dft_apply_pairs from lr_eta to
+    # V_updater, vec, stream
+    "dft_apply_rowmajor": [_VP] * 3 + [_LL, _I, _I] + [_F] * 8
+    + [_I, _I, _I, _I, _VP],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -162,6 +169,17 @@ def check(rc: int, name: str) -> None:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def raw_stream(device: torch.device) -> int:
+    """:func:`stream` without building a ``torch.cuda.Stream`` object, for
+    the wrappers of microsecond kernels, whose time by CUDA events is the
+    host's time to enqueue them."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        return stream(device)
+    index = device.index
+    return get(torch.cuda.current_device() if index is None else index)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

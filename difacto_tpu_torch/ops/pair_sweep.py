@@ -8,6 +8,14 @@ addresses only aligned tiles (``pair_sweep.py:1-25``). The Hopper kernels
 and scatter rows directly, so they take no schedule: the same inputs map
 to the same outputs.
 
+``pull_pairs`` and ``apply_pairs`` take either table layout, as the JAX
+updater's ``pull``/``update`` do: a planar :class:`FMState` goes to the
+kernels above, a row-major :class:`PackedFMState` (``layout=packed``) to
+the kernels of csrc/rowmajor_pairs.cu, designed for the card's 32-byte
+sectors. One function, two layouts: the plain versions below run on
+either through the packed state's column views. ``apply_pairs2`` is
+planar only.
+
 Each function is a wrapper: a CUDA tensor launches the kernel (or raises
 on what the kernel does not take); a CPU tensor takes the plain PyTorch
 version beside it. There is no fallback from one to the other.
@@ -18,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..config import FMParam
-from ..updaters.updater import FMState
+from ..updaters.updater import FMState, PackedFMState, require_planar
 from . import cuda
 from .sweep_ms import V_UPDATERS, W_UPDATERS, fused_table_update, gather_rows
 
@@ -28,20 +36,42 @@ from .sweep_ms import V_UPDATERS, W_UPDATERS, fused_table_update, gather_rows
 # ---------------------------------------------------------------------------
 
 
-def pull_pairs_plain(state: FMState, uids: torch.Tensor,
+def pull_pairs_plain(state, uids: torch.Tensor,
                      param: FMParam) -> torch.Tensor:
-    """Indexing plus a mask: the plain version of the pull kernel."""
+    """Indexing plus a mask: the plain version of both pull kernels
+    (either layout)."""
     return gather_rows(state, uids, (uids >= 0) & (uids < state.num_rows),
                        param)
 
 
-def pull_pairs(state: FMState, uids: torch.Tensor,
-               param: FMParam) -> torch.Tensor:
+def _pull_rowmajor(state: PackedFMState, uids: torch.Tensor,
+                   param: FMParam, vec: int = 0) -> torch.Tensor:
+    """Launch the row-major pull. ``vec`` caps the kernel's piece width
+    (1, 2 or 4 floats; 0 = the widest the row layout allows): the tests
+    and the timing of the scalar path use it."""
+    n, k, u = state.num_rows, state.k, uids.shape[0]
+    dev = state.device
+    cuda.require(state.tbl, "tbl", torch.float32, (n, 4 + 2 * k), dev)
+    cuda.require(uids, "uids", torch.int32, (u,), dev)
+    out = torch.empty((1 + k, u), dtype=torch.float32, device=dev)
+    rc = cuda.library().dft_pull_rowmajor(
+        state.tbl.data_ptr(), uids.data_ptr(), out.data_ptr(), n, k, u,
+        float(param.V_threshold), vec, cuda.stream(dev),
+    )
+    cuda.check(rc, "pull_rowmajor")
+    cuda.LAUNCHES["pull_rowmajor"] += 1
+    return out
+
+
+def pull_pairs(state, uids: torch.Tensor, param: FMParam) -> torch.Tensor:
     """Planar unique rows [1+K, U] for sorted unique ``uids`` (i32,
     sentinel ``N`` pads): row 0 is w, rows 1..K are V gated by
-    ``cnt >= V_threshold``; sentinel lanes are 0."""
+    ``cnt >= V_threshold``; sentinel lanes are 0. ``state`` is an FMState
+    or a PackedFMState."""
     if uids.device.type == "cpu":
         return pull_pairs_plain(state, uids, param)
+    if isinstance(state, PackedFMState):
+        return _pull_rowmajor(state, uids, param)
     n, k, u = state.num_rows, state.k, uids.shape[0]
     dev = state.device
     for name in ("w", "cnt"):
@@ -65,11 +95,11 @@ def pull_pairs(state: FMState, uids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def apply_pairs_plain(state: FMState, uids: torch.Tensor,
-                      payload: torch.Tensor, param: FMParam) -> FMState:
+def apply_pairs_plain(state, uids: torch.Tensor, payload: torch.Tensor,
+                      param: FMParam):
     """Gather, then ``fused_table_update``, then index write-back — in
-    place on ``state``. Equal ids in ``uids`` (which must be
-    non-decreasing) sum their payload first, in lane order."""
+    place on ``state`` (either layout). Equal ids in ``uids`` (which must
+    be non-decreasing) sum their payload first, in lane order."""
     n, k = state.num_rows, state.k
     rid, inverse = torch.unique_consecutive(uids, return_inverse=True)
     acc = torch.zeros((payload.shape[0], rid.shape[0]), dtype=torch.float32,
@@ -106,38 +136,69 @@ def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
         cuda.require(getattr(state, name), name, torch.float32, (n,), dev)
     for name in ("V", "nV"):
         cuda.require(getattr(state, name), name, torch.float32, (k, n), dev)
-    cuda.require(uids, "uids", torch.int32, (u,), dev)
-    cuda.require(payload, "payload", torch.float32, (3 + k, u), dev)
-    if u > 1:
-        # runs of equal ids must be consecutive; checked on the device,
-        # without a host sync
-        torch._assert_async(torch.all(uids[1:] >= uids[:-1]),
-                            f"{entry}: uids must be non-decreasing")
-    p = param
+    _check_stream(entry, uids, payload, k, dev)
     rc = getattr(cuda.library(), "dft_" + entry)(
         state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
         state.cnt.data_ptr(), state.V.data_ptr(), state.nV.data_ptr(),
         uids.data_ptr(), payload.data_ptr(), n, k, u,
-        p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta, p.V_l2,
-        float(p.V_threshold), int(p.tail_feature_filter),
-        W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater],
-        cuda.stream(dev),
+        *_updater_args(param), cuda.stream(dev),
     )
     cuda.check(rc, entry)
     cuda.LAUNCHES[entry] += 1
     return state
 
 
-def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
-                param: FMParam) -> FMState:
-    """Update ``state`` IN PLACE from the planar payload ``[3+K, U]``
-    (gw | gV | add_cnt | touch) over non-decreasing ``uids`` (i32,
-    sentinel ``N`` pads): once per touched table row, the w updater (tail
-    filter applied), ``cnt += add_cnt``, and the V updater gated by the
-    pre-update count. In place replaces the TPU kernel's
-    ``input_output_aliases``; returns ``state`` for chaining."""
+def _check_stream(entry: str, uids: torch.Tensor, payload: torch.Tensor,
+                  k: int, dev: torch.device, order: bool = True) -> None:
+    """What every apply kernel takes as its id stream and payload.
+    ``order=False`` for a kernel that asserts the ids' order itself."""
+    u = uids.shape[0]
+    cuda.require(uids, "uids", torch.int32, (u,), dev)
+    cuda.require(payload, "payload", torch.float32, (3 + k, u), dev)
+    if order and u > 1:
+        # runs of equal ids must be consecutive; checked on the device,
+        # without a host sync
+        torch._assert_async(torch.all(uids[1:] >= uids[:-1]),
+                            f"{entry}: uids must be non-decreasing")
+
+
+def _updater_args(p: FMParam) -> tuple:
+    """The optimizer settings in the order the apply entries take them."""
+    return (p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta, p.V_l2,
+            float(p.V_threshold), int(p.tail_feature_filter),
+            W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater])
+
+
+def _apply_rowmajor(state: PackedFMState, uids: torch.Tensor,
+                    payload: torch.Tensor, param: FMParam,
+                    vec: int = 0) -> PackedFMState:
+    """Launch the row-major apply (``vec`` as in :func:`_pull_rowmajor`)."""
+    n, k = state.num_rows, state.k
+    dev = state.device
+    cuda.require(state.tbl, "tbl", torch.float32, (n, 4 + 2 * k), dev)
+    _check_stream("apply_rowmajor", uids, payload, k, dev, order=False)
+    rc = cuda.library().dft_apply_rowmajor(
+        state.tbl.data_ptr(), uids.data_ptr(), payload.data_ptr(), n, k,
+        uids.shape[0], *_updater_args(param), vec, cuda.stream(dev),
+    )
+    cuda.check(rc, "apply_rowmajor")
+    cuda.LAUNCHES["apply_rowmajor"] += 1
+    return state
+
+
+def apply_pairs(state, uids: torch.Tensor, payload: torch.Tensor,
+                param: FMParam):
+    """Update ``state`` (FMState or PackedFMState) IN PLACE from the
+    planar payload ``[3+K, U]`` (gw | gV | add_cnt | touch) over
+    non-decreasing ``uids`` (i32, sentinel ``N`` pads): once per touched
+    table row, the w updater (tail filter applied), ``cnt += add_cnt``,
+    and the V updater gated by the pre-update count. In place replaces the
+    TPU kernel's ``input_output_aliases``; returns ``state`` for
+    chaining. The two layouts' kernels give the same bits."""
     if uids.device.type == "cpu":
         return apply_pairs_plain(state, uids, payload, param)
+    if isinstance(state, PackedFMState):
+        return _apply_rowmajor(state, uids, payload, param)
     return _launch_apply("apply_pairs", state, uids, payload, param)
 
 
@@ -149,7 +210,9 @@ def apply_pairs(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
 def apply_pairs2_plain(state: FMState, uids: torch.Tensor,
                        payload: torch.Tensor, param: FMParam) -> FMState:
     """The plain version of ``apply_pairs2``: the two designs compute one
-    function, so it is :func:`apply_pairs_plain`."""
+    function, so it is :func:`apply_pairs_plain` (planar states only, as
+    the kernel)."""
+    require_planar(state, "apply_pairs2")
     return apply_pairs_plain(state, uids, payload, param)
 
 
@@ -164,4 +227,5 @@ def apply_pairs2(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
     :func:`apply_pairs`."""
     if uids.device.type == "cpu":
         return apply_pairs2_plain(state, uids, payload, param)
+    require_planar(state, "apply_pairs2")
     return _launch_apply("apply_pairs2", state, uids, payload, param)

@@ -33,7 +33,7 @@ import torch
 
 from ..config import FMParam
 from ..updaters.updater import (FMState, adagrad_v, adagrad_w, ftrl_w,
-                                sgd_v, sgd_w)
+                                require_planar, sgd_v, sgd_w)
 from . import cuda
 
 W_UPDATERS = {"ftrl": 0, "adagrad": 1, "sgd": 2}
@@ -161,6 +161,7 @@ def sweep_pull_ms(state: FMState, sid: torch.Tensor, offsets: torch.Tensor,
     N/block_rows + 1]): row 0 is w, rows 1..K are V gated by ``cnt >=
     V_threshold``. Slots no slice covers are 0 (undefined in the TPU
     kernel). The kernel traps on a stream that is not sorted."""
+    require_planar(state, "sweep_pull_ms")
     if sid.device.type == "cpu":
         return sweep_pull_ms_plain(state, sid, offsets, param,
                                    block_rows=block_rows)
@@ -223,6 +224,7 @@ def sweep_apply_ms(state: FMState, sid: torch.Tensor, payload: torch.Tensor,
     summed touch is > 0, and ``cnt += add_cnt``. In place replaces the TPU
     kernel's ``input_output_aliases``; returns ``state`` for chaining. The
     kernel traps on a stream that is not sorted."""
+    require_planar(state, "sweep_apply_ms")
     if sid.device.type == "cpu":
         return sweep_apply_ms_plain(state, sid, payload, offsets, param,
                                     block_rows=block_rows)

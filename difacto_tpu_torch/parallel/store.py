@@ -11,7 +11,8 @@ and the per-key aggregation, as the JAX store does
 (``store.py:243-249``, ``:626-689``):
 
 * ``kernel=auto|pairs``: pull and apply of the batch's unique rows
-  (ops/pair_sweep.py, B1, B2);
+  (ops/pair_sweep.py, B1, B2), over planar leaves (``layout=planar``) or
+  over the row-major table (``layout=packed``, csrc/rowmajor_pairs.cu);
 * ``kernel=pallas``: the whole-table sweep (ops/sweep.py, B4, B5);
 * ``segsum=sorted``: the sorted-slot backward and the segment-sum kernel
   (learners/step.py::worker_grads_sorted, B3); ``segsum=scatter``: the
@@ -36,9 +37,40 @@ from ..ops.localize import Localized
 from ..ops.pair_sweep import apply_pairs, pull_pairs
 from ..ops.sweep import sweep_apply, sweep_pull
 from ..ops.sweep_ms import apply_payload
-from ..updaters.updater import FMState, FMUpdater, LEAVES
+from ..updaters.updater import (FMState, FMUpdater, LEAVES, PackedFMState,
+                                pack_state, unpack_state)
 from ..utils.device import resolve_device
 from ..utils.place import place_batch
+
+
+def _resolve_layout(cfg: Config, needs_planar: bool) -> str:
+    """planar = one array per leaf with V [K, N] (the layout the sweep
+    kernels read); packed = one row-major [N, 4+2K] table, which the pair
+    kernels of csrc/rowmajor_pairs.cu read and write in a fifth of the
+    32-byte sectors. The JAX store's reason against packed with its table
+    kernels (XLA pads a 36-wide minor dimension to 128 lanes) does not
+    exist here; ``stacked`` is refused by the config (ROADMAP A14).
+
+    ``auto`` on the pairs path is packed for an FM (V_dim > 0) and planar
+    for V_dim = 0, as measured on an H100 (PERF.md, section 6): with
+    factors the row-major pull and apply are faster than the planar ones
+    for every updater pair, with the L2 warm and cold; without factors the
+    row-major apply is faster too, but its pull reads w out of a table
+    four times the size of the planar w and is slower with the L2 cold,
+    and auto moves nobody onto a kernel that is slower."""
+    lay = cfg.shard.layout
+    if lay == "auto":
+        if needs_planar or cfg.model.V_dim == 0:
+            return "planar"
+        return "packed"
+    if lay not in ("packed", "planar", "stacked"):
+        raise ValueError(f"layout must be auto|packed|planar|stacked, "
+                         f"got {lay!r}")
+    if lay in ("packed", "stacked") and needs_planar:
+        raise ValueError(f"layout={lay} is incompatible with kernel="
+                         f"{cfg.shard.kernel!r} (the Pallas table kernels "
+                         "need the planar [K, N] layout)")
+    return lay
 
 
 class LocalStore:
@@ -47,7 +79,8 @@ class LocalStore:
     ``device`` defaults to the card; without one it raises unless the
     caller asks for ``"cpu"`` (utils/device.py). The state's tensors are
     updated IN PLACE by every train step: the step returns the same
-    FMState object it was given."""
+    state object it was given (an FMState, or with ``layout=packed`` a
+    PackedFMState)."""
 
     def __init__(self, updater: FMUpdater, cfg: Config, device=None):
         self.updater = updater
@@ -57,18 +90,22 @@ class LocalStore:
         self.param = updater.param
         s = cfg.shard
         self.pallas = s.kernel == "pallas"
+        self.layout = _resolve_layout(cfg, needs_planar=self.pallas)
         self.block_rows = min(s.block_rows, self.num_rows)
         # segsum=auto: the sorted backward on pairs, scatter on pallas
         self.sorted_grads = s.segsum == "sorted" or (
             s.segsum == "auto" and not self.pallas)
 
-    def init_state(self, seed: int = 0) -> FMState:
-        return self.updater.init_state(self.num_rows, seed, self.device)
+    def init_state(self, seed: int = 0):
+        init = (self.updater.init_state_packed if self.layout == "packed"
+                else self.updater.init_state)
+        return init(self.num_rows, seed, self.device)
 
-    def place_state(self, host_state: FMState) -> FMState:
-        """Move a host state onto this store's device. A single-file
-        checkpoint from a padded sharded run carries more rows than the
-        hash space; the extra rows must be zero and are cut off."""
+    def place_state(self, host_state):
+        """Move a host state of either layout onto this store's device,
+        in this store's layout. A single-file checkpoint from a padded
+        sharded run carries more rows than the hash space; the extra rows
+        must be zero and are cut off."""
         n_in = host_state.num_rows
         if n_in > self.num_rows:
             if bool((host_state.w[self.num_rows:] != 0).any()):
@@ -87,13 +124,23 @@ class LocalStore:
         if host_state.k != k:
             raise ValueError(f"checkpoint has V_dim {host_state.k} but this "
                              f"store expects {k}")
-        leaves = {}
-        for name in LEAVES:
-            t = getattr(host_state, name)[..., : self.num_rows]
-            leaves[name] = t.to(self.device, torch.float32).contiguous()
-        return FMState(**leaves)
+        packed_in = isinstance(host_state, PackedFMState)
+        if packed_in:
+            tbl = host_state.tbl[: self.num_rows]
+            placed = PackedFMState(
+                tbl=tbl.to(self.device, torch.float32).contiguous())
+        else:
+            leaves = {}
+            for name in LEAVES:
+                t = getattr(host_state, name)[..., : self.num_rows]
+                leaves[name] = t.to(self.device, torch.float32).contiguous()
+            placed = FMState(**leaves)
+        if packed_in == (self.layout == "packed"):
+            return placed
+        return pack_state(placed) if self.layout == "packed" else (
+            unpack_state(placed))
 
-    def count_step(self, state: FMState, ids) -> FMState:
+    def count_step(self, state, ids):
         """Feature-frequency pass, in place (reference: Store::kFeaCount
         push used for tail filtering before training)."""
         ids = torch.as_tensor(np.asarray(ids), device=self.device)
@@ -110,7 +157,7 @@ class LocalStore:
             pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
         return place_batch(pb, self.device)
 
-    def _pull(self, state: FMState, pb: PreppedBatch) -> torch.Tensor:
+    def _pull(self, state, pb: PreppedBatch) -> torch.Tensor:
         """Unique rows [U, 1+K] (w | count-gated V) of the batch. Lanes
         past the batch's real unique count are zero (the valid mask)."""
         if self.pallas:
@@ -119,8 +166,7 @@ class LocalStore:
         rows_p = pull_pairs(state, pb.uids, self.param)
         return torch.where(pb.valid[:, None], rows_p.T, 0.0)
 
-    def _apply(self, state: FMState, pb: PreppedBatch,
-               grads: torch.Tensor) -> FMState:
+    def _apply(self, state, pb: PreppedBatch, grads: torch.Tensor):
         """The in-place table update from planar per-key gradients
         [1+K, U]."""
         if self.pallas:
@@ -130,11 +176,10 @@ class LocalStore:
                            apply_payload(grads, pb.ucounts, pb.valid),
                            self.param)
 
-    def train_step_prepped(self, state: FMState,
-                           pb: PreppedBatch) -> tuple[FMState, StepMetrics]:
+    def train_step_prepped(self, state, pb: PreppedBatch):
         """pull -> forward -> backward -> per-key sums -> apply. The apply
         updates ``state`` in place (it replaces the TPU step's donated
-        buffers)."""
+        buffers). Returns (state, StepMetrics)."""
         pb = self._placed(pb, need_slots=self.sorted_grads)
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
@@ -151,7 +196,7 @@ class LocalStore:
             grads = grads_u.T
         return self._apply(state, pb, grads), metrics
 
-    def eval_step_prepped(self, state: FMState,
+    def eval_step_prepped(self, state,
                           pb: PreppedBatch) -> tuple[StepMetrics, torch.Tensor]:
         """pull -> forward. Returns (metrics, py [B])."""
         pb = self._placed(pb, need_slots=False)
@@ -161,7 +206,7 @@ class LocalStore:
                                      pb.labels, pb.mask)
         return metrics, py
 
-    def stats(self, state: FMState) -> dict[str, float]:
+    def stats(self, state) -> dict[str, float]:
         return self.updater.stats(state)
 
 

@@ -11,13 +11,17 @@ rows (csrc/bisect_apply.cu).
 
 Variants: ``highest`` (the default) and ``default`` are the whole
 ``bisect_w`` — the script's two matmul precisions are one function here,
-where no matmul runs and nothing rounds to bf16; ``scanonly`` (the row
-searches, no payload read) and ``loadonly`` (the stream read, no row
-search) isolate the two stages of THIS kernel and return ``w`` unchanged,
-in place of the script's ``nodma``/``dmaonly``/``selonly``, which isolate
-Mosaic's stages; ``ftrl4`` and ``ftrl4_inplace`` run ``bisect_ftrl4``
-out of place and in place (the script's ``main4(alias)``). ``n_log2=``
-and ``u=`` shrink the shapes.
+where no matmul runs and nothing rounds to bf16. It is a sparse kernel: a
+block copies its rows and then visits only the slots of its slice of the
+stream. ``scanonly`` (the slice searches and the copy, no stream read)
+and ``loadonly`` (the copy and the stream read, no add) isolate the stages
+of THIS kernel and return ``w`` unchanged, in place of the script's
+``nodma``/``dmaonly``/``selonly``, which isolate Mosaic's stages;
+``rowscan`` is the whole ``bisect_w`` by the first design, in which every
+table row searches the slice (the stand-in for the sweep apply's scan);
+``ftrl4`` and ``ftrl4_inplace`` run ``bisect_ftrl4`` out of place and in
+place (the script's ``main4(alias)``). ``n_log2=`` and ``u=`` shrink the
+shapes.
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ from . import common
 
 G = 1024                    # slot window of the script: the stream's pad
 N_LOG2, U, PP = 20, 100000, 8
-VARIANTS = {"highest": 0, "default": 0, "scanonly": 1, "loadonly": 2}
+VARIANTS = {"highest": 0, "default": 0, "scanonly": 1, "loadonly": 2,
+            "rowscan": 3}
+WHOLE = (0, 3)              # the variants that compute bisect_w
 FTRL4 = ("ftrl4", "ftrl4_inplace")
 
 
@@ -54,7 +60,7 @@ def row_sums(sid: torch.Tensor, pay: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def bisect_w_plain(sid, pay, w, variant: str = "highest") -> torch.Tensor:
-    if VARIANTS[variant] != 0:
+    if VARIANTS[variant] not in WHOLE:
         return w.clone()  # the stage variants compute nothing
     return w + row_sums(sid, pay[:1], w.shape[0])[0]
 
@@ -69,24 +75,45 @@ def _check_stream(sid, pay, n, block_rows, dev):
     cuda.require(pay, "pay", torch.float32, (pay.shape[0], sid.shape[0]), dev)
 
 
+_bisect_w_entry = None      # the ctypes entry, resolved at the first launch
+
+
 def bisect_w(sid: torch.Tensor, pay: torch.Tensor, w: torch.Tensor,
              variant: str = "highest", block_rows: int = 1024) -> torch.Tensor:
     """``w_o[r] = w[r] + sum of pay[0, j] over sid[j] == r`` for every
     table row, out of place; ``sid`` i32 sorted, ``pay`` f32 [PP, nnz].
-    The stage variants return ``w`` (a finite payload assumed)."""
-    if variant not in VARIANTS:
+    The stage variants return ``w`` (a finite payload assumed);
+    ``rowscan`` computes the same function by the first kernel design.
+
+    The kernel takes microseconds, so the argument checks are one
+    expression that touches no device memory; only a failing call pays
+    for the check that names the fault."""
+    global _bisect_w_entry
+    code = VARIANTS.get(variant)
+    if code is None:
         raise ValueError(f"variant {variant!r} not in {sorted(VARIANTS)}")
-    if w.device.type == "cpu":
+    dev = w.device
+    if dev.type == "cpu":
         return bisect_w_plain(sid, pay, w, variant)
-    dev, n = w.device, w.shape[0]
-    _check_stream(sid, pay, n, block_rows, dev)
-    cuda.require(w, "w", torch.float32, (n,), dev)
+    n, nnz = w.shape[0], sid.shape[0]
+    if not (sid.device == dev and pay.device == dev and block_rows > 0
+            and sid.dtype is torch.int32 and pay.dtype is torch.float32
+            and w.dtype is torch.float32 and w.dim() == 1 and sid.dim() == 1
+            and pay.dim() == 2 and pay.shape[1] == nnz and pay.shape[0] > 0
+            and sid.is_contiguous() and pay.is_contiguous()
+            and w.is_contiguous()):
+        _check_stream(sid, pay, n, block_rows, dev)
+        cuda.require(w, "w", torch.float32, (n,), dev)
+        raise ValueError("bisect_w reads payload row 0: pay has no row")
     out = torch.empty_like(w)
-    rc = cuda.library().dft_bisect_w(
-        sid.data_ptr(), pay.data_ptr(), w.data_ptr(), out.data_ptr(), n,
-        sid.shape[0], block_rows, VARIANTS[variant], cuda.stream(dev))
-    cuda.check(rc, "bisect_w")
-    cuda.LAUNCHES["bisect_w"] += 1
+    if _bisect_w_entry is None:
+        _bisect_w_entry = cuda.library().dft_bisect_w
+    rc = _bisect_w_entry(sid.data_ptr(), pay.data_ptr(), w.data_ptr(),
+                         out.data_ptr(), n, nnz, block_rows, code,
+                         cuda.raw_stream(dev))
+    if rc:
+        cuda.check(rc, "bisect_w")
+    cuda.LAUNCHES["bisect_rowscan" if code == 3 else "bisect_w"] += 1
     return out
 
 
@@ -172,7 +199,8 @@ def main(argv=None, device=None) -> int:
         raise SystemExit(
             f"unknown variant {variant!r}: one of {sorted(VARIANTS)} or "
             f"{FTRL4} (nodma, dmaonly and selonly isolate stages of the TPU "
-            "kernel; scanonly and loadonly isolate this one's)")
+            "kernel; scanonly and loadonly isolate this one's, rowscan is "
+            "its first design)")
     dev = common.start("bisect_apply", device)
     n = 1 << o["n_log2"]
     sid, pay = make_stream(np.random.default_rng(0), n, o["u"], dev)
@@ -180,6 +208,11 @@ def main(argv=None, device=None) -> int:
     times = _both_times(lambda: bisect_w(sid, pay, w, variant, br), dev)
     note = (" (highest and default are one function: no matmul, no bf16 "
             "passes)" if VARIANTS[variant] == 0 else "")
+    if dev.type == "cuda" and VARIANTS[variant] in WHOLE:
+        real = int((sid < n).sum())
+        idx, pay0 = sid[:real].long(), pay[0, :real].contiguous()
+        times += ("; w.index_add on the same inputs: "
+                  + _both_times(lambda: w.index_add(0, idx, pay0), dev))
     print(f"{variant} br={br}: N 2^{o['n_log2']}, {o['u']} ids: "
           f"{times}{note}", flush=True)
     return 0

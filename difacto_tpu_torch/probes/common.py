@@ -84,11 +84,9 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_ms(fn, reps: int = 20) -> float:
-    """Mean time the card's kernels take per call of ``fn``, from a
-    ``torch.profiler`` trace of ``reps`` calls. For a kernel of a few
-    microseconds :func:`cuda_ms` measures how fast the host enqueues
-    (Python, ctypes, the allocator); this is the kernels' own time."""
+def kernel_times(fn, reps: int = 20) -> dict[str, float]:
+    """Mean time per call of ``fn`` of each kernel it runs on the card, by
+    kernel name, from a ``torch.profiler`` trace of ``reps`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -97,12 +95,22 @@ def kernel_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    out: dict[str, float] = {}
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             t = getattr(e, "self_device_time_total", None)
-            us += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
-    return us / 1e3 / reps
+            us = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def kernel_ms(fn, reps: int = 20, name: str | None = None) -> float:
+    """Mean time the card's kernels take per call of ``fn`` (only those
+    whose name contains ``name``, when given). For a kernel of a few
+    microseconds :func:`cuda_ms` measures how fast the host enqueues
+    (Python, ctypes, the allocator); this is the kernels' own time."""
+    return sum(ms for key, ms in kernel_times(fn, reps).items()
+               if name is None or name in key)
 
 
 def time_ms(fn, dev: torch.device, reps: int = 20,

@@ -2,10 +2,12 @@
 
 Port of ``difacto_tpu/updaters/updater.py`` (reference:
 ``include/difacto/updater.h`` and ``src/sgd/sgd_updater.h`` ::
-SGDUpdater) in the planar layout only: dense tables over the hashed id
-space, with the reference's lazy V *allocation* turned into lazy
-*activation* (V rows exist from the start but enter predictions and
-receive updates only once ``cnt >= V_threshold``).
+SGDUpdater): dense tables over the hashed id space, with the reference's
+lazy V *allocation* turned into lazy *activation* (V rows exist from the
+start but enter predictions and receive updates only once ``cnt >=
+V_threshold``). Two layouts: planar (:class:`FMState`, one array per
+leaf) and row-major (:class:`PackedFMState`, ``layout=packed``: one
+``[N, 4+2K]`` table); the stacked and hot/cold layouts are not ported.
 
 ``pull`` and ``update`` here are the plain PyTorch reference of the table
 path (gather -> vector math -> masked delta scatter-add). The train step
@@ -60,6 +62,83 @@ class FMState:
 LEAVES = ("w", "z", "n", "V", "nV", "cnt")
 
 
+@dataclass
+class PackedFMState:
+    """Row-major state (``layout=packed``): ONE table ``[N, 4+2K]`` with
+    columns w|z|n|cnt|V|nV, the JAX package's ``PackedFMState``. One id's
+    state is 16 + 8K contiguous bytes, which is what the card's memory
+    system wants from a scattered row update (csrc/rowmajor_pairs.cu).
+
+    The six leaves are VIEWS of the table's columns (V and nV as
+    ``[K, N]``, strided): indexing them reads the table, an in-place
+    update through one writes the table. So the plain PyTorch code written
+    for :class:`FMState` (the updater below, the kernels' plain versions)
+    runs unchanged on either layout; only the kernel wrappers tell them
+    apart."""
+
+    tbl: torch.Tensor   # f32 [N, 4+2K]
+
+    @property
+    def num_rows(self) -> int:
+        return self.tbl.shape[0]
+
+    @property
+    def k(self) -> int:
+        return (self.tbl.shape[1] - 4) // 2
+
+    @property
+    def device(self) -> torch.device:
+        return self.tbl.device
+
+    @property
+    def w(self) -> torch.Tensor:
+        return self.tbl[:, 0]
+
+    @property
+    def z(self) -> torch.Tensor:
+        return self.tbl[:, 1]
+
+    @property
+    def n(self) -> torch.Tensor:
+        return self.tbl[:, 2]
+
+    @property
+    def cnt(self) -> torch.Tensor:
+        return self.tbl[:, 3]
+
+    @property
+    def V(self) -> torch.Tensor:
+        return self.tbl[:, 4:4 + self.k].T
+
+    @property
+    def nV(self) -> torch.Tensor:
+        return self.tbl[:, 4 + self.k:].T
+
+
+def pack_state(state: FMState) -> PackedFMState:
+    """FMState (planar) -> PackedFMState, a copy."""
+    cols = [state.w[:, None], state.z[:, None], state.n[:, None],
+            state.cnt[:, None], state.V.T, state.nV.T]
+    return PackedFMState(tbl=torch.cat(cols, dim=1))
+
+
+def unpack_state(packed: PackedFMState) -> FMState:
+    """PackedFMState -> FMState (planar, contiguous), a copy."""
+    return FMState(**{
+        k: getattr(packed, k).clone(memory_format=torch.contiguous_format)
+        for k in LEAVES})
+
+
+def require_planar(state, what: str) -> None:
+    """Raise on a state that ``what`` (a kernel that reads planar leaves)
+    does not take."""
+    if not isinstance(state, FMState):
+        raise TypeError(
+            f"{what} reads the planar leaves of an FMState (V [K, N]); got "
+            f"{type(state).__name__}. The row-major table (layout=packed) "
+            "goes through pull_pairs / apply_pairs only")
+
+
 def ftrl_w(g, w, z, n, p: FMParam):
     """FTRL-proximal on w: (w_new, z_new, n_new). One home for the formula
     order, which the apply kernel repeats (csrc/apply_pairs.cu)."""
@@ -96,7 +175,8 @@ def sgd_v(gv, v, p: FMParam):
 
 
 class FMUpdater:
-    """Updater over planar FMState tensors; ``param`` values are fixed."""
+    """Updater over the state's tensors; ``param`` values are fixed. Every
+    method takes either layout (FMState planar / PackedFMState)."""
 
     def __init__(self, param: FMParam):
         self.param = param
@@ -122,9 +202,27 @@ class FMUpdater:
         return FMState(w=zeros(num_rows), z=zeros(num_rows), n=zeros(num_rows),
                        V=V, nV=zeros(k, num_rows), cnt=zeros(num_rows))
 
+    def init_state_packed(self, num_rows: int, seed: int,
+                          device) -> PackedFMState:
+        """The values of ``pack_state(init_state(...))`` (the same draw
+        from the same generator) without holding the planar state beside
+        the table: the table is allocated once and V written into its
+        columns."""
+        p = self.param
+        k = p.V_dim
+        device = torch.device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        V = torch.rand((k, num_rows), generator=gen, device=device)
+        V.mul_(2.0).sub_(1.0).mul_(p.V_init_scale)
+        tbl = torch.zeros((num_rows, 4 + 2 * k), dtype=torch.float32,
+                          device=device)
+        tbl[:, 4:4 + k] = V.T
+        return PackedFMState(tbl=tbl)
+
     # -- Get (reference: SGDUpdater::Get) -------------------------------------
 
-    def pull(self, state: FMState, uids: torch.Tensor,
+    def pull(self, state, uids: torch.Tensor,
              valid: torch.Tensor) -> torch.Tensor:
         """Rows [U, 1+K]: w then V. V is zero until activated (cnt >=
         V_threshold); invalid (padded) lanes are fully zero."""
@@ -141,14 +239,15 @@ class FMUpdater:
 
     def update(
         self,
-        state: FMState,
+        state,                  # FMState or PackedFMState
         uids: torch.Tensor,     # i32 [U] unique table rows (sentinel pads)
         grads: torch.Tensor,    # f32 [U, 1+K] per-key aggregated gradients
         add_cnt: torch.Tensor,  # f32 [U] batch occurrence counts
         valid: torch.Tensor,    # bool [U]
-    ) -> FMState:
+    ):
         """The plain reference update: gathers, vector math, and masked
-        deltas scatter-added back — in place on ``state``'s tensors."""
+        deltas scatter-added back — in place on ``state``'s tensors (for
+        a PackedFMState, through the column views into its table)."""
         p = self.param
         idx = torch.where(valid, uids, 0).long()
         g = grads[:, 0]
@@ -188,9 +287,9 @@ class FMUpdater:
 
     # -- feature counts (reference: the kFeaCount push) -----------------------
 
-    def add_counts(self, state: FMState, ids: torch.Tensor) -> FMState:
-        """state.cnt[id] += occurrences, in place; negative ids (padding)
-        are skipped."""
+    def add_counts(self, state, ids: torch.Tensor):
+        """state.cnt[id] += occurrences, in place, either layout; negative
+        ids (padding) are skipped."""
         ids = ids.reshape(-1)
         keep = ids >= 0
         state.cnt.index_add_(0, ids[keep].long(),
@@ -199,9 +298,9 @@ class FMUpdater:
 
     # -- observability --------------------------------------------------------
 
-    def stats(self, state: FMState) -> dict[str, float]:
+    def stats(self, state) -> dict[str, float]:
         """nnz(w) / active-V counts (the capacity observables the reference
-        prints in Progress rows)."""
+        prints in Progress rows), either layout."""
         out = {"nnz_w": float((state.w != 0).sum())}
         if self.param.V_dim > 0:
             out["nnz_V"] = float((state.cnt >= self.param.V_threshold).sum())

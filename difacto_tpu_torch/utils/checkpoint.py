@@ -5,8 +5,11 @@ Port of the single-process half of ``difacto_tpu/utils/checkpoint.py``
 ``prefix.npz`` with the planar leaves ``w, z, n, V [K, N], nV [K, N],
 cnt`` plus ``prefix.meta.json`` with ``format_version`` 1, the leaf
 ``shapes`` and the ``epoch``/``step`` cursor for resume. Either package
-loads the other's checkpoints. The per-process sharded layout waits for
-the sharded store (ROADMAP A9).
+loads the other's checkpoints. The table's layout is a property of a run,
+not of a checkpoint: a row-major ``PackedFMState`` is unpacked to the
+planar leaves on save, and a store packs what it loads when its layout is
+packed, so a model trained in one layout loads into the other. The
+per-process sharded layout waits for the sharded store (ROADMAP A9).
 
 :func:`state_from_numpy` and :func:`state_to_numpy` carry a state between
 the two packages as NumPy arrays.
@@ -20,29 +23,40 @@ import os
 import numpy as np
 import torch
 
-from ..updaters.updater import LEAVES, FMState
+from ..updaters.updater import LEAVES, FMState, PackedFMState
 
 FORMAT_VERSION = 1
 
 
-def state_from_numpy(arrays, device="cpu") -> FMState:
-    """FMState on ``device`` from the planar leaves as NumPy arrays (a
-    dict, or any object with the six leaf attributes — a JAX FMState
-    after ``jax.device_get``). The arrays are copied."""
+def state_from_numpy(arrays, device="cpu", layout: str = "planar"):
+    """A state on ``device`` from NumPy arrays, which are copied.
+    ``layout="planar"``: the six planar leaves (a dict, or any object
+    with the leaf attributes — a JAX FMState after ``jax.device_get``)
+    give an FMState. ``layout="packed"``: the row-major table ``tbl
+    [N, 4+2K]`` (a dict, an object with ``tbl`` — a JAX PackedFMState —
+    or the array itself) gives a PackedFMState."""
+    def tensor(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
     get = arrays.__getitem__ if isinstance(arrays, dict) else (
         lambda k: getattr(arrays, k))
-    return FMState(**{
-        k: torch.tensor(np.asarray(get(k), dtype=np.float32), device=device)
-        for k in LEAVES
-    })
+    if layout == "packed":
+        tbl = arrays if isinstance(arrays, np.ndarray) else get("tbl")
+        return PackedFMState(tbl=tensor(tbl))
+    if layout != "planar":
+        raise ValueError(f"layout must be planar|packed, got {layout!r}")
+    return FMState(**{k: tensor(get(k)) for k in LEAVES})
 
 
-def state_to_numpy(state: FMState) -> dict[str, np.ndarray]:
-    """The planar leaves of ``state`` as host NumPy arrays."""
-    return {k: getattr(state, k).detach().cpu().numpy() for k in LEAVES}
+def state_to_numpy(state) -> dict[str, np.ndarray]:
+    """The planar leaves of ``state`` (either layout) as contiguous host
+    NumPy arrays: the interchange form."""
+    return {k: np.ascontiguousarray(getattr(state, k).detach().cpu().numpy())
+            for k in LEAVES}
 
 
-def save(path_prefix: str, state: FMState, meta: dict | None = None) -> str:
+def save(path_prefix: str, state, meta: dict | None = None) -> str:
+    """Write ``state`` (either layout) as planar leaves."""
     os.makedirs(os.path.dirname(path_prefix) or ".", exist_ok=True)
     host = state_to_numpy(state)
     full_meta = {"format_version": FORMAT_VERSION, **(meta or {})}
@@ -75,7 +89,8 @@ def load(path_prefix: str) -> tuple[FMState, dict]:
     return state, meta
 
 
-def load_for_store(path_prefix: str, store) -> tuple[FMState, dict]:
-    """Load a checkpoint and place it on ``store``'s device."""
+def load_for_store(path_prefix: str, store):
+    """Load a checkpoint and place it on ``store``'s device in
+    ``store``'s layout. Returns (state, meta)."""
     host_state, meta = load(path_prefix)
     return store.place_state(host_state), meta

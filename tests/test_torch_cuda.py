@@ -25,6 +25,7 @@ from difacto_tpu_torch.ops import cuda, pair_sweep, segsum, sweep_ms
 from difacto_tpu_torch.probes import bench_slot_accum as slot_probe
 from difacto_tpu_torch.probes import bisect_apply as bisect_probe
 from difacto_tpu_torch.probes import hw_packed_pairs as packed_probe
+from difacto_tpu_torch.updaters.updater import pack_state, unpack_state
 from difacto_tpu_torch.utils.checkpoint import state_from_numpy
 
 torch.set_num_threads(2)
@@ -369,15 +370,21 @@ st = state_from_numpy(state_np(4, rng), device="cuda")
 uids, valid = sorted_uids(rng)
 uids[10], uids[11] = uids[11], uids[10]  # a descent
 pay = torch.from_numpy(payload(4, valid, rng)).cuda()
-getattr(pair_sweep, sys.argv[1])(st, torch.from_numpy(uids).cuda(), pay, p)
+kernel = sys.argv[1]
+if kernel == "apply_rowmajor":
+    from difacto_tpu_torch.updaters.updater import pack_state
+    kernel, st = "apply_pairs", pack_state(st)
+getattr(pair_sweep, kernel)(st, torch.from_numpy(uids).cuda(), pay, p)
 torch.cuda.synchronize()
 """
 
 
-@pytest.mark.parametrize("kernel", ["apply_pairs", "apply_pairs2"])
+@pytest.mark.parametrize("kernel", ["apply_pairs", "apply_pairs2",
+                                    "apply_rowmajor"])
 def test_cuda_apply_refuses_an_unsorted_stream(card, kernel):
-    """Both apply designs sum runs of consecutive equal ids, so the
-    wrappers assert a non-decreasing stream on the device. The assert ends
+    """Every apply design sums runs of consecutive equal ids, so a
+    non-decreasing stream is asserted on the device: by the wrappers of
+    the planar kernels, by the row-major kernel itself. The assert ends
     the process's CUDA context, hence the subprocess."""
     here = pathlib.Path(__file__).resolve().parent
     r = subprocess.run(
@@ -467,9 +474,55 @@ def test_cuda_bisect_w_matches_plain(card, block_rows):
     for variant in ("scanonly", "loadonly"):
         assert torch.equal(bisect_probe.bisect_w(sid, pay, w, variant,
                                                  block_rows), w)
+    # the first design (a search per table row) sums each run in the same
+    # slot order: the same bits, under its own launch count
+    n0, r0 = cuda.LAUNCHES["bisect_w"], cuda.LAUNCHES["bisect_rowscan"]
+    scan = bisect_probe.bisect_w(sid, pay, w, "rowscan", block_rows)
+    assert (cuda.LAUNCHES["bisect_w"], cuda.LAUNCHES["bisect_rowscan"]) == (
+        n0, r0 + 1)
+    assert torch.equal(scan, got)
+    assert torch.equal(bisect_probe.bisect_w(sid, pay, w,
+                                             block_rows=block_rows), got)
     # an empty stream adds nothing
     assert torch.equal(bisect_probe.bisect_w(sid[:0], pay[:, :0].contiguous(),
                                              w, block_rows=block_rows), w)
+
+
+@pytest.mark.parametrize("n,u,hot,block_rows", [(4096, 700, 90, 1024),
+                                                (5000, 3000, 600, 1000),
+                                                (1 << 17, 20000, 5, 1024),
+                                                (1030, 1, 0, 1024),
+                                                (64, 5000, 300, 16)])
+def test_cuda_bisect_w_sparse_sizes(card, n, u, hot, block_rows):
+    """The sparse design at other sizes: a table that is no multiple of
+    the block (a ragged last block, the scalar copy), streams long enough
+    for several rounds of the slice search, a run longer than a block's
+    threads, one slot, blocks of 16 rows. Against the float64 sums within
+    the float32 summation bound, exact on integers, the bits of the row
+    scan; an unaligned ``w`` takes the scalar copy."""
+    rng = np.random.default_rng(102)
+    sid, pay, ipay = (torch.from_numpy(a).to(card)
+                      for a in bisect_stream(rng, n=n, u=u, hot=hot))
+    w = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(card)
+    got = bisect_probe.bisect_w(sid, pay, w, block_rows=block_rows)
+    ref = w.double() + bisect_probe.row_sums(sid, pay[:1].double(), n)[0]
+    seg = bisect_probe.row_sums(sid, torch.ones_like(pay[:1]).double(), n)[0]
+    tol = seg * 2.0 ** -24 * (w.abs().double() + bisect_probe.row_sums(
+        sid, pay[:1].abs().double(), n)[0])
+    assert bool(((got.double() - ref).abs() <= tol).all())
+    assert torch.equal(got, bisect_probe.bisect_w(sid, pay, w, "rowscan",
+                                                  block_rows))
+    iw = torch.round(w * 4)
+    assert torch.equal(bisect_probe.bisect_w(sid, ipay, iw,
+                                             block_rows=block_rows),
+                       bisect_probe.bisect_w_plain(sid, ipay, iw))
+    for variant in ("scanonly", "loadonly"):
+        assert torch.equal(bisect_probe.bisect_w(sid, pay, w, variant,
+                                                 block_rows), w)
+    odd = torch.cat([w[:1], w])[1:]  # the same floats, 4 bytes off
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    assert torch.equal(bisect_probe.bisect_w(sid, pay, odd,
+                                             block_rows=block_rows), got)
 
 
 @pytest.mark.parametrize("inplace", [False, True])
@@ -527,3 +580,155 @@ def test_cuda_slot_accum_matches_plain(card, nslots, rows):
                        slot_probe.slot_accum_plain(sid, ipay, rows))
     again = slot_probe.slot_accum(sid, pay, rows)
     assert torch.equal(got, again)  # no atomics: the same bits every time
+
+
+# ---------------------------------------------------------------------------
+# the pull and apply over the row-major table (layout=packed,
+# csrc/rowmajor_pairs.cu)
+# ---------------------------------------------------------------------------
+
+
+def lanes(rng, n, u, n_valid, repeat=False):
+    """``u`` lanes of sorted ids of [0, n), the first ``n_valid`` real
+    (unique, or with runs of equal ids), the rest the sentinel ``n``."""
+    if repeat and n_valid:
+        raw = np.sort(rng.choice(n, size=max(n_valid // 3, 1)))
+        raw = np.sort(np.concatenate([raw, raw[::2], raw[::5], raw]))[:n_valid]
+        n_valid = raw.shape[0]
+    else:
+        raw = np.sort(rng.choice(n, size=n_valid, replace=False))
+    uids = np.full(u, n, np.int32)
+    uids[:n_valid] = raw
+    return uids, np.arange(u) < n_valid
+
+
+def lane_payload(K, valid, rng):
+    u = valid.shape[0]
+    vf = valid.astype(np.float32)
+    grads = rng.normal(size=(1 + K, u)).astype(np.float32) * valid
+    addc = rng.integers(1, 4, u).astype(np.float32) * vf
+    return np.concatenate([grads, addc[None], vf[None]], axis=0)
+
+
+@pytest.mark.parametrize("K", [0, 1, 3, 4, 6, 16, 40, 100])
+@pytest.mark.parametrize("u,n_valid", [(384, 336), (1, 1), (70, 0),
+                                       (1000, 999)])
+def test_cuda_pull_rowmajor_matches_plain_and_pull_pairs(card, K, u, n_valid):
+    """K odd (1-float pieces), K % 4 == 2 (2-float pieces), K = 0 (the
+    head alone), K = 100 (a shared-memory tile past the 48 KB a kernel
+    gets unasked), lane counts that fill no warp, one lane, all lanes
+    sentinel: a gather with a mask, so exact, and equal to the planar
+    kernel on the unpacked state, at every piece width."""
+    rng = np.random.default_rng(120 + K)
+    p = port_params(V_dim=K)
+    st = state_from_numpy(state_np(K, rng), device=card)
+    tb = pack_state(st)
+    uids = torch.from_numpy(lanes(rng, N, u, n_valid)[0]).to(card)
+    n0 = cuda.LAUNCHES["pull_rowmajor"]
+    got = pair_sweep.pull_pairs(tb, uids, p)
+    assert cuda.LAUNCHES["pull_rowmajor"] == n0 + 1
+    assert got.shape == (1 + K, u)
+    assert torch.equal(got, pair_sweep.pull_pairs_plain(tb, uids, p))
+    assert torch.equal(got, pair_sweep.pull_pairs(st, uids, p))
+    for vec in (1, 2, 4):
+        assert torch.equal(got, pair_sweep._pull_rowmajor(tb, uids, p, vec))
+    assert torch.equal(pair_sweep.pull_pairs(tb, uids[:0], p),
+                       torch.empty((1 + K, 0), device=card))
+
+
+@pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
+                                             (0, "ftrl", "adagrad", 0),
+                                             (2, "adagrad", "sgd", 0),
+                                             (3, "sgd", "adagrad", 2),
+                                             (16, "ftrl", "adagrad", 0),
+                                             (5, "ftrl", "sgd", 1),
+                                             (100, "ftrl", "adagrad", 0)])
+@pytest.mark.parametrize("u,n_valid,repeat", [(384, 336, False),
+                                              (384, 336, True),
+                                              (1, 1, False), (70, 0, False),
+                                              (1000, 999, True)])
+def test_cuda_apply_rowmajor_matches_plain_and_apply_pairs(card, K, wupd,
+                                                           vupd, tff, u,
+                                                           n_valid, repeat):
+    """Against its plain version (1 ulp: the plain version's division by
+    a scalar runs as a multiply by the reciprocal on the card) and, bit
+    for bit, against the planar kernel after ``unpack_state``, at every
+    piece width; rows no lane names keep their bits; a second call on the
+    same inputs gives the same bits (no atomics)."""
+    rng = np.random.default_rng(130 + K)
+    p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                    tail_feature_filter=tff)
+    s = state_np(K, rng)
+    uids_np, valid = lanes(rng, N, u, n_valid, repeat)
+    pay = torch.from_numpy(lane_payload(K, valid, rng)).to(card)
+    uids = torch.from_numpy(uids_np).to(card)
+    tb = pack_state(state_from_numpy(s, card))
+    n0 = cuda.LAUNCHES["apply_rowmajor"]
+    out = pair_sweep.apply_pairs(tb, uids, pay, p)
+    assert out is tb and cuda.LAUNCHES["apply_rowmajor"] == n0 + 1
+    a = unpack_state(out)
+    b = unpack_state(pair_sweep.apply_pairs_plain(
+        pack_state(state_from_numpy(s, card)), uids, pay, p))
+    c = pair_sweep.apply_pairs(state_from_numpy(s, card), uids, pay, p)
+    again = pair_sweep.apply_pairs(pack_state(state_from_numpy(s, card)),
+                                   uids, pay, p)
+    assert torch.equal(again.tbl, out.tbl)
+    for vec in (1, 2, 4):
+        narrow = pair_sweep._apply_rowmajor(
+            pack_state(state_from_numpy(s, card)), uids, pay, p, vec)
+        assert torch.equal(narrow.tbl, out.tbl), vec
+    touched = torch.zeros(N, dtype=torch.bool, device=card)
+    touched[uids[torch.from_numpy(valid).to(card)].long()] = True
+    for name in LEAVES:
+        x = getattr(a, name)
+        torch.testing.assert_close(x, getattr(b, name), rtol=1e-5, atol=1e-6,
+                                   msg=name)
+        assert torch.equal(x, getattr(c, name)), name
+        orig = torch.from_numpy(s[name]).to(card)
+        assert torch.equal(x[..., ~touched], orig[..., ~touched]), name
+
+
+def test_cuda_apply_rowmajor_runs_across_warps(card):
+    """Runs of equal ids that start in one warp's 32 lanes and end in the
+    next one's, and a run longer than a warp: the lane that starts the run
+    owns all of it. An integer payload through SGD with unit rates on a
+    zero table sums exactly, so a lane lost or added twice fails."""
+    K = 4
+    p = port_params(V_dim=K, w_updater="sgd", V_updater="sgd", V_threshold=0,
+                    lr_eta=1.0, l2=0.0, V_lr_eta=1.0, V_l2=0.0, l1=0.0)
+    ids = np.concatenate([np.arange(30), np.full(5, 100),     # lanes 30..34
+                          np.arange(200, 225), np.full(70, 300),  # 60..129
+                          np.arange(400, 420)]).astype(np.int32)
+    u = ids.shape[0]
+    rng = np.random.default_rng(140)
+    pay = rng.integers(1, 9, (3 + K, u)).astype(np.float32)
+    zero = {k: np.zeros_like(v) for k, v in state_np(K, rng).items()}
+    uids, pay_t = torch.from_numpy(ids).to(card), torch.from_numpy(pay).to(card)
+    out = unpack_state(pair_sweep.apply_pairs(
+        pack_state(state_from_numpy(zero, card)), uids, pay_t, p))
+    ref = pair_sweep.apply_pairs_plain(state_from_numpy(zero, card), uids,
+                                       pay_t, p)
+    sums = np.zeros((3 + K, N), np.float64)
+    np.add.at(sums.T, ids, pay.T.astype(np.float64))
+    for name in LEAVES:
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    np.testing.assert_array_equal(out.w.cpu().numpy(), -sums[0])
+    np.testing.assert_array_equal(out.V.cpu().numpy(), -sums[1:1 + K])
+    np.testing.assert_array_equal(out.cnt.cpu().numpy(), sums[1 + K])
+
+
+def test_cuda_planar_only_kernels_refuse_a_packed_state(card):
+    rng = np.random.default_rng(150)
+    p = port_params(V_dim=2)
+    tb = pack_state(state_from_numpy(state_np(2, rng), device=card))
+    uids_np, valid = sorted_uids(rng)
+    uids = torch.from_numpy(uids_np).to(card)
+    pay = torch.from_numpy(payload(2, valid, rng)).to(card)
+    with pytest.raises(TypeError, match="layout=packed"):
+        pair_sweep.apply_pairs2(tb, uids, pay, p)
+    with pytest.raises(TypeError, match="layout=packed"):
+        sweep_ms.sweep_pull_ms(tb, uids, uids[:9], p, block_rows=512)
+    bad = pack_state(state_from_numpy(state_np(2, rng), device=card))
+    bad.tbl = bad.tbl[:, :-1]  # not [N, 4+2K], not contiguous
+    with pytest.raises(ValueError):
+        pair_sweep.pull_pairs(bad, uids, p)

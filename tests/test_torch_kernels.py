@@ -21,11 +21,13 @@ from difacto_tpu.ops import segsum as jseg
 from difacto_tpu.ops import sweep as jsweep
 from difacto_tpu.ops import sweep_ms as jsweep_ms
 from difacto_tpu.ops.sweep_ms import fused_table_update as j_fused
+from difacto_tpu.updaters import updater as jupd
 from difacto_tpu.updaters.updater import FMState as JFMState
 from difacto_tpu.updaters.updater import FMUpdater as JFMUpdater
 from difacto_tpu_torch.ops import pair_sweep, segsum, sweep, sweep_ms
 from difacto_tpu_torch.ops.sweep_ms import fused_table_update
-from difacto_tpu_torch.updaters.updater import FMUpdater
+from difacto_tpu_torch.updaters.updater import (FMUpdater, PackedFMState,
+                                                pack_state, unpack_state)
 from difacto_tpu_torch.utils.checkpoint import state_from_numpy, state_to_numpy
 from test_torch_cuda import (LEAVES, N, N2, R2, U, id_streams,
                              payload as _payload, port_params,
@@ -317,3 +319,143 @@ def test_sweep_wrappers_refuse_a_ragged_table():
         sweep_ms.sweep_apply_ms(st, sid, torch.zeros((5, 8)),
                                 torch.zeros((1, 3), dtype=torch.int32), p,
                                 block_rows=R2)
+
+
+# ---------------------------------------------------------------------------
+# the row-major table (layout=packed): PackedFMState, and pull_pairs /
+# apply_pairs over it. On the CPU the wrappers take the plain versions,
+# which read and write the table through the state's column views.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [0, 4])
+def test_pack_unpack_and_init_packed_match_jax(K):
+    """pack_state / unpack_state against JAX's (copies of the same
+    floats: exact), JAX's ``PackedFMState.tbl`` carried in as a NumPy
+    array, and ``init_state_packed`` against ``pack_state(init_state)``
+    from the same generator (exact)."""
+    rng = np.random.default_rng(70 + K)
+    s = _state_np(K, rng)
+    jpacked = jupd.pack_state(_jstate(s))
+    packed = pack_state(state_from_numpy(s))
+    assert isinstance(packed, PackedFMState)
+    assert (packed.num_rows, packed.k) == (N, K)
+    assert packed.tbl.shape == (N, 4 + 2 * K) and packed.tbl.is_contiguous()
+    np.testing.assert_array_equal(packed.tbl.numpy(), np.asarray(jpacked.tbl))
+    carried = state_from_numpy(np.asarray(jpacked.tbl), layout="packed")
+    assert torch.equal(carried.tbl, packed.tbl)
+    assert torch.equal(state_from_numpy(jpacked, layout="packed").tbl,
+                       packed.tbl)
+    back, jback = unpack_state(packed), jupd.unpack_state(jpacked)
+    for name in LEAVES:
+        leaf = getattr(back, name)
+        assert leaf.is_contiguous(), name
+        np.testing.assert_array_equal(leaf.numpy(), s[name], err_msg=name)
+        np.testing.assert_array_equal(np.asarray(getattr(jback, name)),
+                                      s[name], err_msg=name)
+        # the packed state's leaves are views of its table
+        np.testing.assert_array_equal(getattr(packed, name).numpy(), s[name])
+    np.testing.assert_array_equal(state_to_numpy(packed)["V"], s["V"])
+    _, tp = _params(V_dim=K)
+    a = FMUpdater(tp).init_state_packed(N, 5, "cpu")
+    b = pack_state(FMUpdater(tp).init_state(N, 5, "cpu"))
+    assert torch.equal(a.tbl, b.tbl)
+    if K:
+        assert float(a.V.abs().max()) > 0
+
+
+@pytest.mark.parametrize("K,thr", [(0, 2), (4, 2), (3, 0), (4, 10)])
+def test_packed_pull_matches_jax_and_planar(K, thr):
+    """pull_pairs over a PackedFMState against JAX ``FMUpdater.pull`` on
+    JAX's PackedFMState (a gather and a mask: exact) and the bits of the
+    planar plain version; sentinel lanes are 0."""
+    rng = np.random.default_rng(80 + K)
+    jp, tp = _params(V_dim=K, V_threshold=thr)
+    s = _state_np(K, rng)
+    uids, valid = _sorted_uids(rng)
+    ref = np.asarray(JFMUpdater(jp).pull(jupd.pack_state(_jstate(s)),
+                                         jnp.asarray(uids),
+                                         jnp.asarray(valid)))
+    packed = pack_state(state_from_numpy(s))
+    got = pair_sweep.pull_pairs(packed, T(uids), tp)
+    assert got.shape == (1 + K, U)
+    np.testing.assert_array_equal(got.numpy().T, ref)
+    assert torch.equal(got, pair_sweep.pull_pairs(state_from_numpy(s),
+                                                  T(uids), tp))
+    assert np.all(got.numpy()[:, ~valid] == 0.0)
+    up = FMUpdater(tp).pull(packed, T(uids), T(valid))
+    np.testing.assert_array_equal(up.numpy(), ref)
+
+
+@pytest.mark.parametrize(
+    "K,wupd,vupd,tff,thr",
+    [
+        (4, "ftrl", "adagrad", 0, 2),
+        (0, "ftrl", "adagrad", 0, 2),
+        (2, "adagrad", "sgd", 0, 2),
+        (3, "sgd", "adagrad", 2, 2),
+        (4, "ftrl", "adagrad", 0, 0),
+    ],
+)
+@pytest.mark.parametrize("repeat", [False, True])
+def test_packed_apply_matches_jax_and_planar(K, wupd, vupd, tff, thr, repeat):
+    """apply_pairs over a PackedFMState: the bits of the planar plain
+    version (the same code over the table's column views) on unique and
+    on repeated ids, rows no id names keep their bits, and on unique ids
+    JAX ``FMUpdater.update`` on JAX's PackedFMState (it scatter-adds
+    masked deltas where the apply writes new values: rtol 1e-6, atol
+    1e-6, the planar test's tolerance). The updater's own update runs on
+    the packed state too."""
+    rng = np.random.default_rng(90 + K)
+    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                     tail_feature_filter=tff, V_threshold=thr)
+    s = _state_np(K, rng)
+    uids, valid = _sorted_uids(rng, repeat=repeat)
+    pay = _payload(K, valid, rng)
+    packed = pack_state(state_from_numpy(s))
+    out = pair_sweep.apply_pairs(packed, T(uids), T(pay), tp)
+    assert out is packed  # in place
+    got = state_to_numpy(out)
+    planar = state_to_numpy(pair_sweep.apply_pairs(
+        state_from_numpy(s), T(uids), T(pay), tp))
+    touched = np.zeros(N, bool)
+    touched[uids[valid]] = True
+    for name in LEAVES:
+        np.testing.assert_array_equal(got[name], planar[name], err_msg=name)
+        assert np.array_equal(got[name][..., ~touched],
+                              s[name][..., ~touched]), name
+    if repeat:
+        return  # the updaters take unique ids
+    grads, add_cnt = pay[: 1 + K].T, pay[1 + K]
+    ref = jupd.unpack_state(JFMUpdater(jp).update(
+        jupd.pack_state(_jstate(s)), jnp.asarray(uids), jnp.asarray(grads),
+        jnp.asarray(add_cnt), jnp.asarray(valid)))
+    upd = state_to_numpy(FMUpdater(tp).update(
+        pack_state(state_from_numpy(s)), T(uids), T(grads), T(add_cnt),
+        T(valid)))
+    for name in LEAVES:
+        a = np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(got[name], a, rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+        np.testing.assert_allclose(upd[name], a, rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("kernel", ["apply_pairs2", "sweep_pull_ms",
+                                    "sweep_apply_ms"])
+def test_planar_only_kernels_refuse_a_packed_state(kernel):
+    rng = np.random.default_rng(99)
+    _, tp = _params(V_dim=2)
+    packed = pack_state(state_from_numpy(_state_np(2, rng)))
+    uids, valid = _sorted_uids(rng)
+    pay = T(_payload(2, valid, rng))
+    off = sweep.offsets_1(T(uids), N, BLOCK_ROWS)
+    with pytest.raises(TypeError, match="layout=packed"):
+        if kernel == "apply_pairs2":
+            pair_sweep.apply_pairs2(packed, T(uids), pay, tp)
+        elif kernel == "sweep_pull_ms":
+            sweep_ms.sweep_pull_ms(packed, T(uids), off, tp,
+                                   block_rows=BLOCK_ROWS)
+        else:
+            sweep_ms.sweep_apply_ms(packed, T(uids), pay, off, tp,
+                                    block_rows=BLOCK_ROWS)

@@ -24,6 +24,7 @@ from difacto_tpu.config import Config as JConfig
 from difacto_tpu.data import libsvm as jlibsvm
 from difacto_tpu.data.synthetic import make_ctr_data, write_libsvm
 from difacto_tpu.learners.sgd import SGDLearner as JSGDLearner
+from difacto_tpu.updaters import updater as jupd
 from difacto_tpu.updaters.updater import FMState as JFMState
 from difacto_tpu.utils import checkpoint as jcheckpoint
 from difacto_tpu_torch import cli
@@ -31,9 +32,11 @@ from difacto_tpu_torch.config import Config
 from difacto_tpu_torch.data import libsvm, synthetic
 from difacto_tpu_torch.learners.sgd import SGDLearner
 from difacto_tpu_torch.parallel.store import make_store
-from difacto_tpu_torch.updaters.updater import FMUpdater
+from difacto_tpu_torch.updaters.updater import (FMState, FMUpdater,
+                                                PackedFMState)
 from difacto_tpu_torch.utils import checkpoint
-from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+from difacto_tpu_torch.utils.checkpoint import (state_from_numpy,
+                                                state_to_numpy)
 
 torch.set_num_threads(2)
 
@@ -130,6 +133,144 @@ def test_verify_recipe_pallas_matches_jax(data, tmp_path):
                                atol=1e-5)
 
 
+def test_verify_recipe_packed_matches_jax(data, tmp_path):
+    """``layout=packed`` (the row-major table on the pairs path) trains
+    the verify recipe as the JAX learner does with ``layout=packed
+    kernel=xla`` (logloss rel 1e-5, AUC abs 1e-5) and to the bits of the
+    port's ``layout=planar``; its checkpoint is the planar interchange
+    format, which ``task=predict`` scores the same in either layout and
+    in the JAX package."""
+    start, model = str(tmp_path / "start"), str(tmp_path / "model")
+    jcheckpoint.save(start, JFMState(**_random_state(3)), {"epoch": 0})
+    kw = _recipe(data, ("model_in", start), ("layout", "packed"))
+    jva = JSGDLearner(JConfig.from_kwargs(kw + [("kernel", "xla")])).run()
+    learner = SGDLearner(Config.from_kwargs(kw + [("model_out", model)]),
+                         device="cpu")
+    assert isinstance(learner.state, PackedFMState)
+    va = learner.run()
+    assert va.num_examples == jva.num_examples == 2000
+    assert va.logloss == pytest.approx(jva.logloss, rel=1e-5)
+    assert va.exact_auc == pytest.approx(jva.exact_auc, abs=1e-5)
+    assert va.exact_auc > 0.6
+    planar = SGDLearner(Config.from_kwargs(_recipe(
+        data, ("model_in", start), ("layout", "planar"))), device="cpu")
+    assert isinstance(planar.state, FMState)
+    vp = planar.run()
+    assert (vp.logloss, vp.exact_auc) == (va.logloss, va.exact_auc)
+    host, meta = jcheckpoint.load(model)  # planar leaves on disk
+    assert host.V.shape == (K, 1 << BITS) and meta["epoch"] == 2
+    ref = _predict_jax(data, model)
+    for layout in ("packed", "planar"):
+        got = _predict_port(data, model, tmp_path / f"pred_{layout}.txt",
+                            f"layout={layout}")
+        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-5)
+
+
+def test_checkpoints_cross_layouts_and_packages(data, tmp_path):
+    """packed -> planar -> packed in the port, and port <-> JAX: a model
+    is written as planar leaves whatever the run's layout and loads into
+    a store of either layout, in both packages, with the same floats."""
+    s = _random_state(6, trained=True)
+    cfgs = {lay: Config.from_kwargs(_recipe(data, ("layout", lay)))
+            for lay in ("packed", "planar")}
+    stores = {lay: make_store(FMUpdater(c.model), c, device="cpu")
+              for lay, c in cfgs.items()}
+    packed = stores["packed"].place_state(state_from_numpy(s))
+    assert isinstance(packed, PackedFMState)
+    a = str(tmp_path / "from_packed")
+    checkpoint.save(a, packed, {"epoch": 1})
+    planar, meta = checkpoint.load_for_store(a, stores["planar"])
+    assert isinstance(planar, FMState) and meta["epoch"] == 1
+    b = str(tmp_path / "from_planar")
+    checkpoint.save(b, planar, {"epoch": 1})
+    again, _ = checkpoint.load_for_store(b, stores["packed"])
+    assert isinstance(again, PackedFMState)
+    assert torch.equal(again.tbl, packed.tbl)
+    for name, v in state_to_numpy(again).items():
+        np.testing.assert_array_equal(v, s[name], err_msg=name)
+    # the JAX package reads the port's file into its packed store, and the
+    # port carries JAX's table back in
+    jlearner = JSGDLearner(JConfig.from_kwargs(
+        _recipe(data, ("layout", "packed"), ("kernel", "xla"),
+                ("model_in", a))))
+    assert isinstance(jlearner.state, jupd.PackedFMState)
+    np.testing.assert_array_equal(np.asarray(jlearner.state.tbl),
+                                  packed.tbl.numpy())
+    back = state_from_numpy(jlearner.state, layout="packed")
+    assert torch.equal(back.tbl, packed.tbl)
+    # and JAX's file, saved from its packed state, loads into either store
+    c = str(tmp_path / "from_jax")
+    jcheckpoint.save(c, jlearner.state, {"epoch": 1})
+    for lay, store in stores.items():
+        st, _ = checkpoint.load_for_store(c, store)
+        for name, v in state_to_numpy(st).items():
+            np.testing.assert_array_equal(v, s[name], err_msg=f"{lay} {name}")
+
+
+@pytest.mark.parametrize(
+    "kw,layout",
+    [
+        ((("layout", "packed"),), "packed"),
+        ((("layout", "packed"), ("kernel", "pairs")), "packed"),
+        ((("layout", "packed"), ("V_dim", "0")), "packed"),
+        ((("layout", "planar"),), "planar"),
+        ((), "packed"),                       # auto, an FM on the pairs path
+        ((("kernel", "pairs"),), "packed"),
+        ((("V_dim", "0"),), "planar"),        # auto without factors
+        ((("kernel", "pallas"),), "planar"),  # the sweep reads planar leaves
+        ((("kernel", "pallas"), ("layout", "planar")), "planar"),
+    ],
+)
+def test_layout_resolves_as_measured(kw, layout):
+    """``layout=packed`` is in the port on the pairs path; ``auto`` takes
+    it where every row-major kernel measured no slower than its planar
+    counterpart (an FM, V_dim > 0), and the sweep path stays planar."""
+    base = {"num_bits": "12", "V_dim": "4", **dict(kw)}
+    cfg = Config.from_kwargs(list(base.items()))
+    store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+    assert store.layout == layout
+    st = store.init_state(1)
+    assert isinstance(st, PackedFMState if layout == "packed" else FMState)
+    assert st.num_rows == 1 << 12 and st.k == cfg.model.V_dim
+
+
+@pytest.mark.parametrize("layout", ["packed", "stacked"])
+def test_layout_packed_with_the_sweep_kernels_raises(layout):
+    """The JAX store's ValueError: the sweep kernels read planar leaves.
+    (``stacked`` is outside the port whatever the kernel.)"""
+    if layout == "stacked":
+        with pytest.raises(NotImplementedError, match="A14"):
+            Config.from_kwargs([("kernel", "pallas"), ("layout", layout)])
+        return
+    cfg = Config.from_kwargs([("num_bits", "12"), ("kernel", "pallas"),
+                              ("layout", layout)])
+    with pytest.raises(ValueError, match="incompatible with kernel='pallas'"):
+        make_store(FMUpdater(cfg.model), cfg, device="cpu")
+    with pytest.raises(ValueError, match="incompatible"):
+        SGDLearner(cfg, device="cpu")
+
+
+def test_save_interval_resume_packed_matches_uninterrupted(data, tmp_path):
+    """``save_interval_steps`` resume with ``layout=packed``, and into a
+    planar store: the interrupted epoch ends in the same floats."""
+    out = str(tmp_path / "mid")
+    kw = _recipe(data, ("model_out", out), ("save_interval_steps", "5"),
+                 ("layout", "packed"))
+    full = SGDLearner(Config.from_kwargs(kw), device="cpu")
+    full.train_epoch(0)
+    meta = checkpoint._read_meta(out)
+    assert (meta["epoch"], meta["step"]) == (0, 15)
+    a = state_to_numpy(full.state)
+    for layout in ("packed", "planar"):
+        resumed = SGDLearner(Config.from_kwargs(_recipe(
+            data, ("model_in", out), ("layout", layout))), device="cpu")
+        resumed.train_epoch(0)  # skips the 15 consumed batches
+        b = state_to_numpy(resumed.state)
+        for name in a:
+            np.testing.assert_array_equal(a[name], b[name],
+                                          err_msg=f"{layout} {name}")
+
+
 def test_save_interval_resume_matches_uninterrupted(data, tmp_path):
     out = str(tmp_path / "mid")
     kw = _recipe(data, ("model_out", out), ("save_interval_steps", "5"))
@@ -210,8 +351,8 @@ def test_unknown_key_is_fatal():
         ("loss", "ffm", "A8"),
         ("hot_rows", "1024", "A13"),
         ("kernel", "xla", "A14"),
-        ("layout", "packed", "A14"),
         ("layout", "stacked", "A14"),
+        ("pred_out", "hdfs://host/pred", "A19"),
         ("host_localize", "0", "A16"),
         ("data_format", "libffm", "A18"),
         ("data_format", "csr", "A18"),

@@ -312,6 +312,37 @@ def test_bisect_ftrl4_matches_the_jax_kernel_in_interpret_mode():
                                    rtol=1e-6)
 
 
+@pytest.mark.parametrize("br", [1024, 512])
+def test_bisect_rowscan_matches_the_jax_kernel_and_numpy(br):
+    """``rowscan``, the first design of ``bisect_w`` kept beside the
+    sparse one, computes the same function: against the Pallas kernel in
+    interpret mode on unique ids (atol 1e-6: one slot per row), against
+    the float64 sums on repeated ids (atol 1e-4 as above), and the same
+    bits as the ``highest`` word, whose plain version it shares."""
+    rng = np.random.default_rng(254)
+    sid = np.sort(rng.choice(N, size=300, replace=False)).astype(np.int32)
+    pay = rng.normal(size=(jbisect.PP, 300)).astype(np.float32)
+    w = rng.normal(size=N).astype(np.float32)
+    ref = np.asarray(_jax_bisect(jbisect.kernel, 1, sid, pay, [w], br))
+    got = bisect_apply.bisect_w(T(sid), T(pay), T(w), "rowscan", br).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+    sid, pay, ipay = bisect_stream(rng)
+    got = bisect_apply.bisect_w(T(sid), T(pay), T(w), "rowscan", br)
+    want = w.astype(np.float64) + _np_row_sums(sid, pay[:1], N)[0]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    assert torch.equal(got, bisect_apply.bisect_w(T(sid), T(pay), T(w),
+                                                  block_rows=br))
+    iw = np.round(w * 4).astype(np.float32)
+    got = bisect_apply.bisect_w(T(sid), T(ipay), T(iw), "rowscan", br).numpy()
+    assert np.array_equal(got, iw + _np_row_sums(sid, ipay[:1], N)[0])
+
+
+def test_bisect_rowscan_probe_runs_on_the_cpu(capsys):
+    assert bisect_apply.main(["rowscan", "512", "n_log2=10", "u=50"],
+                             device="cpu") == 0
+    assert "rowscan br=512" in capsys.readouterr().out
+
+
 def test_bisect_wrappers_refuse_unknown_variants():
     w = torch.zeros(8)
     with pytest.raises(ValueError, match="variant"):

@@ -35,7 +35,7 @@ from difacto_tpu_torch.models import losses
 from difacto_tpu_torch.ops import metrics
 from difacto_tpu_torch.ops.localize import Localized
 from difacto_tpu_torch.parallel.store import LocalStore
-from difacto_tpu_torch.updaters.updater import FMUpdater
+from difacto_tpu_torch.updaters.updater import FMUpdater, PackedFMState
 from difacto_tpu_torch.utils.checkpoint import state_from_numpy, state_to_numpy
 
 torch.set_num_threads(2)
@@ -239,6 +239,70 @@ def test_local_store_kernel_paths_match_jax(K, extra):
     assert store.pallas == jstore.pallas
     assert store.sorted_grads == jstore.sorted_grads
     _five_steps_and_eval(jstore, store, N)
+
+
+@pytest.mark.parametrize(
+    "K,extra",
+    [
+        (4, ()),
+        (0, ()),
+        (4, (("w_updater", "adagrad"), ("V_updater", "sgd"))),
+        (4, (("w_updater", "sgd"), ("tail_feature_filter", "2"))),
+        (4, (("segsum", "scatter"), ("V_threshold", "0"))),
+    ],
+)
+def test_local_store_packed_matches_jax_packed(K, extra):
+    """``layout=packed`` on the pairs path (the row-major table; on the
+    CPU the pull and apply kernels' plain versions over its columns)
+    against JAX's LocalStore with ``layout=packed kernel=xla``, from the
+    same carried state, and the bits of the port's planar store."""
+    N = 1 << 12
+    jcfg = JConfig.from_kwargs(_kw(K, extra) + [("kernel", "xla"),
+                                                ("layout", "packed")])
+    if not any(k == "segsum" for k, _ in extra):
+        jcfg.shard.segsum = "scatter"
+    cfg = Config.from_kwargs(_kw(K, extra) + [("layout", "packed")])
+    jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg)
+    store = LocalStore(FMUpdater(cfg.model), cfg, device="cpu")
+    assert store.layout == "packed" and not store.pallas
+    assert isinstance(store.init_state(0), PackedFMState)
+    _five_steps_and_eval(jstore, store, N)
+    # the same steps on the planar store: the same bits
+    planar = LocalStore(FMUpdater(cfg.model), Config.from_kwargs(
+        _kw(K, extra) + [("layout", "planar")]), device="cpu")
+    s0 = _start_state(K)
+    sp = store.place_state(state_from_numpy(s0))
+    sq = planar.place_state(state_from_numpy(s0))
+    assert isinstance(sp, PackedFMState) and not isinstance(sq, PackedFMState)
+    for s in range(3):
+        sp, mp = store.train_step_prepped(sp, prep_batch(_batch(s), N))
+        sq, mq = planar.train_step_prepped(sq, prep_batch(_batch(s), N))
+        assert float(mp.logloss_sum) == float(mq.logloss_sum)
+    a, b = state_to_numpy(sp), state_to_numpy(sq)
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+    assert store.stats(sp) == planar.stats(sq)
+
+
+def test_local_store_packed_count_step_matches_jax():
+    N = 1 << 12
+    jcfg = JConfig.from_kwargs(_kw(4) + [("kernel", "xla"),
+                                         ("layout", "packed")])
+    cfg = Config.from_kwargs(_kw(4) + [("layout", "packed")])
+    jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg)
+    store = LocalStore(FMUpdater(cfg.model), cfg, device="cpu")
+    s0 = _start_state(4)
+    jst = jstore.place_state(JFMState(**s0))
+    st = store.place_state(state_from_numpy(s0))
+    for s in range(3):
+        ids = _batch(s).ids
+        jst = jstore.count_step(jst, jnp.asarray(ids))
+        st = store.count_step(st, ids)
+    assert isinstance(st, PackedFMState)
+    np.testing.assert_array_equal(state_to_numpy(st)["cnt"],
+                                  np.asarray(fm_leaves(jst).cnt))
+    assert jax.device_get(jstore.stats(jst))["nnz_V"] == store.stats(st)[
+        "nnz_V"]
 
 
 def test_local_store_count_step_matches_jax():
