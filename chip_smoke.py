@@ -7,30 +7,35 @@ Phases, each a hard failure:
 1. build the hand-written CUDA kernels from ``difacto_tpu_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card at the
    flagship shapes (batch 16384 x 40 nnz with Zipf(1.2) ids, 2^22 rows,
-   K = 16; the sweep kernels with 1024-row blocks, one stream, and two
-   streams of repeated ids whose integer payload must sum exactly; the
-   probes' kernels at their probes' shapes, ``apply_pairs2`` also against
-   ``apply_pairs``; the pull and apply over the row-major table against
-   their plain versions and, bit for bit, against the planar kernels),
-   and time the kernel, the plain version and, where one PyTorch call
-   computes the same function, that call;
-3. hold the device train and eval steps of every kernel path (pairs over
-   the planar and over the row-major table, with the sorted and the
-   scatter backward, the whole-table sweep with either) against the CPU
+   K = 16; the sweep kernels with 1024-row blocks, one stream, two
+   streams of repeated ids whose integer payload must sum exactly, and a
+   dense block; the probes' kernels at their probes' shapes,
+   ``apply_pairs2`` also against ``apply_pairs``; the kernels over the
+   row-major table, pairs and sweep, against their plain versions and,
+   bit for bit, against the planar kernels, timed in turns with them,
+   L2 warm and flushed; the segment sum's three designs against the
+   float64 sums, exactly on integers and bit for bit on a second run,
+   timed in turns), and time the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call;
+3. hold the device train and eval steps of every kernel path (pairs and
+   the whole-table sweep, each over the planar and over the row-major
+   table, with the sorted and the scatter backward) against the CPU
    plain path on a small batch, from one state;
-4. drive the flagship through ``SGDLearner`` four times, on the pair
-   kernels (``kernel=auto`` with ``layout=planar`` and with
-   ``layout=packed``) and on the whole-table sweep
-   (``kernel=pallas``, with the scatter and with the sorted backward):
-   an epoch that streams from a libsvm file and caches the batches on the
-   card, then a timed epoch that replays them, a traced replay and a
-   validation pass, with every launch counter reset just before each
-   drive and read just after;
-5. the CLI on a small synthetic set, on the three table paths: train 2 epochs
-   with validation and ``model_out``, then ``task=predict`` on that
+4. drive the flagship through ``SGDLearner`` six times (``MAIN_PATHS``):
+   on the pair kernels (``kernel=auto`` with ``layout=planar`` and with
+   ``layout=packed``) and on the whole-table sweep (``kernel=pallas``
+   over planar leaves and over the row-major table, which is what its
+   default layout resolves to, each with the scatter and with the sorted
+   backward): an epoch that
+   streams from a libsvm file and caches the batches on the card, then a
+   timed epoch that replays them, a traced replay and a validation pass,
+   with every launch counter reset just before each drive and read just
+   after; the sweep's two layouts must report the same metrics;
+5. the CLI on a small synthetic set, on the four table paths: train 2
+   epochs with validation and ``model_out``, then ``task=predict`` on that
    checkpoint, whose AUC must pass 0.6 and whose scores must match the
    CPU's;
-6. run the four kernel probes (``difacto_tpu_torch/probes``) in process
+6. run the five kernel probes (``difacto_tpu_torch/probes``) in process
    at their full shapes; each must return 0 and launch its kernels.
 
 It prints the card's name and power limit, one JSON line listing the
@@ -63,6 +68,9 @@ PAIRS_KERNELS = ("pull_pairs", "segsum_sorted", "apply_pairs")
 ROWMAJOR_KERNELS = ("pull_rowmajor", "segsum_sorted", "apply_rowmajor")
 SWEEP_KERNELS = ("sweep_pull", "sweep_apply")
 SWEEP_SORTED_KERNELS = ("sweep_pull", "segsum_sorted", "sweep_apply")
+SWEEP_ROWMAJOR_KERNELS = ("sweep_pull_rowmajor", "sweep_apply_rowmajor")
+SWEEP_ROWMAJOR_SORTED_KERNELS = ("sweep_pull_rowmajor", "segsum_sorted",
+                                 "sweep_apply_rowmajor")
 UPDATER_CASES = ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
                  (K, "sgd", "adagrad"), (0, "ftrl", "adagrad"))
 
@@ -139,6 +147,32 @@ def updater_bytes(wupd: str, vupd: str, k: int, n_rows: int, n_act: int):
     return 4 * 2 * (wl * n_rows + vl * n_act)
 
 
+def in_turns(dev, first, second, names):
+    """(first ms, second ms) by CUDA events over the wrapper calls, each
+    the mean of two timings taken in the order first, second, second,
+    first; and each one's own kernel time from torch.profiler, taken in
+    the same order (the sum over the kernels whose name contains one of
+    ``names``), which for kernels this short is the better figure (the
+    event time is the host's enqueue rate, and a planar apply's wrapper
+    also launches an order check): {"warm": [second, first], "cold":
+    [...]} in ms, warm as the event loop runs them (the same rows every
+    call, so they sit in the L2), cold after a write of 256 MB."""
+    from difacto_tpu_torch.probes import common
+
+    a, b = cuda_ms(first), cuda_ms(second)
+    b2, a2 = cuda_ms(second), cuda_ms(first)
+    own = {temp: [t["second"], t["first"]]
+           for temp, t in common.kernel_ms_in_turns(
+               dev, {"first": first, "second": second}, names).items()}
+    return (a + a2) / 2, (b + b2) / 2, own
+
+
+def no_slower(own):
+    """The second of :func:`in_turns` is no slower than the first, warm
+    and cold, by kernel time."""
+    return all(new <= old for new, old in own.values())
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version at the flagship
     shapes. Returns the kernels' records (without launches)."""
@@ -146,7 +180,8 @@ def check_kernels(dev):
 
     from difacto_tpu_torch.config import FMParam
     from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
-    from difacto_tpu_torch.ops import pair_sweep, segsum
+    from difacto_tpu_torch.ops import cuda, pair_sweep, segsum
+    from difacto_tpu_torch.probes import common
     from difacto_tpu_torch.updaters.updater import FMUpdater
     from difacto_tpu_torch.utils.place import place_batch
 
@@ -183,50 +218,99 @@ def check_kernels(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
-    # -- segsum: against the float64 sums, and exact on integers ----------
+    # -- segsum, three designs: segsum_sorted (the one the paths run),
+    # segsum_sorted_chunks (the first design) and segsum_sorted_rows
+    # (row-major payload). Each against the
+    # float64 sums, exact on integers, untouched lanes 0, and the same
+    # bits on a second run; then timed in turns --------------------------
     pp = 2 + K
     lanes = pb.sorted_slots.inv_sorted
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     payT = torch.randn((pp, blp), generator=g, device=dev)
     payT[:, BATCH * NNZ:] = 0.0
-    got = segsum.segsum_sorted(payT, lanes, U)
+    # integers in [1, 8]: every partial sum stays below 2^24 and is exact
+    # in float32, so a slot or tile piece lost or added twice shows,
+    # however long the hot key's segment (the float64 bound is loose there)
+    ipay = torch.randint(1, 9, (pp, blp), generator=g, device=dev).float()
+    ipay[:, BATCH * NNZ:] = 0.0
+    pay_rm, ipay_rm = payT.T.contiguous(), ipay.T.contiguous()
+    seg_designs = {
+        "segsum_sorted": (lambda x, xr: segsum.segsum_sorted(x, lanes, U),
+                          "difacto_tpu_torch/csrc/segsum_tiles.cu"),
+        "segsum_chunks": (lambda x, xr: segsum.segsum_sorted_chunks(
+            x, lanes, U), "difacto_tpu_torch/csrc/segsum.cu"),
+        "segsum_rows": (lambda x, xr: segsum.segsum_sorted_rows(xr, lanes, U),
+                        "difacto_tpu_torch/csrc/segsum_tiles.cu"),
+    }
     ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
     seg_n = torch.bincount(lanes.long(), minlength=U).double()
     tol = f64_sum_tolerance(seg_n, segsum.segsum_sorted_plain(
         payT.abs().double(), lanes, U))
-    diff = (got.double() - ref).abs()
-    err = float(diff.max())
-    if not bool((diff <= tol).all()):
-        raise AssertionError(f"segsum_sorted differs from its plain version "
-                             f"beyond the float32 summation bound "
-                             f"(max abs err {err:g})")
     untouched = seg_n == 0
-    if not bool((got[:, untouched] == 0).all()):
-        raise AssertionError("segsum_sorted: untouched lanes are not 0")
-    # that bound is loose on the hot key (over 10^5 slots), so also sum
-    # integers in [1, 8]: every partial sum stays below 2^24 and is exact
-    # in float32, so a slot or chunk piece lost or added twice shows
-    ipay = torch.randint(1, 9, (pp, blp), generator=g, device=dev).float()
-    ipay[:, BATCH * NNZ:] = 0.0
-    got = segsum.segsum_sorted(ipay, lanes, U)
-    if not torch.equal(got, segsum.segsum_sorted_plain(ipay, lanes, U)):
-        raise AssertionError("segsum_sorted differs from its plain version on "
-                             "an integer payload (tolerance: exact)")
+    iref = segsum.segsum_sorted_plain(ipay, lanes, U)
+    seg_err = {}
+    for name, (fn, _) in seg_designs.items():
+        got = fn(payT, pay_rm)
+        diff = (got.double() - ref).abs()
+        seg_err[name] = float(diff.max())
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"beyond the float32 summation bound "
+                                 f"(max abs err {seg_err[name]:g})")
+        if not bool((got[:, untouched] == 0).all()):
+            raise AssertionError(f"{name}: untouched lanes are not 0")
+        if not torch.equal(fn(payT, pay_rm), got):
+            raise AssertionError(f"{name}: a second run gave other bits")
+        if not torch.equal(fn(ipay, ipay_rm), iref):
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 "an integer payload (tolerance: exact)")
     log(f"segsum: hottest segment {int(seg_n.max())} slots; max abs err "
-        f"{err:g} against the float64 sums; integer payload exact")
+        f"against the float64 sums {json.dumps(seg_err)}; integer payload "
+        "exact, untouched lanes 0 and a second run bit-equal, all designs")
+    # more payload rows than the second pass's block has threads (V_dim
+    # > 254), with a run that crosses more tiles than one thread sums
+    lw = torch.cat([torch.arange(3000) // 3, torch.full((5000,), 1000),
+                    1001 + torch.arange(24768) // 7]).to(dev, torch.int32)
+    wpay = torch.randint(1, 9, (300, lw.shape[0]), generator=g,
+                         device=dev).float()
+    cuda.reset_launches()
+    if not torch.equal(segsum.segsum_sorted(wpay, lw, 4600),
+                       segsum.segsum_sorted_plain(wpay, lw, 4600)):
+        raise AssertionError("segsum_sorted differs from its plain version on "
+                             "300 payload rows (tolerance: exact)")
+    if cuda.LAUNCHES["segsum_sorted"] != 1:
+        raise AssertionError(f"300 payload rows took another kernel: "
+                             f"{cuda.LAUNCHES}")
+    log("segsum_sorted on 300 payload rows of integers: exact")
+    del lw, wpay
     lanes_l = lanes.long()
     acc = torch.zeros((pp, U), device=dev)
-    nbytes = 4 * (pp * blp + blp + pp * U)
-    b_ms, b_by = bound(nbytes, pp * blp)
-    out["segsum_sorted"] = dict(
-        route="cuda", source="difacto_tpu_torch/csrc/segsum.cu",
-        replaces="difacto_tpu/ops/segsum.py:156", max_abs_err=err,
-        ms=cuda_ms(lambda: segsum.segsum_sorted(payT, lanes, U)),
-        plain_ms=cuda_ms(lambda: segsum.segsum_sorted_plain(payT, lanes, U)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: acc.index_add_(1, lanes_l, payT)),
-    )
+    b_ms, b_by = bound(4 * (pp * blp + blp + pp * U), pp * blp)
+    seg_names = ("segsum", "Memset")  # each design's kernels and its memset
+    calls = {name: (lambda f=f: f[0](payT, pay_rm))
+             for name, f in seg_designs.items()}
+    order = list(calls) + list(calls)[::-1]
+    seg_ms = dict.fromkeys(calls, 0.0)
+    for name in order:
+        seg_ms[name] += cuda_ms(calls[name]) / 2
+    own = common.kernel_ms_in_turns(dev, calls, seg_names)
+    log(f"segsum designs in turns, kernel time with the memset: "
+        f"{json.dumps(own)}; by events {json.dumps(seg_ms)}")
+    if not all(t["segsum_sorted"] <= min(t.values()) for t in own.values()):
+        raise AssertionError("the paths' segsum_sorted is not the fastest of "
+                             f"the three designs: {own}")
+    plain_ms = cuda_ms(lambda: segsum.segsum_sorted_plain(payT, lanes, U))
+    library_ms = cuda_ms(lambda: acc.index_add_(1, lanes_l, payT))
+    for name in seg_designs:
+        out[name] = dict(
+            route="cuda", source=seg_designs[name][1],
+            replaces="difacto_tpu/ops/segsum.py:156",
+            max_abs_err=seg_err[name], ms=seg_ms[name], plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            kernel_ms=own["warm"][name],
+        )
+    del ipay, pay_rm, ipay_rm, ref, iref, tol
 
     # -- apply, both designs (B2 one row per thread, B6 two): every w/V
     # updater pair, and K = 0; B6 also against B2's kernel ----------------
@@ -315,7 +399,6 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
 
     from difacto_tpu_torch.config import FMParam
     from difacto_tpu_torch.ops import pair_sweep
-    from difacto_tpu_torch.probes.common import kernel_ms
     from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
                                                     unpack_state)
 
@@ -329,30 +412,7 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
     g = torch.Generator(device=dev)
     g.manual_seed(4)
 
-    flush = torch.empty(1 << 26, device=dev)  # 256 MB: five times the L2
-
-    def in_turns(planar, rowmajor):
-        """(planar ms, row-major ms) by CUDA events over the wrapper
-        calls, each the mean of two timings taken in the order planar,
-        row-major, row-major, planar; and each kernel's own time from
-        torch.profiler, which for kernels this short is the better
-        figure (the event time is the host's enqueue rate, and the planar
-        apply's wrapper also launches an order check of three small
-        kernels): {"warm": [row-major, planar], "cold": [...]} in ms,
-        warm as the event loop runs them (the same rows every call, so
-        they sit in the L2), cold after a write of 256 MB."""
-        a, b = cuda_ms(planar), cuda_ms(rowmajor)
-        b2, a2 = cuda_ms(rowmajor), cuda_ms(planar)
-        own = {"warm": [kernel_ms(rowmajor, name="rowmajor_"),
-                        kernel_ms(planar, name="_pairs_kernel")],
-               "cold": [kernel_ms(lambda: (flush.zero_(), rowmajor()),
-                                  name="rowmajor_"),
-                        kernel_ms(lambda: (flush.zero_(), planar()),
-                                  name="_pairs_kernel")]}
-        return (a + a2) / 2, (b + b2) / 2, own
-
-    def no_slower(own):
-        return all(r <= p_ for r, p_ in own.values())
+    pair_names = ("rowmajor_", "_pairs_kernel")
 
     # -- pull: exact (a gather with a mask); the narrower pieces too -------
     tb = pack_state(st)
@@ -369,8 +429,8 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
     n_act = past_gate(pb, st, p)
     b_ms, b_by = bound(4 * (U + 2 * n_valid + K * n_act + (1 + K) * U), 0)
     planar_ms, ms, own = in_turns(
-        lambda: pair_sweep.pull_pairs(st, pb.uids, p),
-        lambda: pair_sweep.pull_pairs(tb, pb.uids, p))
+        dev, lambda: pair_sweep.pull_pairs(st, pb.uids, p),
+        lambda: pair_sweep.pull_pairs(tb, pb.uids, p), pair_names)
     out["pull_rowmajor"] = dict(
         route="cuda", source="difacto_tpu_torch/csrc/rowmajor_pairs.cu",
         replaces="difacto_tpu/ops/pair_sweep.py:346", max_abs_err=0.0, ms=ms,
@@ -393,8 +453,8 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
                        pair_sweep.pull_pairs(st0, pb.uids, q0)):
         raise AssertionError("pull_rowmajor K=0 differs from pull_pairs")
     planar_ms, ms, own = in_turns(
-        lambda: pair_sweep.pull_pairs(st0, pb.uids, q0),
-        lambda: pair_sweep.pull_pairs(tb0, pb.uids, q0))
+        dev, lambda: pair_sweep.pull_pairs(st0, pb.uids, q0),
+        lambda: pair_sweep.pull_pairs(tb0, pb.uids, q0), pair_names)
     faster["pull K=0"] = no_slower(own)
     log(f"pull_rowmajor K=0: {ms:.4f} ms against pull_pairs {planar_ms:.4f} "
         f"ms; kernel time [row-major, planar] {json.dumps(own)}")
@@ -439,8 +499,9 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
         del a, b, c, narrow
         work, work_p = pack_state(base), clone_state(base)
         planar_ms, ms, own = in_turns(
-            lambda: pair_sweep.apply_pairs(work_p, pb.uids, payload, q),
-            lambda: pair_sweep.apply_pairs(work, pb.uids, payload, q))
+            dev, lambda: pair_sweep.apply_pairs(work_p, pb.uids, payload, q),
+            lambda: pair_sweep.apply_pairs(work, pb.uids, payload, q),
+            pair_names)
         nbytes = (4 * (U + 3 * n_valid + k * act)
                   + updater_bytes(wupd, vupd, k, n_valid, act))
         rec = dict(ms=ms, plain_ms=cuda_ms(
@@ -469,20 +530,30 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
     log(f"row-major kernels no slower than the planar ones by kernel time, "
         f"warm and cold: {json.dumps(faster)}; every case of one width: "
         f"{json.dumps(by_k)} (what parallel/store.py::_resolve_layout gives "
-        "layout=auto on the pairs path was decided on this line: packed "
-        "for the widths where every case holds)")
+        "layout=auto on the pairs path follows this line: packed for the "
+        "widths where every case holds)")
+    if not by_k[f"K={K}"]:
+        raise AssertionError("layout=auto puts the pairs path with factors on "
+                             "the row-major table, where a kernel is now "
+                             f"slower than its planar one: {faster}")
     return out
 
 
 def check_sweep_kernels(dev, pb, st, g):
-    """Phase 2, the whole-table sweep kernels (B4 pull, B5 apply): one
-    stream of the flagship batch's sorted unique ids, as ops/sweep.py
-    passes it, then two streams of repeated ids. Returns their records."""
+    """Phase 2, the whole-table sweep kernels, both designs: B4 pull and
+    B5 apply over planar leaves (csrc/sweep_pull.cu, csrc/sweep_apply.cu)
+    and over the row-major table (csrc/rowmajor_sweep.cu). One stream of
+    the flagship batch's sorted unique ids, as ops/sweep.py passes it,
+    then two streams of repeated ids, then a dense block. Each design
+    against the plain version; the row-major one also bit for bit against
+    the planar one after ``unpack_state``, at every piece width, and timed
+    in turns with it, warm and with the L2 flushed. Returns their records."""
     import torch
 
     from difacto_tpu_torch.config import FMParam
     from difacto_tpu_torch.ops import sweep, sweep_ms
-    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
+                                                    unpack_state)
 
     num_rows, R = 1 << NUM_BITS, BLOCK_ROWS
     nb = num_rows // R
@@ -492,15 +563,26 @@ def check_sweep_kernels(dev, pb, st, g):
     n_valid = int(pb.valid.sum())
     p = FMParam()
     p.V_dim = K
-    out = {}
+    out, faster = {}, {}
+    names = ("sweep_",)  # every sweep kernel, the planar pull's two and
+    #                      the planar apply's order check included
+    rm_src = "difacto_tpu_torch/csrc/rowmajor_sweep.cu"
+
+    def pull(state, **kw):
+        return sweep_ms.sweep_pull_ms(state, sid, off, p, block_rows=R, **kw)
 
     # -- pull: exact (a gather with a mask) --------------------------------
-    got = sweep_ms.sweep_pull_ms(st, sid, off, p, block_rows=R)
+    tb = pack_state(st)
     ref = sweep_ms.sweep_pull_ms_plain(st, sid, off, p, block_rows=R)
-    err = float((got - ref).abs().max())
-    if not torch.equal(got, ref):
-        raise AssertionError(f"sweep_pull differs from its plain version "
-                             f"(max abs err {err:g}; tolerance: exact)")
+    for what, got in [("sweep_pull", pull(st)), ("sweep_pull_rowmajor",
+                                                pull(tb))] + [
+            (f"sweep_pull_rowmajor with {v}-float pieces",
+             sweep_ms._sweep_pull_rowmajor(tb, sid, off, p, R, vec=v))
+            for v in (1, 2)]:
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"{what} differs from its plain version (max abs err "
+                f"{float((got - ref).abs().max()):g}; tolerance: exact)")
     n_act = past_gate(pb, st, p)
     # useful bytes: the ids and offsets, w and cnt of the named rows, V of
     # the gated ones, the [1+K, U] output; a full sweep reads w, cnt and V
@@ -508,71 +590,132 @@ def check_sweep_kernels(dev, pb, st, g):
     io = 4 * (U + (nb + 1) + (1 + K) * U)
     b_ms, b_by = bound(io + 4 * (2 * n_valid + K * n_act), 0)
     whole_ms = (io + 4 * (2 + K) * num_rows) / HBM_BYTES_PER_S * 1e3
-    out["sweep_pull"] = dict(
-        route="cuda", source="difacto_tpu_torch/csrc/sweep_pull.cu",
-        replaces="difacto_tpu/ops/sweep_ms.py:140", max_abs_err=err,
-        ms=cuda_ms(lambda: sweep_ms.sweep_pull_ms(st, sid, off, p,
-                                                  block_rows=R)),
-        plain_ms=cuda_ms(lambda: sweep_ms.sweep_pull_ms_plain(
-            st, sid, off, p, block_rows=R)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    planar_ms, ms, own = in_turns(dev, lambda: pull(st), lambda: pull(tb),
+                                  names)
+    plain_ms = cuda_ms(lambda: sweep_ms.sweep_pull_ms_plain(
+        st, sid, off, p, block_rows=R))
+    for name, src, t, k_ms in (
+            ("sweep_pull", "difacto_tpu_torch/csrc/sweep_pull.cu", planar_ms,
+             own["warm"][1]),
+            ("sweep_pull_rowmajor", rm_src, ms, own["warm"][0])):
+        out[name] = dict(
+            route="cuda", source=src,
+            replaces="difacto_tpu/ops/sweep_ms.py:140", max_abs_err=0.0,
+            ms=t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, kernel_ms=k_ms)
+    faster[f"pull K={K}"] = no_slower(own)
     log(f"sweep_pull: useful-byte bound {b_ms:.5f} ms; a whole-table "
         f"sweep would move {io + 4 * (2 + K) * num_rows} B, "
-        f"{whole_ms:.5f} ms")
+        f"{whole_ms:.5f} ms; row-major {ms:.4f} ms against planar "
+        f"{planar_ms:.4f} ms in turns; kernel time [row-major, planar] "
+        f"{json.dumps(own)}")
+    q0 = FMParam()
+    q0.V_dim = 0
+    st0 = random_state(FMUpdater(q0), num_rows, dev, seed=3)
+    tb0 = pack_state(st0)
+
+    def pull0(state):
+        return sweep_ms.sweep_pull_ms(state, sid, off, q0, block_rows=R)
+
+    if not torch.equal(pull0(tb0), pull0(st0)):
+        raise AssertionError("sweep_pull_rowmajor K=0 differs from sweep_pull")
+    planar_ms, ms, own = in_turns(dev, lambda: pull0(st0),
+                                  lambda: pull0(tb0), names)
+    faster["pull K=0"] = no_slower(own)
+    log(f"sweep_pull_rowmajor K=0: {ms:.4f} ms against sweep_pull "
+        f"{planar_ms:.4f} ms; kernel time [row-major, planar] "
+        f"{json.dumps(own)}")
+    del tb, tb0
 
     # -- apply: every w/V updater pair, and K = 0 --------------------------
     vf = pb.valid.to(torch.float32)
-    worst = 0.0
+    worst = {"sweep_apply": 0.0, "sweep_apply_rowmajor": 0.0}
     for k, wupd, vupd in UPDATER_CASES:
         q = FMParam()
         q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
-        base = st if k == K else random_state(FMUpdater(q), num_rows, dev,
-                                              seed=3)
+        base = st if k == K else st0
         grads = torch.randn((1 + k, U), generator=g, device=dev) * vf
         payload = sweep_ms.apply_payload(grads, pb.ucounts, pb.valid)
-        a = sweep_ms.sweep_apply_ms(clone_state(base), sid, payload, off, q,
-                                    block_rows=R)
+
+        def apply(state, **kw):
+            return sweep_ms.sweep_apply_ms(state, sid, payload, off, q,
+                                           block_rows=R, **kw)
+
+        a = apply(clone_state(base))
         b = sweep_ms.sweep_apply_ms_plain(clone_state(base), sid, payload,
                                           off, q, block_rows=R)
+        c = unpack_state(apply(pack_state(base)))
+        narrow = {v: unpack_state(sweep_ms._sweep_apply_rowmajor(
+            pack_state(base), sid, payload, off, q, R, vec=v))
+            for v in (1, 2)}
         for name in ("w", "z", "n", "cnt", "V", "nV"):
             x, y = getattr(a, name), getattr(b, name)
-            if x.numel():
-                worst = max(worst, float((x - y).abs().max()))
+            if not x.numel():
+                continue
+            # the same sums in the same order and the same arithmetic as
+            # the planar kernel: the same bits, whatever the piece width
+            for what, got in [("", c)] + [(f" with {v}-float pieces", s_)
+                                          for v, s_ in narrow.items()]:
+                if not torch.equal(getattr(got, name), x):
+                    raise AssertionError(
+                        f"sweep_apply_rowmajor{what} {wupd}/{vupd} K={k} "
+                        f"differs from sweep_apply: {name} (tolerance: "
+                        "bit-equal)")
+            for design, got in (("sweep_apply", x),
+                                ("sweep_apply_rowmajor", getattr(c, name))):
+                worst[design] = max(worst[design],
+                                    float((got - y).abs().max()))
                 # unique ids: the same sums; the plain version's division
                 # by a scalar is a multiply by its reciprocal: 1 ulp
                 torch.testing.assert_close(
-                    x, y, rtol=1e-5, atol=1e-6,
-                    msg=f"sweep_apply {wupd}/{vupd} K={k}: {name}")
+                    got, y, rtol=1e-5, atol=1e-6,
+                    msg=f"{design} {wupd}/{vupd} K={k}: {name}")
+        del a, b, c, narrow
         act = past_gate(pb, base, q)
         # useful bytes as for apply_pairs, plus the offsets; a full sweep
         # reads and writes all 4 + 2k leaves of every row
         pay_io = 4 * (U + (nb + 1) + 3 * n_valid + k * act)
         nbytes = pay_io + updater_bytes(wupd, vupd, k, n_valid, act)
         whole = pay_io + 4 * 2 * (4 + 2 * k) * num_rows
-        work = clone_state(base)
+        work, work_rm = clone_state(base), pack_state(base)
+        planar_ms, ms, own = in_turns(dev, lambda: apply(work),
+                                      lambda: apply(work_rm), names)
         rec = dict(
-            ms=cuda_ms(lambda: sweep_ms.sweep_apply_ms(
-                work, sid, payload, off, q, block_rows=R)),
+            planar_ms=planar_ms, rowmajor_ms=ms,
             plain_ms=cuda_ms(lambda: sweep_ms.sweep_apply_ms_plain(
                 work, sid, payload, off, q, block_rows=R)),
         )
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 20 * n_valid
                                                  + 8 * k * act)
         rec["whole_table_ms"] = whole / HBM_BYTES_PER_S * 1e3
+        faster[f"apply {wupd}/{vupd} K={k}"] = no_slower(own)
         log(f"sweep_apply {wupd}/{vupd} K={k} ({n_valid} named rows, {act} "
             f"past the V gate; a whole-table sweep moves {whole} B): "
-            f"{json.dumps(rec)}")
+            f"{json.dumps(rec)}; kernel time [row-major, planar] "
+            f"{json.dumps(own)}")
         if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
-            out["sweep_apply"] = dict(
-                route="cuda", source="difacto_tpu_torch/csrc/sweep_apply.cu",
-                replaces="difacto_tpu/ops/sweep_ms.py:320",
-                **{k_: rec[k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by")},
-                library_ms=None,
-            )
-        del work, a, b
-    out["sweep_apply"]["max_abs_err"] = worst
+            for name, src, t, k_ms in (
+                    ("sweep_apply", "difacto_tpu_torch/csrc/sweep_apply.cu",
+                     planar_ms, own["warm"][1]),
+                    ("sweep_apply_rowmajor", rm_src, ms, own["warm"][0])):
+                out[name] = dict(
+                    route="cuda", source=src,
+                    replaces="difacto_tpu/ops/sweep_ms.py:320", ms=t,
+                    plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                    bound_by=rec["bound_by"], library_ms=None, kernel_ms=k_ms)
+        del work, work_rm
+    for name, err in worst.items():
+        out[name]["max_abs_err"] = err
+    by_k = {f"K={k}": all(v for name, v in faster.items()
+                          if name.endswith(f"K={k}")) for k in (K, 0)}
+    log(f"row-major sweep kernels no slower than the planar ones by kernel "
+        f"time, warm and cold: {json.dumps(faster)}; every case of one "
+        f"width: {json.dumps(by_k)} (what parallel/store.py::_resolve_layout "
+        "gives layout=auto with kernel=pallas follows this line)")
+    if not all(by_k.values()):
+        raise AssertionError("layout=auto puts kernel=pallas on the row-major "
+                             "table, where a kernel is now slower than its "
+                             f"planar one: {faster}")
 
     # -- two streams of repeated ids: the first 2^16 slots of two seeded
     # batches, each sorted with a sentinel tail; pull exact, and an
@@ -589,11 +732,13 @@ def check_sweep_kernels(dev, pb, st, g):
         pos += ids.shape[0]
     sid2 = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
     off2 = torch.from_numpy(np.stack(offs).astype(np.int32)).to(dev)
-    got = sweep_ms.sweep_pull_ms(st, sid2, off2, p, block_rows=R)
-    if not torch.equal(got, sweep_ms.sweep_pull_ms_plain(st, sid2, off2, p,
-                                                         block_rows=R)):
-        raise AssertionError("sweep_pull differs from its plain version on "
-                             "two streams of repeated ids")
+    ref = sweep_ms.sweep_pull_ms_plain(st, sid2, off2, p, block_rows=R)
+    for what, state in (("sweep_pull", st),
+                        ("sweep_pull_rowmajor", pack_state(st))):
+        if not torch.equal(sweep_ms.sweep_pull_ms(state, sid2, off2, p,
+                                                  block_rows=R), ref):
+            raise AssertionError(f"{what} differs from its plain version on "
+                                 "two streams of repeated ids")
     q = FMParam()
     q.V_dim, q.w_updater, q.V_updater, q.V_threshold = K, "sgd", "sgd", 0
     q.lr_eta, q.l2, q.V_lr_eta, q.V_l2 = 1.0, 0.0, 1.0, 0.0
@@ -601,19 +746,51 @@ def check_sweep_kernels(dev, pb, st, g):
     zero.V.zero_()
     ipay = torch.randint(1, 9, (3 + K, sid2.shape[0]), generator=g,
                          device=dev).float()
-    a = sweep_ms.sweep_apply_ms(clone_state(zero), sid2, ipay, off2, q,
-                                block_rows=R)
     b = sweep_ms.sweep_apply_ms_plain(clone_state(zero), sid2, ipay, off2, q,
                                       block_rows=R)
-    for name in ("w", "z", "n", "cnt", "V", "nV"):
-        if not torch.equal(getattr(a, name), getattr(b, name)):
-            raise AssertionError(f"sweep_apply differs from its plain version "
-                                 f"on two streams of an integer payload: "
-                                 f"{name} (tolerance: exact)")
+    for what, a in (
+            ("sweep_apply", sweep_ms.sweep_apply_ms(
+                clone_state(zero), sid2, ipay, off2, q, block_rows=R)),
+            ("sweep_apply_rowmajor", unpack_state(sweep_ms.sweep_apply_ms(
+                pack_state(zero), sid2, ipay, off2, q, block_rows=R)))):
+        for name in ("w", "z", "n", "cnt", "V", "nV"):
+            if not torch.equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(
+                    f"{what} differs from its plain version on two streams "
+                    f"of an integer payload: {name} (tolerance: exact)")
     hot = int(torch.unique(sid2[sid2 < num_rows], return_counts=True)[1]
               .max())
-    log(f"sweep kernels on 2 streams of {slots} slots (hottest id {hot} "
-        f"slots over both): pull exact, integer-payload apply exact")
+    log(f"sweep kernels, both layouts, on 2 streams of {slots} slots "
+        f"(hottest id {hot} slots over both): pull exact, integer-payload "
+        "apply exact")
+    del zero, a, b, ipay
+
+    # -- a dense block: 900 of the 1024 rows of table block 7 named, every
+    # other block empty; the row-major design has no per-block stage, the
+    # planar one lists a full block
+    rng = np.random.default_rng(22)
+    ids = np.sort(rng.choice(R, size=900, replace=False)) + 7 * R
+    sid3 = torch.from_numpy(np.r_[ids, np.full(124, num_rows)].astype(
+        np.int32)).to(dev)
+    off3 = sweep.offsets_1(sid3, num_rows, R)
+    pay3 = torch.randn((3 + K, sid3.shape[0]), generator=g, device=dev)
+    pay3[1 + K:] = (sid3 < num_rows).float()
+    ref = sweep_ms.sweep_pull_ms_plain(st, sid3, off3, p, block_rows=R)
+    if not torch.equal(sweep_ms.sweep_pull_ms(pack_state(st), sid3, off3, p,
+                                              block_rows=R), ref):
+        raise AssertionError("sweep_pull_rowmajor differs from its plain "
+                             "version on a dense block")
+    a = unpack_state(sweep_ms.sweep_apply_ms(pack_state(st), sid3, pay3, off3,
+                                             p, block_rows=R))
+    b = sweep_ms.sweep_apply_ms(clone_state(st), sid3, pay3, off3, p,
+                                block_rows=R)
+    for name in ("w", "z", "n", "cnt", "V", "nV"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"sweep_apply_rowmajor differs from "
+                                 f"sweep_apply on a dense block: {name} "
+                                 "(tolerance: bit-equal)")
+    log("sweep kernels on a dense block (900 of 1024 rows named): row-major "
+        "pull exact, row-major apply bit-equal to the planar one")
     return out
 
 
@@ -860,7 +1037,8 @@ def check_probe_kernels(dev, pb, st, g):
 
 
 PROBE_KERNELS = ("apply_pairs2", "pull_packed", "apply_packed", "bisect_w",
-                 "bisect_rowscan", "bisect_ftrl4", "slot_accum")
+                 "bisect_rowscan", "bisect_ftrl4", "slot_accum",
+                 "segsum_chunks", "segsum_rows")
 
 
 def drive_probes(dev) -> dict:
@@ -869,10 +1047,12 @@ def drive_probes(dev) -> dict:
     launch counts of the phase, every probe kernel's above 0."""
     from difacto_tpu_torch.ops import cuda
     from difacto_tpu_torch.probes import (bench_slot_accum, bisect_apply,
-                                          hw_apply2, hw_packed_pairs)
+                                          hw_apply2, hw_packed_pairs,
+                                          segsum_designs)
 
     cuda.reset_launches()
-    runs = [(hw_apply2, []), (hw_packed_pairs, []), (bench_slot_accum, [])]
+    runs = [(hw_apply2, []), (hw_packed_pairs, []), (bench_slot_accum, []),
+            (segsum_designs, [])]
     runs += [(bisect_apply, [v]) for v in (
         "highest", "default", "scanonly", "loadonly", "rowscan", "ftrl4",
         "ftrl4_inplace")]
@@ -892,7 +1072,12 @@ STEP_PATHS = ((), (("layout", "planar"),), (("layout", "packed"),),
               (("segsum", "scatter"),),
               (("layout", "packed"), ("segsum", "scatter")),
               (("kernel", "pallas"),),
-              (("kernel", "pallas"), ("segsum", "sorted")))
+              (("kernel", "pallas"), ("layout", "planar")),
+              (("kernel", "pallas"), ("layout", "planar"),
+               ("segsum", "sorted")),
+              (("kernel", "pallas"), ("layout", "packed")),
+              (("kernel", "pallas"), ("layout", "packed"),
+               ("segsum", "sorted")))
 
 
 def check_step_against_cpu(dev):
@@ -985,6 +1170,21 @@ def write_main_data(tmp: str) -> tuple[str, str]:
     return train, val
 
 
+# the main paths: (config on top of the flagship's, the kernels each step
+# launches, the pull first: it also serves the validation batch)
+_PALLAS = (("kernel", "pallas"), ("segsum", "sorted"))
+MAIN_PATHS = (
+    ((("layout", "planar"),), PAIRS_KERNELS),
+    ((("layout", "packed"),), ROWMAJOR_KERNELS),
+    ((("kernel", "pallas"), ("layout", "planar")), SWEEP_KERNELS),
+    # kernel=pallas as its defaults resolve: the row-major table
+    # (layout=auto) and the scatter backward (segsum=auto)
+    ((("kernel", "pallas"),), SWEEP_ROWMAJOR_KERNELS),
+    ((*_PALLAS, ("layout", "planar")), SWEEP_SORTED_KERNELS),
+    ((*_PALLAS, ("layout", "packed")), SWEEP_ROWMAJOR_SORTED_KERNELS),
+)
+
+
 def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple):
     """Phase 4: SGDLearner at the flagship shapes on the kernel path that
     ``extra`` selects, which must launch each kernel of ``path`` (its pull
@@ -1070,10 +1270,12 @@ def drive_cli(tmp: str) -> None:
                                seed=2), va)
     labels = np.array([float(ln.split()[0]) for ln in open(va)])
     aucs = {}
-    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS)
+    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
+                        + SWEEP_ROWMAJOR_KERNELS)
     for kernel, layout, path in (("auto", "planar", PAIRS_KERNELS),
                                  ("auto", "packed", ROWMAJOR_KERNELS),
-                                 ("pallas", "auto", SWEEP_KERNELS)):
+                                 ("pallas", "planar", SWEEP_KERNELS),
+                                 ("pallas", "packed", SWEEP_ROWMAJOR_KERNELS)):
         other = table_kernels - set(path)
         model = os.path.join(tmp, f"model_{kernel}_{layout}")
         shape = ["batch_size=512", "num_bits=16", "max_nnz_per_row=12",
@@ -1109,11 +1311,12 @@ def drive_cli(tmp: str) -> None:
             raise AssertionError(f"CLI validation AUC {auc} <= 0.6")
         np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
                                    atol=1e-5)
-    # the two layouts of the pairs path train the same model (the verify
+    # the two layouts of each table path train the same model (the verify
     # recipe's tolerance on AUC)
-    if abs(aucs["auto", "packed"] - aucs["auto", "planar"]) > 1e-5:
-        raise AssertionError(f"layout=packed and layout=planar disagree: "
-                             f"{aucs}")
+    for kernel in ("auto", "pallas"):
+        if abs(aucs[kernel, "packed"] - aucs[kernel, "planar"]) > 1e-5:
+            raise AssertionError(f"kernel={kernel}: layout=packed and "
+                                 f"layout=planar disagree: {aucs}")
 
 
 def main() -> int:
@@ -1144,14 +1347,23 @@ def main() -> int:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         files = write_main_data(tmp)
-        # the pull first: it also serves the validation batch
-        for extra, path in (((("layout", "planar"),), PAIRS_KERNELS),
-                            ((("layout", "packed"),), ROWMAJOR_KERNELS),
-                            ((("kernel", "pallas"),), SWEEP_KERNELS),
-                            ((("kernel", "pallas"), ("segsum", "sorted")),
-                             SWEEP_SORTED_KERNELS)):
-            got, _ = drive_main_path(dev, *files, extra, path)
+        recs = {}
+        for extra, path in MAIN_PATHS:
+            got, recs[extra] = drive_main_path(dev, *files, extra, path)
             launches.update({name: got[name] for name in path})
+        # the sweep trains the same model over either table layout. With
+        # the sorted backward every kernel repeats its bits, so the metrics
+        # are the same floats; the scatter backward's index_add_ adds
+        # atomically, in another order each run: the verify recipe's
+        # tolerance (logloss rel 1e-5, AUC abs 1e-5)
+        for i, j, rtol, atol in ((2, 3, 1e-5, 1e-5), (4, 5, 1e-6, 0)):
+            a, b = recs[MAIN_PATHS[i][0]], recs[MAIN_PATHS[j][0]]
+            for key in ("train_logloss", "val_logloss", "val_exact_auc"):
+                if not np.allclose(a[key], b[key], rtol=rtol, atol=atol):
+                    raise AssertionError(
+                        f"kernel=pallas on the row-major table and on planar "
+                        f"leaves disagree on {key}: {b['path']} {b[key]} "
+                        f"against {a['path']} {a[key]}")
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -1164,7 +1376,7 @@ def main() -> int:
         # enough that `ms` (CUDA events) is the host's enqueue rate
         **{k: v for k, v in kernels[name].items() if k == "kernel_ms"}}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
-        + SWEEP_KERNELS + PROBE_KERNELS]
+        + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS]
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

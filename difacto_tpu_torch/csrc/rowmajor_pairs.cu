@@ -68,11 +68,8 @@
 #include <stdint.h>
 
 #include "pair_runs.cuh"
+#include "rowmajor.cuh"
 #include "table_update.cuh"
-
-#define RM_WARPS 4                 // warps per block
-#define RM_THREADS (32 * RM_WARPS)
-#define RM_TILE_LD 33              // tile row pitch: 32 lanes + 1 pad
 
 template <int VEC>
 __global__ void __launch_bounds__(RM_THREADS)
@@ -209,26 +206,6 @@ rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
       store_v_row<VEC>(v, K, e, p);
     }
   }
-}
-
-// The widest piece the row layout and the table's address allow, capped
-// by `vec` when it is 1, 2 or 4 (0 = no cap).
-static int pick_vec(const void* tbl, int K, int vec) {
-  const uintptr_t a = (uintptr_t)tbl;
-  int best = 1;
-  if (K % 4 == 0 && a % 16 == 0) best = 4;
-  else if (K % 2 == 0 && a % 8 == 0) best = 2;
-  if (vec > 0 && vec < best) best = vec;
-  return best;
-}
-
-// A kernel that asks for more than 48 KB of dynamic shared memory (a wide
-// K) must be allowed it first.
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 extern "C" int dft_pull_rowmajor(const void* tbl, const void* uids, void* out,

@@ -34,8 +34,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu", "sweep_pull.cu",
            "sweep_apply.cu", "apply_pairs2.cu", "packed_pairs.cu",
-           "bisect_apply.cu", "slot_accum.cu", "rowmajor_pairs.cu")
-HEADERS = ("table_update.cuh", "sweep.cuh", "pair_runs.cuh")
+           "bisect_apply.cu", "slot_accum.cu", "rowmajor_pairs.cu",
+           "rowmajor_sweep.cu", "segsum_tiles.cu")
+HEADERS = ("table_update.cuh", "sweep.cuh", "pair_runs.cuh", "rowmajor.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # --fmad=false: no fused multiply-adds, so each kernel rounds exactly as
@@ -47,7 +48,9 @@ LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
             "sweep_pull": 0, "sweep_apply": 0, "apply_pairs2": 0,
             "pull_packed": 0, "apply_packed": 0, "bisect_w": 0,
             "bisect_ftrl4": 0, "slot_accum": 0, "bisect_rowscan": 0,
-            "pull_rowmajor": 0, "apply_rowmajor": 0}
+            "pull_rowmajor": 0, "apply_rowmajor": 0,
+            "sweep_pull_rowmajor": 0, "sweep_apply_rowmajor": 0,
+            "segsum_chunks": 0, "segsum_rows": 0}
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -88,6 +91,15 @@ _SIGNATURES = {
     # V_updater, vec, stream
     "dft_apply_rowmajor": [_VP] * 3 + [_LL, _I, _I] + [_F] * 8
     + [_I, _I, _I, _I, _VP],
+    # tbl, sid, offsets, out, N, K, nnz, S, nb, R, V_threshold, vec, stream
+    "dft_sweep_pull_rowmajor": [_VP] * 4 + [_LL] + [_I] * 5 + [_F, _I, _VP],
+    # tbl, sid, payload, offsets, N, K, nnz, S, nb, R, then as
+    # dft_apply_pairs from lr_eta to V_updater, vec, stream
+    "dft_sweep_apply_rowmajor": [_VP] * 4 + [_LL] + [_I] * 5 + [_F] * 8
+    + [_I, _I, _I, _I, _VP],
+    # payT (or pay), lanes, out, head, tail, pp, blp, ub, stream
+    "dft_segsum_tiles": [_VP] * 5 + [_I] * 3 + [_VP],
+    "dft_segsum_rows": [_VP] * 5 + [_I] * 3 + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -28,7 +28,7 @@ import torch
 from ..config import FMParam
 from ..updaters.updater import FMState, PackedFMState, require_planar
 from . import cuda
-from .sweep_ms import V_UPDATERS, W_UPDATERS, fused_table_update, gather_rows
+from .sweep_ms import updater_args, fused_table_update, gather_rows
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +141,7 @@ def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
         state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
         state.cnt.data_ptr(), state.V.data_ptr(), state.nV.data_ptr(),
         uids.data_ptr(), payload.data_ptr(), n, k, u,
-        *_updater_args(param), cuda.stream(dev),
+        *updater_args(param), cuda.stream(dev),
     )
     cuda.check(rc, entry)
     cuda.LAUNCHES[entry] += 1
@@ -162,13 +162,6 @@ def _check_stream(entry: str, uids: torch.Tensor, payload: torch.Tensor,
                             f"{entry}: uids must be non-decreasing")
 
 
-def _updater_args(p: FMParam) -> tuple:
-    """The optimizer settings in the order the apply entries take them."""
-    return (p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta, p.V_l2,
-            float(p.V_threshold), int(p.tail_feature_filter),
-            W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater])
-
-
 def _apply_rowmajor(state: PackedFMState, uids: torch.Tensor,
                     payload: torch.Tensor, param: FMParam,
                     vec: int = 0) -> PackedFMState:
@@ -179,7 +172,7 @@ def _apply_rowmajor(state: PackedFMState, uids: torch.Tensor,
     _check_stream("apply_rowmajor", uids, payload, k, dev, order=False)
     rc = cuda.library().dft_apply_rowmajor(
         state.tbl.data_ptr(), uids.data_ptr(), payload.data_ptr(), n, k,
-        uids.shape[0], *_updater_args(param), vec, cuda.stream(dev),
+        uids.shape[0], *updater_args(param), vec, cuda.stream(dev),
     )
     cuda.check(rc, "apply_rowmajor")
     cuda.LAUNCHES["apply_rowmajor"] += 1

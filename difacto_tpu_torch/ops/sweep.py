@@ -7,7 +7,9 @@ sorted (host prep guarantees it), so the ids of table block ``b`` form
 one contiguous slice; the per-block slice offsets are one
 ``searchsorted`` outside the kernels.
 
-Layout: w/z/n/cnt are [N], V/nV planar [K, N]; ``block_rows`` must
+``state`` is a planar FMState (w/z/n/cnt [N], V/nV [K, N]) or a
+row-major PackedFMState (``layout=packed``): the wrappers of
+ops/sweep_ms.py pick the kernel by the state's type. ``block_rows`` must
 divide N. K = 0 (sparse LR) carries no V.
 """
 
@@ -16,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from ..config import FMParam
-from ..updaters.updater import FMState
 from .sweep_ms import apply_payload, sweep_apply_ms, sweep_pull_ms
 
 
@@ -34,7 +35,7 @@ def _sid(uids: torch.Tensor, valid: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(valid, uids, n).to(torch.int32)
 
 
-def sweep_pull(state: FMState, uids: torch.Tensor, valid: torch.Tensor,
+def sweep_pull(state, uids: torch.Tensor, valid: torch.Tensor,
                param: FMParam, *, block_rows: int = 1024) -> torch.Tensor:
     """Rows [U, 1+K] for sorted unique ids (sentinel-padded): w, and V
     gated by ``cnt >= V_threshold``; invalid lanes zero."""
@@ -45,9 +46,9 @@ def sweep_pull(state: FMState, uids: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid[:, None], rows_p.T, 0.0)
 
 
-def sweep_apply(state: FMState, uids: torch.Tensor, grads: torch.Tensor,
+def sweep_apply(state, uids: torch.Tensor, grads: torch.Tensor,
                 add_cnt: torch.Tensor, valid: torch.Tensor, param: FMParam,
-                *, block_rows: int = 1024) -> FMState:
+                *, block_rows: int = 1024):
     """Fused optimizer apply, in place. ``grads`` are the per-key
     gradients PLANAR [1+K, U] (the transpose of the JAX function's
     ``[U, 1+K]``, and the layout of the apply payload, so the sorted

@@ -17,13 +17,24 @@ contribute nothing, as in the TPU kernels (``sweep_ms.py:62-65``).
 The TPU kernels stream each whole table block through VMEM and address
 the slots with one-hot matmuls over 1024-aligned windows, because Mosaic
 cannot address single rows (``sweep_ms.py:12-31``). The Hopper kernels
-(csrc/sweep_pull.cu, csrc/sweep_apply.cu) scan the table one thread per
-row, list the rows some slot names, and spread those rows' leaves over
-the block's threads; rows no slot names are not read. See their notes.
+come in two designs, one per table layout, as the pair kernels do:
+
+* a planar :class:`FMState` goes to csrc/sweep_pull.cu and
+  csrc/sweep_apply.cu, which scan the table one thread per row, list the
+  rows some slot names, and spread those rows' leaves over the block's
+  threads;
+* a row-major :class:`PackedFMState` (``layout=packed``) goes to
+  csrc/rowmajor_sweep.cu, which deals the work by slots (a slot owns its
+  row when it is the row's first slot in the first stream that names it)
+  and moves a row's 16 + 8K contiguous bytes in 16-byte pieces. The two
+  give the same bits.
+
+In both, rows no slot names are not read. See the sources' notes.
 
 Each of ``sweep_pull_ms`` and ``sweep_apply_ms`` is a wrapper: a CUDA
 tensor launches the kernel (or raises on what the kernel does not take);
-a CPU tensor takes the plain PyTorch version beside it. There is no
+a CPU tensor takes the plain PyTorch version beside it, which runs on
+either layout through the packed state's column views. There is no
 fallback from one to the other.
 """
 
@@ -32,8 +43,8 @@ from __future__ import annotations
 import torch
 
 from ..config import FMParam
-from ..updaters.updater import (FMState, adagrad_v, adagrad_w, ftrl_w,
-                                require_planar, sgd_v, sgd_w)
+from ..updaters.updater import (FMState, PackedFMState, adagrad_v,
+                                adagrad_w, ftrl_w, sgd_v, sgd_w)
 from . import cuda
 
 W_UPDATERS = {"ftrl": 0, "adagrad": 1, "sgd": 2}
@@ -143,28 +154,55 @@ def _in_slices(sid: torch.Tensor, offsets: torch.Tensor, n: int,
 # ---------------------------------------------------------------------------
 
 
-def sweep_pull_ms_plain(state: FMState, sid: torch.Tensor,
+def sweep_pull_ms_plain(state, sid: torch.Tensor,
                         offsets: torch.Tensor, param: FMParam, *,
                         block_rows: int = 1024) -> torch.Tensor:
-    """The gated gather at the covered slots: the plain version of the
-    sweep pull kernel."""
+    """The gated gather at the covered slots: the plain version of both
+    sweep pull kernels. It reads the leaves by name, and a PackedFMState's
+    leaves are views of its table's columns, so it runs on either layout."""
     n = state.num_rows
     _check_blocks(n, block_rows, offsets)
     covered = _in_slices(sid, offsets, n, block_rows).any(0)
     return gather_rows(state, sid, covered, param)
 
 
-def sweep_pull_ms(state: FMState, sid: torch.Tensor, offsets: torch.Tensor,
+def _sweep_pull_rowmajor(state: PackedFMState, sid: torch.Tensor,
+                         offsets: torch.Tensor, param: FMParam,
+                         block_rows: int, vec: int = 0) -> torch.Tensor:
+    """Launch the row-major sweep pull. ``vec`` caps the kernel's piece
+    width (1, 2 or 4 floats; 0 = the widest the row layout allows), for
+    the tests of the narrower paths."""
+    n, k, nnz = state.num_rows, state.k, sid.shape[0]
+    nb = _check_blocks(n, block_rows, offsets)
+    dev = state.device
+    cuda.require(state.tbl, "tbl", torch.float32, (n, 4 + 2 * k), dev)
+    cuda.require(sid, "sid", torch.int32, (nnz,), dev)
+    cuda.require(offsets, "offsets", torch.int32, None, dev)
+    out = torch.empty((1 + k, nnz), dtype=torch.float32, device=dev)
+    rc = cuda.library().dft_sweep_pull_rowmajor(
+        state.tbl.data_ptr(), sid.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), n, k, nnz, offsets.shape[0], nb, block_rows,
+        float(param.V_threshold), vec, cuda.stream(dev),
+    )
+    cuda.check(rc, "sweep_pull_rowmajor")
+    cuda.LAUNCHES["sweep_pull_rowmajor"] += 1
+    return out
+
+
+def sweep_pull_ms(state, sid: torch.Tensor, offsets: torch.Tensor,
                   param: FMParam, *, block_rows: int = 1024) -> torch.Tensor:
     """Per-slot rows [1+K, NNZ] (planar) for ``sid`` (i32 [NNZ], S
     streams, each sorted; sentinel ``N``) and ``offsets`` (i32 [S,
     N/block_rows + 1]): row 0 is w, rows 1..K are V gated by ``cnt >=
     V_threshold``. Slots no slice covers are 0 (undefined in the TPU
-    kernel). The kernel traps on a stream that is not sorted."""
-    require_planar(state, "sweep_pull_ms")
+    kernel). ``state`` is an FMState or a PackedFMState; the two layouts'
+    kernels give the same output. They trap on a stream that is not
+    sorted."""
     if sid.device.type == "cpu":
         return sweep_pull_ms_plain(state, sid, offsets, param,
                                    block_rows=block_rows)
+    if isinstance(state, PackedFMState):
+        return _sweep_pull_rowmajor(state, sid, offsets, param, block_rows)
     n, k, nnz = state.num_rows, state.k, sid.shape[0]
     nb = _check_blocks(n, block_rows, offsets)
     dev = state.device
@@ -190,13 +228,14 @@ def sweep_pull_ms(state: FMState, sid: torch.Tensor, offsets: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def sweep_apply_ms_plain(state: FMState, sid: torch.Tensor,
+def sweep_apply_ms_plain(state, sid: torch.Tensor,
                          payload: torch.Tensor, offsets: torch.Tensor,
-                         param: FMParam, *,
-                         block_rows: int = 1024) -> FMState:
+                         param: FMParam, *, block_rows: int = 1024):
     """A whole-table sweep: every covered slot's payload is added into a
     ``[3+K, N]`` accumulator, stream by stream in slot order, then
-    ``fused_table_update`` runs over all rows — in place on ``state``."""
+    ``fused_table_update`` runs over all rows — in place on ``state``, of
+    either layout (a PackedFMState's leaves are views of its table, so the
+    copies below write the table's columns)."""
     n, k = state.num_rows, state.k
     _check_blocks(n, block_rows, offsets)
     mask = _in_slices(sid, offsets, n, block_rows)
@@ -213,21 +252,55 @@ def sweep_apply_ms_plain(state: FMState, sid: torch.Tensor,
     return state
 
 
-def sweep_apply_ms(state: FMState, sid: torch.Tensor, payload: torch.Tensor,
+def updater_args(p: FMParam) -> tuple:
+    """The optimizer settings in the order the apply entries take them."""
+    return (p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta, p.V_l2,
+            float(p.V_threshold), int(p.tail_feature_filter),
+            W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater])
+
+
+def _sweep_apply_rowmajor(state: PackedFMState, sid: torch.Tensor,
+                          payload: torch.Tensor, offsets: torch.Tensor,
+                          param: FMParam, block_rows: int,
+                          vec: int = 0) -> PackedFMState:
+    """Launch the row-major sweep apply (``vec`` as in
+    :func:`_sweep_pull_rowmajor`). The kernel checks the streams' order
+    itself, on the ids it reads anyway."""
+    n, k, nnz = state.num_rows, state.k, sid.shape[0]
+    nb = _check_blocks(n, block_rows, offsets)
+    dev = state.device
+    cuda.require(state.tbl, "tbl", torch.float32, (n, 4 + 2 * k), dev)
+    cuda.require(sid, "sid", torch.int32, (nnz,), dev)
+    cuda.require(payload, "payload", torch.float32, (3 + k, nnz), dev)
+    cuda.require(offsets, "offsets", torch.int32, None, dev)
+    rc = cuda.library().dft_sweep_apply_rowmajor(
+        state.tbl.data_ptr(), sid.data_ptr(), payload.data_ptr(),
+        offsets.data_ptr(), n, k, nnz, offsets.shape[0], nb, block_rows,
+        *updater_args(param), vec, cuda.stream(dev),
+    )
+    cuda.check(rc, "sweep_apply_rowmajor")
+    cuda.LAUNCHES["sweep_apply_rowmajor"] += 1
+    return state
+
+
+def sweep_apply_ms(state, sid: torch.Tensor, payload: torch.Tensor,
                    offsets: torch.Tensor, param: FMParam, *,
-                   block_rows: int = 1024) -> FMState:
-    """Update ``state`` IN PLACE from the planar per-slot payload ``[3+K,
-    NNZ]`` (gw | gV | add_cnt | touch) over ``sid``/``offsets`` (as
-    :func:`sweep_pull_ms`): every covered slot adds into its row,
-    duplicates included, then per row the w updater (tail filter
-    applied) and the V updater gated by the pre-update count where the
-    summed touch is > 0, and ``cnt += add_cnt``. In place replaces the TPU
-    kernel's ``input_output_aliases``; returns ``state`` for chaining. The
-    kernel traps on a stream that is not sorted."""
-    require_planar(state, "sweep_apply_ms")
+                   block_rows: int = 1024):
+    """Update ``state`` (FMState or PackedFMState) IN PLACE from the
+    planar per-slot payload ``[3+K, NNZ]`` (gw | gV | add_cnt | touch)
+    over ``sid``/``offsets`` (as :func:`sweep_pull_ms`): every covered slot
+    adds into its row, duplicates included, then per row the w updater
+    (tail filter applied) and the V updater gated by the pre-update count
+    where the summed touch is > 0, and ``cnt += add_cnt``. In place
+    replaces the TPU kernel's ``input_output_aliases``; returns ``state``
+    for chaining. The two layouts' kernels give the same bits; both trap
+    on a stream that is not sorted."""
     if sid.device.type == "cpu":
         return sweep_apply_ms_plain(state, sid, payload, offsets, param,
                                     block_rows=block_rows)
+    if isinstance(state, PackedFMState):
+        return _sweep_apply_rowmajor(state, sid, payload, offsets, param,
+                                     block_rows)
     n, k, nnz = state.num_rows, state.k, sid.shape[0]
     nb = _check_blocks(n, block_rows, offsets)
     dev = state.device
@@ -238,15 +311,11 @@ def sweep_apply_ms(state: FMState, sid: torch.Tensor, payload: torch.Tensor,
     cuda.require(sid, "sid", torch.int32, (nnz,), dev)
     cuda.require(payload, "payload", torch.float32, (3 + k, nnz), dev)
     cuda.require(offsets, "offsets", torch.int32, None, dev)
-    p = param
     rc = cuda.library().dft_sweep_apply(
         state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
         state.cnt.data_ptr(), state.V.data_ptr(), state.nV.data_ptr(),
         sid.data_ptr(), payload.data_ptr(), offsets.data_ptr(), n, k, nnz,
-        offsets.shape[0], nb, block_rows,
-        p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta, p.V_l2,
-        float(p.V_threshold), int(p.tail_feature_filter),
-        W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater],
+        offsets.shape[0], nb, block_rows, *updater_args(param),
         cuda.stream(dev),
     )
     cuda.check(rc, "sweep_apply")

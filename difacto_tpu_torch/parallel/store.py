@@ -13,7 +13,8 @@ and the per-key aggregation, as the JAX store does
 * ``kernel=auto|pairs``: pull and apply of the batch's unique rows
   (ops/pair_sweep.py, B1, B2), over planar leaves (``layout=planar``) or
   over the row-major table (``layout=packed``, csrc/rowmajor_pairs.cu);
-* ``kernel=pallas``: the whole-table sweep (ops/sweep.py, B4, B5);
+* ``kernel=pallas``: the whole-table sweep (ops/sweep.py, B4, B5), over
+  either layout too (``layout=packed``: csrc/rowmajor_sweep.cu);
 * ``segsum=sorted``: the sorted-slot backward and the segment-sum kernel
   (learners/step.py::worker_grads_sorted, B3); ``segsum=scatter``: the
   ``index_add_`` backward (worker_grads); ``segsum=auto``: sorted for
@@ -43,33 +44,30 @@ from ..utils.device import resolve_device
 from ..utils.place import place_batch
 
 
-def _resolve_layout(cfg: Config, needs_planar: bool) -> str:
-    """planar = one array per leaf with V [K, N] (the layout the sweep
-    kernels read); packed = one row-major [N, 4+2K] table, which the pair
-    kernels of csrc/rowmajor_pairs.cu read and write in a fifth of the
-    32-byte sectors. The JAX store's reason against packed with its table
-    kernels (XLA pads a 36-wide minor dimension to 128 lanes) does not
-    exist here; ``stacked`` is refused by the config (ROADMAP A14).
+def _resolve_layout(cfg: Config) -> str:
+    """planar = one array per leaf with V [K, N]; packed = one row-major
+    [N, 4+2K] table, which the kernels of csrc/rowmajor_pairs.cu and
+    csrc/rowmajor_sweep.cu read and write in a fifth of the 32-byte
+    sectors. Both table paths take both layouts. The JAX store refuses
+    packed with its table kernels because XLA pads a 36-wide minor
+    dimension to 128 lanes: a TPU mechanism that does not exist here.
+    ``stacked`` is refused by the config (ROADMAP A14).
 
-    ``auto`` on the pairs path is packed for an FM (V_dim > 0) and planar
-    for V_dim = 0, as measured on an H100 (PERF.md, section 6): with
-    factors the row-major pull and apply are faster than the planar ones
-    for every updater pair, with the L2 warm and cold; without factors the
-    row-major apply is faster too, but its pull reads w out of a table
-    four times the size of the planar w and is slower with the L2 cold,
-    and auto moves nobody onto a kernel that is slower."""
+    ``auto`` follows what was measured on an H100 (PERF.md, section 6)
+    and moves nobody onto a kernel that is slower. With factors
+    (V_dim > 0) every row-major kernel, pairs and sweep, is faster than
+    its planar counterpart for every updater pair, with the L2 warm and
+    cold: packed. Without factors the row-major sweep kernels and the pair
+    apply are faster too, but the pair pull reads w out of a table four
+    times the size of the planar w and is slower with the L2 cold: packed
+    on ``kernel=pallas``, planar on the pairs path."""
     lay = cfg.shard.layout
     if lay == "auto":
-        if needs_planar or cfg.model.V_dim == 0:
-            return "planar"
-        return "packed"
+        packed = cfg.model.V_dim > 0 or cfg.shard.kernel == "pallas"
+        return "packed" if packed else "planar"
     if lay not in ("packed", "planar", "stacked"):
         raise ValueError(f"layout must be auto|packed|planar|stacked, "
                          f"got {lay!r}")
-    if lay in ("packed", "stacked") and needs_planar:
-        raise ValueError(f"layout={lay} is incompatible with kernel="
-                         f"{cfg.shard.kernel!r} (the Pallas table kernels "
-                         "need the planar [K, N] layout)")
     return lay
 
 
@@ -90,7 +88,7 @@ class LocalStore:
         self.param = updater.param
         s = cfg.shard
         self.pallas = s.kernel == "pallas"
-        self.layout = _resolve_layout(cfg, needs_planar=self.pallas)
+        self.layout = _resolve_layout(cfg)
         self.block_rows = min(s.block_rows, self.num_rows)
         # segsum=auto: the sorted backward on pairs, scatter on pallas
         self.sorted_grads = s.segsum == "sorted" or (

@@ -86,31 +86,70 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def kernel_times(fn, reps: int = 20) -> dict[str, float]:
     """Mean time per call of ``fn`` of each kernel it runs on the card, by
-    kernel name, from a ``torch.profiler`` trace of ``reps`` calls."""
+    kernel name, from a ``torch.profiler`` trace of ``reps`` calls. A
+    trace that comes back without a device event (seen once in a while
+    for microsecond kernels) is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out: dict[str, float] = {}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            t = getattr(e, "self_device_time_total", None)
-            us = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                t = getattr(e, "self_device_time_total", None)
+                us = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+                out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+        if out:
+            break
     return out
 
 
-def kernel_ms(fn, reps: int = 20, name: str | None = None) -> float:
+def kernel_ms(fn, reps: int = 20,
+              name: str | tuple[str, ...] | None = None) -> float:
     """Mean time the card's kernels take per call of ``fn`` (only those
-    whose name contains ``name``, when given). For a kernel of a few
-    microseconds :func:`cuda_ms` measures how fast the host enqueues
-    (Python, ctypes, the allocator); this is the kernels' own time."""
+    whose name contains ``name``, or one of them, when given). For a
+    kernel of a few microseconds :func:`cuda_ms` measures how fast the
+    host enqueues (Python, ctypes, the allocator); this is the kernels'
+    own time."""
+    names = (name,) if isinstance(name, str) else name
     return sum(ms for key, ms in kernel_times(fn, reps).items()
-               if name is None or name in key)
+               if names is None or any(n in key for n in names))
+
+
+_FLUSH: dict[torch.device, torch.Tensor] = {}
+
+
+def flush_l2(dev: torch.device) -> None:
+    """Write 256 MB (five times an H100's L2), so the next kernel finds
+    its rows in device memory."""
+    if dev not in _FLUSH:
+        _FLUSH[dev] = torch.empty(1 << 26, device=dev)
+    _FLUSH[dev].zero_()
+
+
+def kernel_ms_in_turns(dev: torch.device, calls: dict,
+                       names: str | tuple[str, ...] | None = None) -> dict:
+    """:func:`kernel_ms` of each of ``calls`` (label -> function), each
+    the mean of two timings taken in the order of ``calls`` and then back,
+    so a drift of the card's clock falls on all alike:
+    ``{"warm": {label: ms}, "cold": {label: ms}}``, warm as the loop runs
+    them (the same rows every call, so they sit in the L2), cold after
+    :func:`flush_l2` before every call (its own kernel is not counted:
+    give ``names``)."""
+    order = list(calls) + list(calls)[::-1]
+    out = {}
+    for temp, pre in (("warm", lambda: None), ("cold", lambda: flush_l2(dev))):
+        ms = dict.fromkeys(calls, 0.0)
+        for label in order:
+            ms[label] += kernel_ms(lambda: (pre(), calls[label]()),
+                                   name=names) / 2
+        out[temp] = ms
+    return out
 
 
 def time_ms(fn, dev: torch.device, reps: int = 20,

@@ -136,7 +136,8 @@ def require_planar(state, what: str) -> None:
         raise TypeError(
             f"{what} reads the planar leaves of an FMState (V [K, N]); got "
             f"{type(state).__name__}. The row-major table (layout=packed) "
-            "goes through pull_pairs / apply_pairs only")
+            "goes through pull_pairs / apply_pairs and the sweep "
+            "wrappers")
 
 
 def ftrl_w(g, w, z, n, p: FMParam):

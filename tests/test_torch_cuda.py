@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from difacto_tpu_torch.config import FMParam
-from difacto_tpu_torch.ops import cuda, pair_sweep, segsum, sweep_ms
+from difacto_tpu_torch.ops import cuda, pair_sweep, segsum, sweep, sweep_ms
 from difacto_tpu_torch.probes import bench_slot_accum as slot_probe
 from difacto_tpu_torch.probes import bisect_apply as bisect_probe
 from difacto_tpu_torch.probes import hw_packed_pairs as packed_probe
@@ -275,6 +275,9 @@ j = int(np.flatnonzero(np.diff(sid[: off[0, -1]]) > 0)[0])
 sid[j], sid[j + 1] = sid[j + 1], sid[j]  # a descent inside stream 0
 pay = torch.from_numpy(slot_payload(4, sid.shape[0], rng)).cuda()
 sid, off = torch.from_numpy(sid).cuda(), torch.from_numpy(off).cuda()
+if sys.argv[2:] == ["packed"]:
+    from difacto_tpu_torch.updaters.updater import pack_state
+    st = pack_state(st)
 if sys.argv[1] == "pull":
     sweep_ms.sweep_pull_ms(st, sid, off, p, block_rows=R2)
 else:
@@ -718,6 +721,8 @@ def test_cuda_apply_rowmajor_runs_across_warps(card):
 
 
 def test_cuda_planar_only_kernels_refuse_a_packed_state(card):
+    """``apply_pairs2`` is planar only; every row-major wrapper checks its
+    table's shape and contiguity."""
     rng = np.random.default_rng(150)
     p = port_params(V_dim=2)
     tb = pack_state(state_from_numpy(state_np(2, rng), device=card))
@@ -726,9 +731,240 @@ def test_cuda_planar_only_kernels_refuse_a_packed_state(card):
     pay = torch.from_numpy(payload(2, valid, rng)).to(card)
     with pytest.raises(TypeError, match="layout=packed"):
         pair_sweep.apply_pairs2(tb, uids, pay, p)
-    with pytest.raises(TypeError, match="layout=packed"):
+    with pytest.raises(ValueError, match="offsets has shape"):
         sweep_ms.sweep_pull_ms(tb, uids, uids[:9], p, block_rows=512)
     bad = pack_state(state_from_numpy(state_np(2, rng), device=card))
     bad.tbl = bad.tbl[:, :-1]  # not [N, 4+2K], not contiguous
+    off = sweep.offsets_1(uids, N, 512)
     with pytest.raises(ValueError):
         pair_sweep.pull_pairs(bad, uids, p)
+    with pytest.raises(ValueError):
+        sweep_ms.sweep_pull_ms(bad, uids, off, p, block_rows=512)
+    with pytest.raises(ValueError):
+        sweep_ms.sweep_apply_ms(bad, uids, pay, off, p, block_rows=512)
+
+
+# ---------------------------------------------------------------------------
+# the sweep pull and apply over the row-major table (layout=packed,
+# csrc/rowmajor_sweep.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [0, 1, 3, 4, 6, 16, 40, 100])
+@pytest.mark.parametrize("lens", [(300,), (300, 200), (40, 300, 5)])
+def test_cuda_sweep_pull_rowmajor_matches_plain_and_sweep_pull(card, K, lens):
+    """One, two and three streams with ids repeated within and across
+    them, K odd (1-float pieces), K % 4 == 2 (2-float pieces), K = 0 (the
+    head alone), K = 100 (a tile past 48 KB): a gather with a mask, so
+    exact against the plain version and against the planar kernel, at
+    every piece width; sentinel slots are 0."""
+    rng = np.random.default_rng(160 + K + len(lens))
+    p = port_params(V_dim=K)
+    st = state_from_numpy(state_np(K, rng, n=N2), device=card)
+    tb = pack_state(st)
+    sid, off = (torch.from_numpy(a).to(card) for a in id_streams(rng, lens))
+    n0 = cuda.LAUNCHES["sweep_pull_rowmajor"]
+    got = sweep_ms.sweep_pull_ms(tb, sid, off, p, block_rows=R2)
+    assert cuda.LAUNCHES["sweep_pull_rowmajor"] == n0 + 1
+    assert got.shape == (1 + K, sid.shape[0])
+    assert torch.equal(got, sweep_ms.sweep_pull_ms_plain(tb, sid, off, p,
+                                                         block_rows=R2))
+    assert torch.equal(got, sweep_ms.sweep_pull_ms(st, sid, off, p,
+                                                   block_rows=R2))
+    for vec in (1, 2, 4):
+        assert torch.equal(got, sweep_ms._sweep_pull_rowmajor(
+            tb, sid, off, p, R2, vec))
+    assert bool((got[:, sid == N2] == 0).all())
+
+
+@pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
+                                             (0, "ftrl", "adagrad", 0),
+                                             (2, "adagrad", "sgd", 0),
+                                             (3, "sgd", "adagrad", 2),
+                                             (16, "ftrl", "adagrad", 0),
+                                             (5, "ftrl", "sgd", 1),
+                                             (100, "ftrl", "adagrad", 0)])
+@pytest.mark.parametrize("lens", [(300,), (300, 200), (40, 300, 5)])
+def test_cuda_sweep_apply_rowmajor_matches_plain_and_sweep_apply(
+        card, K, wupd, vupd, tff, lens):
+    """Against its plain version (slot sums in another order than
+    index_add_'s atomics and the plain version's division as a reciprocal
+    multiply: a few ulp) and, bit for bit, against the planar sweep apply
+    after ``unpack_state``, at every piece width (VEC 1, 2, 4); rows no
+    slot names keep their bits; a second call on the same inputs gives
+    the same bits (no atomics). A fifth of the slots carry touch 0, so
+    some rows get counts and no update."""
+    rng = np.random.default_rng(170 + K + len(lens))
+    p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                    tail_feature_filter=tff)
+    s = state_np(K, rng, n=N2)
+    sid_np, off_np = id_streams(rng, lens)
+    sid, off = torch.from_numpy(sid_np).to(card), torch.from_numpy(off_np).to(card)
+    pay = torch.from_numpy(slot_payload(K, sid.shape[0], rng)).to(card)
+    tb = pack_state(state_from_numpy(s, card))
+    n0 = cuda.LAUNCHES["sweep_apply_rowmajor"]
+    out = sweep_ms.sweep_apply_ms(tb, sid, pay, off, p, block_rows=R2)
+    assert out is tb and cuda.LAUNCHES["sweep_apply_rowmajor"] == n0 + 1
+    a = unpack_state(out)
+    b = unpack_state(sweep_ms.sweep_apply_ms_plain(
+        pack_state(state_from_numpy(s, card)), sid, pay, off, p,
+        block_rows=R2))
+    c = sweep_ms.sweep_apply_ms(state_from_numpy(s, card), sid, pay, off, p,
+                                block_rows=R2)
+    again = sweep_ms.sweep_apply_ms(pack_state(state_from_numpy(s, card)),
+                                    sid, pay, off, p, block_rows=R2)
+    assert torch.equal(again.tbl, out.tbl)
+    for vec in (1, 2, 4):
+        narrow = sweep_ms._sweep_apply_rowmajor(
+            pack_state(state_from_numpy(s, card)), sid, pay, off, p, R2, vec)
+        assert torch.equal(narrow.tbl, out.tbl), vec
+    named = torch.zeros(N2, dtype=torch.bool, device=card)
+    named[sid[sid < N2].long()] = True
+    for name in LEAVES:
+        x = getattr(a, name)
+        torch.testing.assert_close(x, getattr(b, name), rtol=1e-5, atol=1e-6,
+                                   msg=name)
+        assert torch.equal(x, getattr(c, name)), name
+        orig = torch.from_numpy(s[name]).to(card)
+        assert torch.equal(x[..., ~named], orig[..., ~named]), name
+
+
+@pytest.mark.parametrize("lens", [(300,), (300, 200)])
+def test_cuda_sweep_apply_rowmajor_exact_on_integers(card, lens):
+    """Integer payload in [1, 8] through SGD with unit rates on a zero
+    table: w = -sum(gw), V = -sum(gV), cnt = sum(add_cnt), all exact in
+    float32, so a slot lost or added twice fails; runs of equal ids cross
+    the 32-slot windows of the warps."""
+    rng = np.random.default_rng(180)
+    K = 5
+    p = port_params(V_dim=K, w_updater="sgd", V_updater="sgd", lr_eta=1.0,
+                    l2=0.0, V_lr_eta=1.0, V_l2=0.0, V_threshold=0)
+    s = {k: np.zeros_like(v) for k, v in state_np(K, rng, n=N2).items()}
+    sid_np, off_np = id_streams(rng, lens)
+    pay_np = slot_payload(K, sid_np.shape[0], rng, integer=True)
+    sid, off, pay = (torch.from_numpy(a).to(card)
+                     for a in (sid_np, off_np, pay_np))
+    a = unpack_state(sweep_ms.sweep_apply_ms(
+        pack_state(state_from_numpy(s, card)), sid, pay, off, p,
+        block_rows=R2))
+    real = sid_np < N2
+    sums = np.zeros((3 + K, N2), np.float64)
+    np.add.at(sums.T, sid_np[real], pay_np.T[real].astype(np.float64))
+    np.testing.assert_array_equal(a.w.cpu().numpy(), -sums[0])
+    np.testing.assert_array_equal(a.V.cpu().numpy(), -sums[1:1 + K])
+    np.testing.assert_array_equal(a.cnt.cpu().numpy(), sums[1 + K])
+
+
+def test_cuda_sweep_rowmajor_dense_block(card):
+    """Most rows of one table block named, every other block empty."""
+    rng = np.random.default_rng(190)
+    K = 4
+    p = port_params(V_dim=K, V_threshold=0)
+    s = state_np(K, rng, n=N2)
+    ids = np.sort(rng.choice(R2, size=450, replace=False)) + R2
+    sid = torch.from_numpy(np.r_[ids, np.full(30, N2)].astype(np.int32)
+                           ).to(card)
+    off = sweep.offsets_1(sid, N2, R2)
+    pay = torch.from_numpy(slot_payload(K, sid.shape[0], rng)).to(card)
+    st, tb = state_from_numpy(s, card), pack_state(state_from_numpy(s, card))
+    assert torch.equal(sweep_ms.sweep_pull_ms(tb, sid, off, p, block_rows=R2),
+                       sweep_ms.sweep_pull_ms(st, sid, off, p, block_rows=R2))
+    a = unpack_state(sweep_ms.sweep_apply_ms(tb, sid, pay, off, p,
+                                             block_rows=R2))
+    b = sweep_ms.sweep_apply_ms(st, sid, pay, off, p, block_rows=R2)
+    for name in LEAVES:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("kernel", ["pull", "apply"])
+def test_cuda_sweep_rowmajor_traps_on_an_unsorted_stream(card, kernel):
+    """The row-major sweep kernels check the order themselves, each slot
+    against its left neighbour: a descent inside a stream's covered range
+    fails a device-side assert (hence the subprocess)."""
+    here = pathlib.Path(__file__).resolve().parent
+    r = subprocess.run(
+        [sys.executable, "-c", _UNSORTED, kernel, "packed"], cwd=here.parent,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(here.parent), str(here)])},
+    )
+    out = r.stdout + r.stderr
+    assert r.returncode != 0, out
+    assert "device-side assert" in out or "must be sorted" in out, out
+
+
+# ---------------------------------------------------------------------------
+# the segment sum's designs (csrc/segsum_tiles.cu, csrc/segsum.cu)
+# ---------------------------------------------------------------------------
+
+
+def _segsum_designs(pay_t, lanes_t, ub):
+    rows = pay_t.T.contiguous()
+    return {
+        "tiles": lambda: segsum.segsum_sorted(pay_t, lanes_t, ub),
+        "chunks": lambda: segsum.segsum_sorted_chunks(pay_t, lanes_t, ub),
+        "rows": lambda: segsum.segsum_sorted_rows(rows, lanes_t, ub),
+    }
+
+
+@pytest.mark.parametrize("design", ["tiles", "chunks", "rows"])
+@pytest.mark.parametrize("bl,ub,pp,pad", [(20000, 4096, 18, True),
+                                          (200000, 4096, 18, True),
+                                          (5001, 640, 7, False),
+                                          (100, 64, 3, False),
+                                          (1, 8, 1, False),
+                                          (4099, 300, 40, True),
+                                          (20000, 640, 300, True)])
+def test_cuda_segsum_designs(card, design, bl, ub, pp, pad):
+    """Every design, on a power-law lane stream whose hot lane spans
+    hundreds of tiles, on streams that are no multiple of a tile (or of
+    4: the scalar loads), one slot, 40 payload rows, and 300 (more than
+    the second pass's block has threads, which the row-major design
+    refuses): within the
+    float32 summation bound of the float64 sums, exact on an integer
+    payload, untouched lanes exactly 0, the same bits on a second run,
+    and each under its own launch count."""
+    rng = np.random.default_rng(200 + bl)
+    raw = np.sort(np.minimum(rng.zipf(1.3, bl) - 1, min(3000, ub - 2)))
+    raw[raw == 1] = 2                       # a lane in the middle untouched
+    raw = raw.astype(np.int32)
+    inv = segsum.pad_sorted_stream(raw) if pad else raw
+    pay = rng.normal(size=(pp, inv.shape[0])).astype(np.float32)
+    ipay = rng.integers(1, 9, size=pay.shape).astype(np.float32)
+    pay[:, bl:] = 0.0
+    ipay[:, bl:] = 0.0
+    lanes_t = torch.from_numpy(inv).to(card)
+    pay_t, ipay_t = torch.from_numpy(pay).to(card), torch.from_numpy(ipay).to(card)
+    counter = {"tiles": "segsum_sorted", "chunks": "segsum_chunks",
+               "rows": "segsum_rows"}[design]
+    if design == "rows" and pp > segsum.ROWS_MAX_COLS:
+        with pytest.raises(ValueError, match="at most"):
+            _segsum_designs(pay_t, lanes_t, ub)[design]()
+        return
+    n0 = cuda.LAUNCHES[counter]
+    got = _segsum_designs(pay_t, lanes_t, ub)[design]()
+    assert cuda.LAUNCHES[counter] == n0 + 1
+    assert got.shape == (pp, ub)
+    ref = segsum.segsum_sorted_plain(pay_t.double(), lanes_t, ub)
+    seg_n = torch.bincount(lanes_t.long(), minlength=ub).double()
+    abs_sum = segsum.segsum_sorted_plain(pay_t.abs().double(), lanes_t, ub)
+    tol = (seg_n - 1).clamp(min=0) * 2.0 ** -24 * abs_sum
+    assert bool(((got.double() - ref).abs() <= tol).all())
+    assert bool((got[:, seg_n == 0] == 0).all()) and bool((seg_n == 0).any())
+    assert torch.equal(_segsum_designs(pay_t, lanes_t, ub)[design](), got)
+    assert torch.equal(_segsum_designs(ipay_t, lanes_t, ub)[design](),
+                       segsum.segsum_sorted_plain(ipay_t, lanes_t, ub))
+
+
+def test_cuda_segsum_unaligned_payload(card):
+    """A payload 4 bytes off a 16-byte boundary takes the scalar loads."""
+    rng = np.random.default_rng(210)
+    bl, ub, pp = 4096, 512, 6
+    lanes_t = torch.from_numpy(np.sort(rng.integers(0, ub, bl)).astype(
+        np.int32)).to(card)
+    flat = torch.from_numpy(rng.integers(1, 9, pp * bl + 1).astype(
+        np.float32)).to(card)
+    odd = flat[1:].view(pp, bl)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    assert torch.equal(segsum.segsum_sorted(odd, lanes_t, ub),
+                       segsum.segsum_sorted_plain(odd, lanes_t, ub))

@@ -24,8 +24,10 @@ from difacto_tpu.config import Config as JConfig
 from difacto_tpu.data import libsvm as jlibsvm
 from difacto_tpu.data.synthetic import make_ctr_data, write_libsvm
 from difacto_tpu.learners.sgd import SGDLearner as JSGDLearner
+from difacto_tpu.parallel.store import LocalStore as JLocalStore
 from difacto_tpu.updaters import updater as jupd
 from difacto_tpu.updaters.updater import FMState as JFMState
+from difacto_tpu.updaters.updater import FMUpdater as JFMUpdater
 from difacto_tpu.utils import checkpoint as jcheckpoint
 from difacto_tpu_torch import cli
 from difacto_tpu_torch.config import Config
@@ -217,14 +219,16 @@ def test_checkpoints_cross_layouts_and_packages(data, tmp_path):
         ((), "packed"),                       # auto, an FM on the pairs path
         ((("kernel", "pairs"),), "packed"),
         ((("V_dim", "0"),), "planar"),        # auto without factors
-        ((("kernel", "pallas"),), "planar"),  # the sweep reads planar leaves
+        ((("kernel", "pallas"),), "packed"),  # auto, an FM on the sweep path
         ((("kernel", "pallas"), ("layout", "planar")), "planar"),
+        ((("kernel", "pallas"), ("layout", "packed")), "packed"),
+        ((("kernel", "pallas"), ("V_dim", "0")), "packed"),
     ],
 )
 def test_layout_resolves_as_measured(kw, layout):
-    """``layout=packed`` is in the port on the pairs path; ``auto`` takes
+    """``layout=packed`` is in the port on both table paths; ``auto`` takes
     it where every row-major kernel measured no slower than its planar
-    counterpart (an FM, V_dim > 0), and the sweep path stays planar."""
+    counterpart (the sweep path; the pairs path with factors)."""
     base = {"num_bits": "12", "V_dim": "4", **dict(kw)}
     cfg = Config.from_kwargs(list(base.items()))
     store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
@@ -234,20 +238,90 @@ def test_layout_resolves_as_measured(kw, layout):
     assert st.num_rows == 1 << 12 and st.k == cfg.model.V_dim
 
 
+_PALLAS_PACKED = [("num_bits", "12"), ("kernel", "pallas"),
+                  ("layout", "packed")]
+
+
 @pytest.mark.parametrize("layout", ["packed", "stacked"])
 def test_layout_packed_with_the_sweep_kernels_raises(layout):
-    """The JAX store's ValueError: the sweep kernels read planar leaves.
-    (``stacked`` is outside the port whatever the kernel.)"""
+    """What still raises with the sweep kernels: ``stacked``, which is
+    outside the port whatever the kernel, and ``packed`` in the JAX store
+    (XLA's lane padding on the TPU). The port's store takes ``packed``:
+    the next test."""
     if layout == "stacked":
         with pytest.raises(NotImplementedError, match="A14"):
             Config.from_kwargs([("kernel", "pallas"), ("layout", layout)])
         return
-    cfg = Config.from_kwargs([("num_bits", "12"), ("kernel", "pallas"),
-                              ("layout", layout)])
+    jcfg = JConfig.from_kwargs(_PALLAS_PACKED)
     with pytest.raises(ValueError, match="incompatible with kernel='pallas'"):
-        make_store(FMUpdater(cfg.model), cfg, device="cpu")
-    with pytest.raises(ValueError, match="incompatible"):
-        SGDLearner(cfg, device="cpu")
+        JLocalStore(JFMUpdater(jcfg.model), jcfg, interpret=True)
+
+
+def test_layout_packed_with_the_sweep_kernels_builds_a_packed_store():
+    """Since the sweep kernels have their row-major design
+    (csrc/rowmajor_sweep.cu) the store runs them over the row-major
+    table."""
+    cfg = Config.from_kwargs(_PALLAS_PACKED)
+    store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+    assert store.layout == "packed" and store.pallas
+    assert isinstance(SGDLearner(cfg, device="cpu").state, PackedFMState)
+
+
+@pytest.mark.parametrize("segsum", ["scatter", "sorted"])
+def test_verify_recipe_pallas_packed_matches_jax(data, tmp_path, segsum):
+    """``kernel=pallas layout=packed`` (the sweep over the row-major
+    table) trains the verify recipe as the JAX learner does on
+    ``kernel=pallas`` (planar, its Pallas kernels in interpret mode;
+    logloss rel 1e-5, AUC abs 1e-5) and to the bits of the port's
+    ``kernel=pallas layout=planar``; ``task=predict`` scores its planar
+    checkpoint the same on either layout and in the JAX package."""
+    start, model = str(tmp_path / "start"), str(tmp_path / "model")
+    jcheckpoint.save(start, JFMState(**_random_state(3)), {"epoch": 0})
+    kw = _recipe(data, ("model_in", start), ("kernel", "pallas"),
+                 ("segsum", segsum))
+    jva = JSGDLearner(JConfig.from_kwargs(kw + [("interpret", "1")])).run()
+    learner = SGDLearner(Config.from_kwargs(
+        kw + [("layout", "packed"), ("model_out", model)]), device="cpu")
+    assert isinstance(learner.state, PackedFMState) and learner.store.pallas
+    va = learner.run()
+    assert va.num_examples == jva.num_examples == 2000
+    assert va.logloss == pytest.approx(jva.logloss, rel=1e-5)
+    assert va.exact_auc == pytest.approx(jva.exact_auc, abs=1e-5)
+    assert va.exact_auc > 0.6
+    planar = SGDLearner(Config.from_kwargs(kw + [("layout", "planar")]),
+                        device="cpu")
+    assert isinstance(planar.state, FMState)
+    vp = planar.run()
+    assert (vp.logloss, vp.exact_auc) == (va.logloss, va.exact_auc)
+    ref = _predict_jax(data, model)
+    for layout in ("packed", "planar"):
+        got = _predict_port(data, model, tmp_path / f"pred_{layout}.txt",
+                            "kernel=pallas", f"layout={layout}")
+        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-5)
+
+
+def test_save_interval_resume_pallas_across_layouts(data, tmp_path):
+    """``save_interval_steps`` resume on ``kernel=pallas``: saved from the
+    row-major table, resumed into either layout, the interrupted epoch
+    ends in the same floats."""
+    out = str(tmp_path / "mid")
+    kw = _recipe(data, ("model_out", out), ("save_interval_steps", "5"),
+                 ("kernel", "pallas"), ("layout", "packed"))
+    full = SGDLearner(Config.from_kwargs(kw), device="cpu")
+    assert isinstance(full.state, PackedFMState)
+    full.train_epoch(0)
+    meta = checkpoint._read_meta(out)
+    assert (meta["epoch"], meta["step"]) == (0, 15)
+    a = state_to_numpy(full.state)
+    for layout in ("packed", "planar"):
+        resumed = SGDLearner(Config.from_kwargs(_recipe(
+            data, ("model_in", out), ("kernel", "pallas"),
+            ("layout", layout))), device="cpu")
+        resumed.train_epoch(0)  # skips the 15 consumed batches
+        b = state_to_numpy(resumed.state)
+        for name in a:
+            np.testing.assert_array_equal(a[name], b[name],
+                                          err_msg=f"{layout} {name}")
 
 
 def test_save_interval_resume_packed_matches_uninterrupted(data, tmp_path):
@@ -402,7 +476,8 @@ from difacto_tpu_torch.parallel.store import make_store
 from difacto_tpu_torch.updaters.updater import FMUpdater
 import difacto_tpu_torch.cli, difacto_tpu_torch.learners.sgd
 from difacto_tpu_torch.probes import (bench_slot_accum, bisect_apply,
-                                      hw_apply2, hw_packed_pairs)
+                                      hw_apply2, hw_packed_pairs,
+                                      segsum_designs)
 cfg = Config.from_kwargs([("batch_size", "8"), ("num_bits", "10"),
                           ("max_nnz_per_row", "4"), ("V_dim", "2")])
 store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
@@ -417,6 +492,8 @@ assert hw_apply2.main(small + ["u=512"], device="cpu") == 0
 assert hw_packed_pairs.main(small, device="cpu") == 0
 assert bisect_apply.main(["ftrl4", "n_log2=10", "u=50"], device="cpu") == 0
 assert bench_slot_accum.main(["8", "rows=8"], device="cpu") == 0
+assert segsum_designs.main(["batch=64", "nnz=4", "num_bits=10", "pp=4"],
+                           device="cpu") == 0
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "difacto_tpu"
              or n.startswith("difacto_tpu.") or n == "bench")

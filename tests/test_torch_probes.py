@@ -28,7 +28,8 @@ from jax.experimental.pallas import tpu as pltpu
 from difacto_tpu.ops import pair_sweep as jps
 from difacto_tpu_torch.ops import pair_sweep
 from difacto_tpu_torch.probes import (bench_slot_accum, bisect_apply, common,
-                                      hw_apply2, hw_packed_pairs)
+                                      hw_apply2, hw_packed_pairs,
+                                      segsum_designs)
 from difacto_tpu_torch.utils.checkpoint import state_from_numpy, state_to_numpy
 from scripts import bisect_apply as jbisect
 from test_torch_cuda import (LEAVES, N, U, bisect_stream, payload as _payload,
@@ -398,6 +399,7 @@ PROBES = [
     (bisect_apply, ["ftrl4", "n_log2=12", "u=300"]),
     (bisect_apply, ["ftrl4_inplace", "256", "n_log2=12", "u=300"]),
     (bench_slot_accum, ["12", "rows=64"]),
+    (segsum_designs, ["batch=256", "nnz=8", "num_bits=12", "pp=6"]),
 ]
 
 
@@ -413,7 +415,7 @@ def test_probe_runs_on_the_cpu(probe, argv, capsys):
 
 
 @pytest.mark.parametrize("probe", [hw_apply2, hw_packed_pairs, bisect_apply,
-                                   bench_slot_accum],
+                                   bench_slot_accum, segsum_designs],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_probe_needs_a_card_unless_asked_for_cpu(probe):
     if torch.cuda.is_available():

@@ -284,6 +284,69 @@ def test_local_store_packed_matches_jax_packed(K, extra):
     assert store.stats(sp) == planar.stats(sq)
 
 
+@pytest.mark.parametrize(
+    "K,extra",
+    [
+        (4, ()),
+        (4, (("segsum", "sorted"),)),
+        (0, (("segsum", "sorted"),)),
+        (4, (("segsum", "sorted"), ("w_updater", "adagrad"),
+             ("V_updater", "sgd"))),
+        (4, (("segsum", "sorted"), ("w_updater", "sgd"),
+             ("tail_feature_filter", "2"))),
+        (4, (("V_threshold", "0"),)),
+    ],
+)
+def test_local_store_pallas_packed_matches_jax(K, extra):
+    """``kernel=pallas layout=packed`` (the whole-table sweep over the
+    row-major table; on the CPU the sweep kernels' plain versions over
+    its columns), with either backward, against JAX's LocalStore on
+    ``kernel=pallas`` in interpret mode (planar: JAX refuses packed there)
+    and on ``kernel=xla layout=packed``, from the same carried state (the
+    tolerances of ``_five_steps_and_eval``), and the bits of the port's
+    planar sweep store."""
+    N = 1 << 12
+    kw = _kw(K, extra) + [("kernel", "pallas")]
+    cfg = Config.from_kwargs(kw + [("layout", "packed")])
+    store = LocalStore(FMUpdater(cfg.model), cfg, device="cpu")
+    assert store.layout == "packed" and store.pallas
+    assert isinstance(store.init_state(0), PackedFMState)
+    jcfg = JConfig.from_kwargs(kw)
+    jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg, interpret=True)
+    assert store.sorted_grads == jstore.sorted_grads
+    _five_steps_and_eval(jstore, store, N)
+    jcfg = JConfig.from_kwargs(_kw(K, extra) + [("kernel", "xla"),
+                                                ("layout", "packed")])
+    _five_steps_and_eval(JLocalStore(JFMUpdater(jcfg.model), jcfg), store, N)
+    # the same steps on the planar sweep store: the same bits
+    planar = LocalStore(FMUpdater(cfg.model), Config.from_kwargs(
+        kw + [("layout", "planar")]), device="cpu")
+    assert planar.layout == "planar" and planar.pallas
+    s0 = _start_state(K)
+    sp = store.place_state(state_from_numpy(s0))
+    sq = planar.place_state(state_from_numpy(s0))
+    assert isinstance(sp, PackedFMState) and not isinstance(sq, PackedFMState)
+    for s in range(3):
+        sp, mp = store.train_step_prepped(sp, prep_batch(_batch(s), N))
+        sq, mq = planar.train_step_prepped(sq, prep_batch(_batch(s), N))
+        assert float(mp.logloss_sum) == float(mq.logloss_sum)
+    a, b = state_to_numpy(sp), state_to_numpy(sq)
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+@pytest.mark.parametrize("kernel,V_dim,want", [("auto", 4, "packed"),
+                                               ("auto", 0, "planar"),
+                                               ("pallas", 4, "packed"),
+                                               ("pallas", 0, "packed")])
+def test_layout_auto_resolves_as_measured_on_both_table_paths(kernel, V_dim,
+                                                              want):
+    cfg = Config.from_kwargs(_kw(V_dim) + [("kernel", kernel)])
+    store = LocalStore(FMUpdater(cfg.model), cfg, device="cpu")
+    assert store.layout == want
+    assert isinstance(store.init_state(0), PackedFMState) == (want == "packed")
+
+
 def test_local_store_packed_count_step_matches_jax():
     N = 1 << 12
     jcfg = JConfig.from_kwargs(_kw(4) + [("kernel", "xla"),
