@@ -9,8 +9,13 @@ Phases, each a hard failure:
    flagship shapes (batch 16384 x 40 nnz with Zipf(1.2) ids, 2^22 rows,
    K = 16; the sweep kernels with 1024-row blocks, one stream, two
    streams of repeated ids whose integer payload must sum exactly, and a
-   dense block; the probes' kernels at their probes' shapes,
-   ``apply_pairs2`` also against ``apply_pairs``; the kernels over the
+   dense block; the probes' kernels at their probes' shapes; the planar
+   apply of csrc/planar_apply.cu, B6 ``apply_pairs2`` and S1b
+   ``apply_packed`` by both designs (``lanes``, B2's kernel, and
+   ``tiles``), also bit for bit against ``apply_pairs``, the tiles'
+   ``rmwonly`` floor leaving the state's bits, and all timed in turns
+   with B2, warm and flushed, beside the byte bound and the sector floor;
+   the kernels over the
    row-major table, pairs and sweep, against their plain versions and,
    bit for bit, against the planar kernels, timed in turns with them,
    L2 warm and flushed; the segment sum's three designs against the
@@ -173,6 +178,107 @@ def no_slower(own):
     return all(new <= old for new, old in own.values())
 
 
+LEAVES = ("w", "z", "n", "cnt", "V", "nV")
+
+
+def same_bits(got, ref, what: str, against: str) -> None:
+    """Fail unless two planar states hold the same bits in every leaf."""
+    import torch
+
+    for leaf in LEAVES:
+        x, y = getattr(got, leaf), getattr(ref, leaf)
+        if not torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32)):
+            raise AssertionError(f"{what} differs from {against}: {leaf} "
+                                 "(tolerance: bit-equal)")
+
+
+# the planar apply's calls timed in turns with B2 (planar_turns): the two
+# entries by their default (B2's kernel) and by the tiles of
+# csrc/planar_apply.cu, and the tiles' rmwonly floor
+PLANAR_CALLS = ("apply_pairs2", "apply_packed", "apply_pairs2 tiles",
+                "apply_packed tiles", "apply_pairs2 rmwonly",
+                "apply_packed rmwonly")
+PLANAR_NAMES = ("apply_pairs_kernel", "planar_apply_kernel")
+# the kernels line's keys beyond the contract's, each measured in the run
+EXTRA_KEYS = ("kernel_ms", "kernel_ms_flushed", "tiles_kernel_ms",
+              "tiles_kernel_ms_flushed", "rmwonly_ms", "rmwonly_ms_flushed",
+              "b2_kernel_ms", "b2_kernel_ms_flushed")
+
+
+def planar_floor(pb, base, q) -> dict:
+    """The byte bound (ms, what bounds it) and the sector floor (ms, and
+    the table's distinct 32-byte sectors) of a planar apply of the batch's
+    real ids, all touched, on ``base``: the floor counts every sector the
+    update reads and then writes (one leaf row holds 8 ids a sector) and
+    the uid and payload bytes the bound counts, over 3.35 TB/s."""
+    import torch
+
+    k, U = q.V_dim, pb.uids.shape[0]
+    real = pb.uids[pb.valid].long()
+    gated = real[base.cnt[real] >= q.V_threshold] if k else real[:0]
+    n_valid, act = real.numel(), gated.numel()
+    stream = 4 * (U + 3 * n_valid + k * act)
+    b_ms, b_by = bound(stream + updater_bytes(q.w_updater, q.V_updater, k,
+                                              n_valid, act),
+                       20 * n_valid + 8 * k * act)
+    wl = {"ftrl": 3, "adagrad": 2, "sgd": 1}[q.w_updater] + 1
+    vl = {"adagrad": 2, "sgd": 1}[q.V_updater] * k
+    sectors = (wl * torch.unique(real // 8).numel()
+               + vl * torch.unique(gated // 8).numel())
+    return dict(touched=n_valid, past_gate=act, bound_ms=b_ms,
+                bound_by=b_by, sectors=sectors,
+                floor_ms=(2 * 32 * sectors + stream) / HBM_BYTES_PER_S * 1e3)
+
+
+def planar_turns(dev, pb, base, q, payload, calls) -> dict:
+    """Kernel time by torch.profiler, warm and L2-flushed, of B2's planar
+    kernel and of ``calls`` (names of PLANAR_CALLS) in turns, each on its
+    own copy of ``base``. The payload's add_cnt row is zeroed, so that
+    the counts, and with them the rows past the V gate, stay those the
+    byte bound and the sector floor count (a series with counts adding up
+    takes every touched row past the gate after two calls). Returns, per
+    entry timed, its figures for the kernels line."""
+    from difacto_tpu_torch.ops import pair_sweep
+    from difacto_tpu_torch.probes import common
+    from difacto_tpu_torch.probes import hw_packed_pairs as packed
+
+    k = q.V_dim
+    fixed = payload.clone()
+    fixed[1 + k] = 0.0
+    uids = pb.uids
+    fl = planar_floor(pb, base, q)
+    b2, mine = clone_state(base), clone_state(base)
+    A, B = (packed.pack_state(base) if any(
+        name.startswith("apply_packed") for name in calls) else (None, None))
+    fns = {"apply_pairs": lambda: pair_sweep.apply_pairs(b2, uids, fixed, q)}
+    for name in calls:  # "entry [stage word]"; the entry's default without
+        entry, *word = name.split()
+        if entry == "apply_packed":
+            fns[name] = lambda word=word: packed.apply_packed(
+                A, B, uids, fixed, q, *word)
+        else:
+            fns[name] = lambda word=word: pair_sweep.apply_pairs2(
+                mine, uids, fixed, q, *word)
+    own = common.kernel_ms_in_turns(dev, fns, PLANAR_NAMES)
+    log(f"planar apply {q.w_updater}/{q.V_updater} K={k} in turns with B2, "
+        f"kernel ms with the gate fixed: {json.dumps(own)}; {json.dumps(fl)}")
+    recs = {}
+    for name in ("apply_pairs2", "apply_packed"):
+        if name not in fns:
+            continue
+        rec = {}
+        for key, label in (("kernel", name), ("tiles_kernel", f"{name} tiles"),
+                           ("b2_kernel", "apply_pairs"),
+                           ("rmwonly", f"{name} rmwonly")):
+            if label in fns:
+                rec[f"{key}_ms"] = own["warm"][label]
+                rec[f"{key}_ms_flushed"] = own["cold"][label]
+        recs[name] = rec
+    del b2, mine, A, B
+    return recs
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version at the flagship
     shapes. Returns the kernels' records (without launches)."""
@@ -312,15 +418,19 @@ def check_kernels(dev):
         )
     del ipay, pay_rm, ipay_rm, ref, iref, tol
 
-    # -- apply, both designs (B2 one row per thread, B6 two): every w/V
-    # updater pair, and K = 0; B6 also against B2's kernel ----------------
+    # -- apply on planar leaves (B2 one row per thread; B6 by the entry of
+    # csrc/planar_apply.cu): every w/V updater pair, and K = 0; B6 by
+    # either design bit for bit against B2's kernel, and the tiles' rmwonly
+    # floor must leave every bit of the state as it was ------------------
     vf = pb.valid.to(torch.float32)
     designs = {"apply_pairs": (pair_sweep.apply_pairs,
                                pair_sweep.apply_pairs_plain,
-                               "difacto_tpu/ops/pair_sweep.py:449"),
+                               "difacto_tpu/ops/pair_sweep.py:449",
+                               "apply_pairs.cu"),
                "apply_pairs2": (pair_sweep.apply_pairs2,
                                 pair_sweep.apply_pairs2_plain,
-                                "difacto_tpu/ops/pair_sweep.py:565")}
+                                "difacto_tpu/ops/pair_sweep.py:565",
+                                "apply_pairs.cu")}
     worst = dict.fromkeys(designs, 0.0)
     for k, wupd, vupd in UPDATER_CASES:
         q = FMParam()
@@ -337,26 +447,34 @@ def check_kernels(dev):
         nbytes = (4 * (U + 3 * n_valid + k * act)
                   + updater_bytes(wupd, vupd, k, n_valid, act))
         results = {}
-        for name, (kernel, plain, replaces) in designs.items():
+        for name, (kernel, plain, replaces, src) in designs.items():
             a = kernel(clone_state(base), pb.uids, payload, q)
             b = plain(clone_state(base), pb.uids, payload, q)
-            # the plain version's division by a scalar runs as a multiply
-            # by its float reciprocal on the card: 1 ulp. The two kernels
-            # do the same sums in the same order: held to the same bound
-            refs = [("its plain version", b)]
-            if name == "apply_pairs2":
-                refs.append(("apply_pairs", results["apply_pairs"]))
             for leaf in ("w", "z", "n", "cnt", "V", "nV"):
-                x = getattr(a, leaf)
+                x, y = getattr(a, leaf), getattr(b, leaf)
                 if not x.numel():
                     continue
-                for what, ref in refs:
-                    y = getattr(ref, leaf)
-                    worst[name] = max(worst[name], float((x - y).abs().max()))
-                    torch.testing.assert_close(
-                        x, y, rtol=1e-5, atol=1e-6,
-                        msg=f"{name} {wupd}/{vupd} K={k} against {what}: "
-                            f"{leaf}")
+                # the plain version's division by a scalar runs as a
+                # multiply by its float reciprocal on the card: 1 ulp
+                worst[name] = max(worst[name], float((x - y).abs().max()))
+                torch.testing.assert_close(
+                    x, y, rtol=1e-5, atol=1e-6,
+                    msg=f"{name} {wupd}/{vupd} K={k} against its plain "
+                        f"version: {leaf}")
+            if name == "apply_pairs2":
+                # the same sums in the same order and the same arithmetic
+                # as B2's kernel: the same bits, by either design; rmwonly
+                # stores back what it loads
+                same_bits(a, results["apply_pairs"],
+                          f"apply_pairs2 {wupd}/{vupd} K={k}", "apply_pairs")
+                same_bits(kernel(clone_state(base), pb.uids, payload, q,
+                                 stage="tiles"), results["apply_pairs"],
+                          f"apply_pairs2 tiles {wupd}/{vupd} K={k}",
+                          "apply_pairs")
+                same_bits(kernel(clone_state(base), pb.uids, payload, q,
+                                 stage="rmwonly"), base,
+                          f"apply_pairs2 rmwonly {wupd}/{vupd} K={k}",
+                          "the state it was given")
             results[name] = a
             work = clone_state(base)
             rec = dict(
@@ -369,16 +487,23 @@ def check_kernels(dev):
                 f"{act} past the V gate): {json.dumps(rec)}")
             if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
                 out[name] = dict(
-                    route="cuda",
-                    source=f"difacto_tpu_torch/csrc/{name}.cu",
+                    route="cuda", source=f"difacto_tpu_torch/csrc/{src}",
                     replaces=replaces, **rec, library_ms=None,
                 )
             del work, a, b
         del results
+        if k != K or wupd != "ftrl":  # the main path's case: planar_turns
+            planar_turns(dev, pb, base, q, payload, PLANAR_CALLS[:4])
     for name in designs:
         out[name]["max_abs_err"] = worst[name]
+    # B6 and S1b in turns with B2 on the main path's case, by both designs,
+    # with the tiles' rmwonly floor, the byte bound and the sector floor
+    planar = planar_turns(dev, pb, st, p, torch.cat(
+        [torch.randn((1 + K, U), generator=g, device=dev) * vf,
+         (pb.ucounts * vf)[None], vf[None]]), PLANAR_CALLS)
+    out["apply_pairs2"].update(planar["apply_pairs2"])
     out.update(check_sweep_kernels(dev, pb, st, g))
-    out.update(check_probe_kernels(dev, pb, st, g))
+    out.update(check_probe_kernels(dev, pb, st, g, planar["apply_packed"]))
     out.update(check_rowmajor_kernels(dev, pb, st, out))
     for name, rec in out.items():
         log(f"kernel {name}: max_abs_err {rec['max_abs_err']:g}  "
@@ -794,9 +919,10 @@ def check_sweep_kernels(dev, pb, st, g):
     return out
 
 
-def check_probe_kernels(dev, pb, st, g):
+def check_probe_kernels(dev, pb, st, g, planar):
     """Phase 2, the probes' kernels (S1 packed pull/apply, S2 bisect, S3
-    slot accumulate) at their probes' shapes. Returns their records."""
+    slot accumulate) at their probes' shapes; ``planar`` holds S1b's
+    figures from :func:`planar_turns`. Returns their records."""
     import torch
 
     from difacto_tpu_torch.config import FMParam
@@ -825,43 +951,64 @@ def check_probe_kernels(dev, pb, st, g):
                                  f"err {float((got - ref).abs().max()):g}; "
                                  "tolerance: exact)")
     b_ms, b_by = bound(4 * (U + 2 * n_valid + K * n_act + (1 + K) * U), 0)
+    # below ~0.03 ms the event time is the host's enqueue rate: the
+    # kernel's own time, in turns with B1's, warm and flushed
+    own = common.kernel_ms_in_turns(dev, {
+        "pull_packed": lambda: packed.pull_packed(A, pb.uids, p),
+        "pull_pairs": lambda: pair_sweep.pull_pairs(st, pb.uids, p)},
+        ("pull_packed_kernel", "pull_pairs_kernel"))
+    log(f"pull_packed in turns with pull_pairs, kernel ms: {json.dumps(own)}")
     out["pull_packed"] = dict(
         route="cuda", source="difacto_tpu_torch/csrc/packed_pairs.cu",
         replaces="scripts/hw_packed_pairs.py:133", max_abs_err=0.0,
         ms=cuda_ms(lambda: packed.pull_packed(A, pb.uids, p)),
         plain_ms=cuda_ms(lambda: packed.pull_packed_plain(A, pb.uids, p)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        kernel_ms=own["warm"]["pull_packed"],
+        kernel_ms_flushed=own["cold"]["pull_packed"],
     )
 
-    # -- S1b packed apply: the tolerance apply_pairs is held to -----------
+    # -- S1b packed apply (csrc/planar_apply.cu's entry over the rows of A
+    # and B): the tolerance apply_pairs is held to against its plain
+    # version, the bits of B2's kernel (both designs), and rmwonly leaves A
+    # and B as they were ---------------------------------------------------
     vf = pb.valid.to(torch.float32)
     grads = torch.randn((1 + K, U), generator=g, device=dev) * vf
     payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
     a2, b2 = packed.apply_packed(A.clone(), B.clone(), pb.uids, payload, p)
     ap, bp = packed.apply_packed_plain(A.clone(), B.clone(), pb.uids,
                                        payload, p)
-    s2 = pair_sweep.apply_pairs(clone_state(st), pb.uids, payload, p)
+    mine = packed.unpack_state(a2, b2)
     err = 0.0
-    for what, ref in (("its plain version", packed.unpack_state(ap, bp)),
-                      ("apply_pairs", s2)):
-        mine = packed.unpack_state(a2, b2)
-        for leaf in ("w", "z", "n", "cnt", "V", "nV"):
-            x, y = getattr(mine, leaf), getattr(ref, leaf)
-            err = max(err, float((x - y).abs().max()))
-            torch.testing.assert_close(
-                x, y, rtol=1e-5, atol=1e-6,
-                msg=f"apply_packed against {what}: {leaf}")
-    del ap, bp, s2
+    for leaf in LEAVES:
+        x, y = getattr(mine, leaf), getattr(packed.unpack_state(ap, bp), leaf)
+        err = max(err, float((x - y).abs().max()))
+        torch.testing.assert_close(
+            x, y, rtol=1e-5, atol=1e-6,
+            msg=f"apply_packed against its plain version: {leaf}")
+    b2_state = pair_sweep.apply_pairs(clone_state(st), pb.uids, payload, p)
+    same_bits(mine, b2_state, "apply_packed", "apply_pairs")
+    same_bits(packed.unpack_state(*packed.apply_packed(
+        A.clone(), B.clone(), pb.uids, payload, p, stage="tiles")), b2_state,
+        "apply_packed tiles", "apply_pairs")
+    del b2_state
+    a3, b3 = packed.apply_packed(A.clone(), B.clone(), pb.uids, payload, p,
+                                 stage="rmwonly")
+    same_bits(packed.unpack_state(a3, b3), st, "apply_packed rmwonly",
+              "the state it was given")
+    del ap, bp, a3, b3
     nbytes = (4 * (U + 3 * n_valid + K * n_act)
               + updater_bytes("ftrl", "adagrad", K, n_valid, n_act))
     b_ms, b_by = bound(nbytes, 20 * n_valid + 8 * K * n_act)
+    # the default design is apply_pairs.cu's kernel handed the rows of A
+    # and B by planar_apply.cu's entry
     out["apply_packed"] = dict(
-        route="cuda", source="difacto_tpu_torch/csrc/packed_pairs.cu",
+        route="cuda", source="difacto_tpu_torch/csrc/apply_pairs.cu",
         replaces="scripts/hw_packed_pairs.py:197", max_abs_err=err,
         ms=cuda_ms(lambda: packed.apply_packed(a2, b2, pb.uids, payload, p)),
         plain_ms=cuda_ms(lambda: packed.apply_packed_plain(
             a2, b2, pb.uids, payload, p)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, **planar,
     )
     del A, B, a2, b2
 
@@ -1025,6 +1172,12 @@ def check_probe_kernels(dev, pb, st, g):
     acc = torch.zeros((sa.R, sa.PP), device=dev)
     b_ms, b_by = bound(4 * (nslots * sa.PP + nslots + sa.R * sa.PP),
                        nslots * sa.PP)
+    own = common.kernel_ms_in_turns(dev, {
+        "slot_accum": lambda: sa.slot_accum(sid3, pay3),
+        "index_add_": lambda: acc.index_add_(0, sid3_l, pay3)},
+        ("slot_accum", "index", "Memset"))
+    log(f"slot_accum in turns with index_add_, kernel ms (each with its "
+        f"memsets): {json.dumps(own)}")
     out["slot_accum"] = dict(
         route="cuda", source="difacto_tpu_torch/csrc/slot_accum.cu",
         replaces="scripts/bench_slot_accum.py:65", max_abs_err=err3,
@@ -1032,6 +1185,8 @@ def check_probe_kernels(dev, pb, st, g):
         plain_ms=cuda_ms(lambda: sa.slot_accum_plain(sid3, pay3)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: acc.index_add_(0, sid3_l, pay3)),
+        kernel_ms=own["warm"]["slot_accum"],
+        kernel_ms_flushed=own["cold"]["slot_accum"],
     )
     return out
 
@@ -1373,8 +1528,10 @@ def main() -> int:
                                          "bound_ms", "bound_by",
                                          "library_ms")},
         # the kernel's own time by torch.profiler, for the kernels short
-        # enough that `ms` (CUDA events) is the host's enqueue rate
-        **{k: v for k, v in kernels[name].items() if k == "kernel_ms"}}
+        # enough that `ms` (CUDA events) is the host's enqueue rate; for
+        # the planar apply, flushed too, the tiles and their rmwonly floor
+        # and B2's time in the same turns
+        **{k: v for k, v in kernels[name].items() if k in EXTRA_KEYS}}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
         + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS]
     log(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 // Runs of equal ids in the sorted unique-id stream of the pair apply
-// kernels (csrc/apply_pairs.cu, csrc/apply_pairs2.cu,
-// csrc/packed_pairs.cu, csrc/rowmajor_pairs.cu). The stream is
+// kernels (csrc/apply_pairs.cu, csrc/planar_apply.cu,
+// csrc/rowmajor_pairs.cu). The stream is
 // non-decreasing (the wrappers assert it, the row-major kernel does so
 // itself), so the lanes of one table row are consecutive: the lane
 // that starts a run sums the run's payload in lane order — deterministic,

@@ -1,17 +1,20 @@
 // The per-row optimizer math of the apply kernels (csrc/apply_pairs.cu,
-// csrc/apply_pairs2.cu, csrc/packed_pairs.cu, csrc/sweep_apply.cu,
-// csrc/bisect_apply.cu, csrc/rowmajor_pairs.cu), in the formula order of
+// csrc/planar_apply.cu, csrc/sweep_apply.cu, csrc/bisect_apply.cu,
+// csrc/rowmajor_pairs.cu, csrc/rowmajor_sweep.cu), in the formula order of
 // difacto_tpu_torch/ops/sweep_ms.py::fused_table_update, so that a kernel
 // built with --fmad=false rounds as the plain version does.
 //
 // Each update comes in three stages — load, step, store — so that a
-// kernel can start the loads of several rows before any row's arithmetic
-// (csrc/apply_pairs2.cu); update_w and update_v chain the three for the
+// kernel can issue a row's loads before its arithmetic, or store back
+// what it loaded (csrc/planar_apply.cu); update_w and update_v chain the three for the
 // kernels that do one row at a time. The load and store stages exist for
 // both table layouts: planar leaves (one array per leaf, V and nV [K, N])
 // and the row-major table [N, 4+2K] with columns w|z|n|cnt|V|nV
 // (csrc/rowmajor_pairs.cu), whose stages move VEC consecutive floats of a
-// row at a time. The step stages are the one copy of the formulas.
+// row at a time. The planar stages say which leaves each updater reads
+// and writes, and move them through a memory policy `Mem` (plain loads
+// and stores by default; csrc/planar_apply.cu's floor passes accesses the
+// compiler cannot drop). The step stages are the one copy of the formulas.
 #pragma once
 #include <math.h>
 
@@ -26,14 +29,22 @@ struct ApplyParams {
 struct WRow { float w, z, n; };   // the (w, z, n) of one table row
 struct VEnt { float v, nv; };     // one factor entry and its accumulator
 
+// How the planar stages move a leaf entry: plain loads and stores.
+struct PlainMem {
+  __device__ __forceinline__ float ld(const float* a) const { return *a; }
+  __device__ __forceinline__ void st(float* a, float v) const { *a = v; }
+};
+
 // The leaves of row `id` that the w updater reads (others come back 0).
+template <class Mem = PlainMem>
 __device__ __forceinline__ WRow load_w(const float* w, const float* z,
                                        const float* nn, long long id,
-                                       const ApplyParams& p) {
+                                       const ApplyParams& p,
+                                       const Mem& m = Mem()) {
   WRow r;
-  r.w = w[id];
-  r.z = p.w_updater == 0 ? z[id] : 0.0f;
-  r.n = p.w_updater <= 1 ? nn[id] : 0.0f;
+  r.w = m.ld(w + id);
+  r.z = p.w_updater == 0 ? m.ld(z + id) : 0.0f;
+  r.n = p.w_updater <= 1 ? m.ld(nn + id) : 0.0f;
   return r;
 }
 
@@ -62,12 +73,14 @@ __device__ __forceinline__ WRow step_w(WRow r, float g, const ApplyParams& p) {
 }
 
 // Writes back the leaves the w updater changes.
+template <class Mem = PlainMem>
 __device__ __forceinline__ void store_w(float* w, float* z, float* nn,
                                         long long id, WRow r,
-                                        const ApplyParams& p) {
-  w[id] = r.w;
-  if (p.w_updater == 0) z[id] = r.z;
-  if (p.w_updater <= 1) nn[id] = r.n;
+                                        const ApplyParams& p,
+                                        const Mem& m = Mem()) {
+  m.st(w + id, r.w);
+  if (p.w_updater == 0) m.st(z + id, r.z);
+  if (p.w_updater <= 1) m.st(nn + id, r.n);
 }
 
 // The w update of table row `id`, in place. The caller gates it (touch,
@@ -78,11 +91,13 @@ __device__ __forceinline__ void update_w(float* w, float* z, float* nn,
   store_w(w, z, nn, id, step_w(load_w(w, z, nn, id, p), g, p), p);
 }
 
+template <class Mem = PlainMem>
 __device__ __forceinline__ VEnt load_v(const float* V, const float* nV,
-                                       long long at, const ApplyParams& p) {
+                                       long long at, const ApplyParams& p,
+                                       const Mem& m = Mem()) {
   VEnt e;
-  e.v = V[at];
-  e.nv = p.V_updater == 0 ? nV[at] : 0.0f;
+  e.v = m.ld(V + at);
+  e.nv = p.V_updater == 0 ? m.ld(nV + at) : 0.0f;
   return e;
 }
 
@@ -100,10 +115,12 @@ __device__ __forceinline__ VEnt step_v(VEnt e, float gv,
   return o;
 }
 
+template <class Mem = PlainMem>
 __device__ __forceinline__ void store_v(float* V, float* nV, long long at,
-                                        VEnt e, const ApplyParams& p) {
-  V[at] = e.v;
-  if (p.V_updater == 0) nV[at] = e.nv;
+                                        VEnt e, const ApplyParams& p,
+                                        const Mem& m = Mem()) {
+  m.st(V + at, e.v);
+  if (p.V_updater == 0) m.st(nV + at, e.nv);
 }
 
 // The update of one factor entry (V, nV)[at], in place. The caller gates

@@ -33,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu", "sweep_pull.cu",
-           "sweep_apply.cu", "apply_pairs2.cu", "packed_pairs.cu",
+           "sweep_apply.cu", "planar_apply.cu", "packed_pairs.cu",
            "bisect_apply.cu", "slot_accum.cu", "rowmajor_pairs.cu",
            "rowmajor_sweep.cu", "segsum_tiles.cu")
 HEADERS = ("table_update.cuh", "sweep.cuh", "pair_runs.cuh", "rowmajor.cuh")
@@ -70,14 +70,14 @@ _SIGNATURES = {
     # tail_feature_filter, w_updater, V_updater, stream
     "dft_sweep_apply": [_VP] * 9 + [_LL] + [_I] * 5 + [_F] * 8
     + [_I, _I, _I, _VP],
-    # as dft_apply_pairs
+    # as dft_apply_pairs, then the stage flags before the stream
     "dft_apply_pairs2": [_VP] * 8 + [_LL, _I, _I] + [_F] * 8
-    + [_I, _I, _I, _VP],
+    + [_I, _I, _I, _I, _VP],
     # A, uids, out, N, K, U, V_threshold, stream
     "dft_pull_packed": [_VP] * 3 + [_LL, _I, _I, _F, _VP],
-    # A, B, uids, payload, N, K, U, then as dft_apply_pairs from lr_eta on
+    # A, B, uids, payload, N, K, U, then as dft_apply_pairs2 from lr_eta on
     "dft_apply_packed": [_VP] * 4 + [_LL, _I, _I] + [_F] * 8
-    + [_I, _I, _I, _VP],
+    + [_I, _I, _I, _I, _VP],
     # sid, pay, w, w_out, N, nnz, block_rows, variant, stream
     "dft_bisect_w": [_VP] * 4 + [_LL, _I, _I, _I, _VP],
     # sid, pay, w, z, n, c, w_out, z_out, n_out, c_out, N, nnz, block_rows,

@@ -4,7 +4,7 @@ Port of ``difacto_tpu/ops/pair_sweep.py::pull_pairs``, ``::apply_pairs``
 and ``::apply_pairs2``. The TPU kernels walk host-built (table block,
 128-lane unique window) pairs with one-hot matmuls, because Mosaic
 addresses only aligned tiles (``pair_sweep.py:1-25``). The Hopper kernels
-(csrc/pull_pairs.cu, csrc/apply_pairs.cu, csrc/apply_pairs2.cu) gather
+(csrc/pull_pairs.cu, csrc/apply_pairs.cu, csrc/planar_apply.cu) gather
 and scatter rows directly, so they take no schedule: the same inputs map
 to the same outputs.
 
@@ -127,9 +127,10 @@ def apply_pairs_plain(state, uids: torch.Tensor, payload: torch.Tensor,
 
 
 def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
-                  payload: torch.Tensor, param: FMParam) -> FMState:
+                  payload: torch.Tensor, param: FMParam, *extra) -> FMState:
     """Check what the apply kernels take and launch the one named
-    ``entry`` (``apply_pairs`` or ``apply_pairs2``: one contract)."""
+    ``entry`` (``apply_pairs`` or ``apply_pairs2``: one contract), with
+    ``extra`` arguments before the stream."""
     n, k, u = state.num_rows, state.k, uids.shape[0]
     dev = state.device
     for name in ("w", "z", "n", "cnt"):
@@ -141,7 +142,7 @@ def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
         state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
         state.cnt.data_ptr(), state.V.data_ptr(), state.nV.data_ptr(),
         uids.data_ptr(), payload.data_ptr(), n, k, u,
-        *updater_args(param), cuda.stream(dev),
+        *updater_args(param), *extra, cuda.stream(dev),
     )
     cuda.check(rc, entry)
     cuda.LAUNCHES[entry] += 1
@@ -196,29 +197,57 @@ def apply_pairs(state, uids: torch.Tensor, payload: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# apply, second design: two table rows per thread (csrc/apply_pairs2.cu)
+# apply on planar leaves by csrc/planar_apply.cu's entries
 # ---------------------------------------------------------------------------
+
+# The designs of the planar apply's two wrappers (this module's
+# ``apply_pairs2`` and probes/hw_packed_pairs.py's ``apply_packed``), named
+# by stage words that are flags of csrc/planar_apply.cu's C entries.
+# ``lanes``, the default of both, is csrc/apply_pairs.cu's kernel (a lane a
+# thread) on the entry's leaves; ``tiles`` is the design for the card's
+# scattered sectors (staged tiles, compacted rows), which measured 0.5-4.5 %
+# slower than it (PERF.md); ``rmwonly``, the tiles' floor, stages,
+# compacts, loads every leaf the update would touch and stores it back as
+# loaded, so the state keeps its bits. No path of the package calls either
+# wrapper.
+PLANAR_APPLY_STAGES = {"lanes": 0, "tiles": 1, "rmwonly": 2}
+
+
+def planar_apply_flags(stage: str) -> int:
+    """The C entries' flags of a stage word."""
+    if stage not in PLANAR_APPLY_STAGES:
+        raise ValueError(f"stage {stage!r} not in "
+                         f"{sorted(PLANAR_APPLY_STAGES)}")
+    return PLANAR_APPLY_STAGES[stage]
 
 
 def apply_pairs2_plain(state: FMState, uids: torch.Tensor,
                        payload: torch.Tensor, param: FMParam) -> FMState:
-    """The plain version of ``apply_pairs2``: the two designs compute one
-    function, so it is :func:`apply_pairs_plain` (planar states only, as
-    the kernel)."""
+    """The plain version of ``apply_pairs2``: it computes the function of
+    ``apply_pairs``, so it is :func:`apply_pairs_plain` (planar states
+    only, as the kernel)."""
     require_planar(state, "apply_pairs2")
     return apply_pairs_plain(state, uids, payload, param)
 
 
 def apply_pairs2(state: FMState, uids: torch.Tensor, payload: torch.Tensor,
-                 param: FMParam) -> FMState:
-    """:func:`apply_pairs` by a second kernel design, in which each thread
-    updates two table rows and starts both rows' loads before either
-    row's arithmetic. Port of ``difacto_tpu/ops/pair_sweep.py::
-    apply_pairs2``, whose ``DualPairMeta`` schedule (two unique windows
-    per grid step) is Mosaic's mechanism: this wrapper takes none. No path
-    of the package calls it; probes/hw_apply2.py times it against
+                 param: FMParam, stage: str = "lanes") -> FMState:
+    """:func:`apply_pairs` on a planar state, by csrc/planar_apply.cu's
+    entry: ``stage`` names the design or the floor
+    (:data:`PLANAR_APPLY_STAGES`; ``lanes``, the default, is the kernel of
+    :func:`apply_pairs`, ``tiles`` the design that stages a tile's uids and
+    scalar payload rows in shared memory and compacts the touched rows and
+    then the rows past the V gate, so that no lane idles on a leaf); the
+    floor ``rmwonly`` returns ``state`` with its bits. Port of
+    ``difacto_tpu/ops/pair_sweep.py::apply_pairs2``, whose ``DualPairMeta``
+    schedule (two unique windows per grid step) is Mosaic's mechanism:
+    this wrapper takes none. No path of the package calls it;
+    probes/hw_apply2.py and chip_smoke.py time its designs against
     :func:`apply_pairs`."""
-    if uids.device.type == "cpu":
-        return apply_pairs2_plain(state, uids, payload, param)
+    flags = planar_apply_flags(stage)
     require_planar(state, "apply_pairs2")
-    return _launch_apply("apply_pairs2", state, uids, payload, param)
+    if uids.device.type == "cpu":
+        if stage == "rmwonly":
+            return state
+        return apply_pairs_plain(state, uids, payload, param)
+    return _launch_apply("apply_pairs2", state, uids, payload, param, flags)

@@ -6,21 +6,26 @@ arrays instead of six leaves,
     A [2+K, N] = w | cnt | V      (what the pull reads)
     B [2+K, N] = z | n  | nV      (what only the apply also needs)
 
-and ``pull_packed`` / ``apply_packed`` (csrc/packed_pairs.cu) compute
-what ``pull_pairs`` / ``apply_pairs`` compute, reading their leaves as
-rows of A and B; the apply is in place on both. On the TPU the script
-asked whether fewer, larger block copies per grid step are cheaper. A
-CUDA thread addresses single floats, so the question here is what the
-table's layout costs when the accesses stay the same: it is the first of
-the layout measurements (the second is probes/bench_slot_accum.py).
+and ``pull_packed`` (csrc/packed_pairs.cu) / ``apply_packed``
+(csrc/planar_apply.cu's entry, which hands the rows of A and B as leaves
+to csrc/apply_pairs.cu's kernel, or by a stage word to the tile design)
+compute what ``pull_pairs`` / ``apply_pairs`` compute; the apply is in
+place on both. On the TPU the
+script asked whether fewer, larger block copies per grid step are
+cheaper. A CUDA thread addresses single floats, so the question here is
+what the table's layout costs when the accesses stay the same: it is the
+first of the layout measurements (the second is
+probes/bench_slot_accum.py).
 
 The probe runs one flagship batch (16384 x 40 Zipf(1.2) slots, 2^22 rows,
 K = 16) through the port's host prep, times packed against current for
-the pull and the apply, prints the largest differences, and returns
-non-zero above 1e-5, as the script does. The script starts from a fresh
-state, whose counts are all below ``V_threshold``; a card's traffic
-depends on how many rows pass that gate, so the state here has counts on
-both sides of it and nonzero accumulators, made from a seed.
+the pull and the apply (and, on the card, the kernels' own times in
+turns: both apply designs and the tiles' floor), prints the largest
+differences, and returns non-zero above 1e-5, as the script does. The
+script starts from a fresh state, whose counts are all below
+``V_threshold``; a card's traffic depends on how many rows pass that
+gate, so the state here has counts on both sides of it and nonzero
+accumulators, made from a seed.
 
     python -m difacto_tpu_torch.probes.hw_packed_pairs
     python -m difacto_tpu_torch.probes.hw_packed_pairs batch=512 num_bits=13
@@ -97,11 +102,19 @@ def apply_packed_plain(a, b, uids, payload, param: FMParam):
 
 
 def apply_packed(a: torch.Tensor, b: torch.Tensor, uids: torch.Tensor,
-                 payload: torch.Tensor, param: FMParam):
+                 payload: torch.Tensor, param: FMParam, stage: str = "lanes"):
     """``apply_pairs`` over the packed A and B, IN PLACE on both (the TPU
     script's ``input_output_aliases``): payload ``[3+K, U]`` gw | gV |
-    add_cnt | touch over non-decreasing ``uids``. Returns ``(A, B)``."""
+    add_cnt | touch over non-decreasing ``uids``. ``stage`` names the
+    design as for ``pair_sweep.apply_pairs2``
+    (``pair_sweep.PLANAR_APPLY_STAGES``): ``lanes``, the default, is
+    csrc/apply_pairs.cu's kernel on the rows of A and B, ``tiles`` the
+    tile design; the floor ``rmwonly`` leaves A and B as they were.
+    Returns ``(A, B)``."""
+    flags = pair_sweep.planar_apply_flags(stage)
     if uids.device.type == "cpu":
+        if stage == "rmwonly":
+            return a, b
         return apply_packed_plain(a, b, uids, payload, param)
     dev = a.device
     k, n, u = a.shape[0] - 2, a.shape[1], uids.shape[0]
@@ -117,7 +130,8 @@ def apply_packed(a: torch.Tensor, b: torch.Tensor, uids: torch.Tensor,
         a.data_ptr(), b.data_ptr(), uids.data_ptr(), payload.data_ptr(),
         n, k, u, p.lr_eta, p.lr_beta, p.l1, p.l2, p.V_lr_eta, p.V_lr_beta,
         p.V_l2, float(p.V_threshold), int(p.tail_feature_filter),
-        W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater], cuda.stream(dev))
+        W_UPDATERS[p.w_updater], V_UPDATERS[p.V_updater], flags,
+        cuda.stream(dev))
     cuda.check(rc, "apply_packed")
     cuda.LAUNCHES["apply_packed"] += 1
     return a, b
@@ -174,6 +188,8 @@ def main(argv=None, device=None) -> int:
     packed = unpack_state(a2, b2)
     err_a = max(float((getattr(packed, name) - getattr(s2, name)).abs().max())
                 for name in LEAVES if getattr(s2, name).numel())
+    a3, b3 = apply_packed(a2.clone(), b2.clone(), uids, pay, p, "rmwonly")
+    kept = torch.equal(a3, a2) and torch.equal(b3, b2)
     t_ap = common.time_ms(lambda: apply_packed(a2, b2, uids, pay, p), dev,
                           o["iters"])
     t_a0 = common.time_ms(lambda: pair_sweep.apply_pairs(s2, uids, pay, p),
@@ -183,9 +199,23 @@ def main(argv=None, device=None) -> int:
     print(f"pull  packed: {f(t_pp)}   current: {f(t_p0)}   "
           f"max|err| {err_p:.2e}")
     print(f"apply packed: {f(t_ap)}   current: {f(t_a0)}   "
-          f"max|err| {err_a:.2e}", flush=True)
-    return 0 if max(err_p, err_a) < 1e-5 else 1
-
+          f"max|err| {err_a:.2e}; rmwonly kept A and B: {kept}", flush=True)
+    if dev.type == "cuda":
+        calls = {
+            "pull packed": lambda: pull_packed(a, uids, p),
+            "pull current": lambda: pair_sweep.pull_pairs(state, uids, p),
+            "apply current": lambda: pair_sweep.apply_pairs(s2, uids, pay,
+                                                            p)}
+        for stage in pair_sweep.PLANAR_APPLY_STAGES:
+            floor = stage == "rmwonly"
+            calls[f"apply packed {stage}"] = lambda stage=stage, floor=floor: (
+                apply_packed(a3 if floor else a2, b3 if floor else b2, uids,
+                             pay, p, stage))
+        own = common.kernel_ms_in_turns(dev, calls, (
+            "pull_packed_kernel", "pull_pairs_kernel", "apply_pairs_kernel",
+            "planar_apply_kernel"))
+        print(f"kernel ms in turns: {own}", flush=True)
+    return 0 if max(err_p, err_a) < 1e-5 and kept else 1
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

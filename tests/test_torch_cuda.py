@@ -314,8 +314,9 @@ def test_cuda_sweep_traps_on_an_unsorted_stream(card, kernel):
                                              (2, "adagrad", "sgd", 0),
                                              (3, "sgd", "adagrad", 2)])
 @pytest.mark.parametrize("repeat", [False, True])
+@pytest.mark.parametrize("design", ["lanes", "tiles"])
 def test_cuda_apply2_matches_plain_and_apply_pairs(card, K, wupd, vupd, tff,
-                                                   repeat):
+                                                   repeat, design):
     rng = np.random.default_rng(40 + K)
     p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
                     tail_feature_filter=tff)
@@ -324,7 +325,8 @@ def test_cuda_apply2_matches_plain_and_apply_pairs(card, K, wupd, vupd, tff,
     pay = torch.from_numpy(payload(K, valid, rng)).to(card)
     uids = torch.from_numpy(uids).to(card)
     n0 = cuda.LAUNCHES["apply_pairs2"]
-    a = pair_sweep.apply_pairs2(state_from_numpy(s, card), uids, pay, p)
+    a = pair_sweep.apply_pairs2(state_from_numpy(s, card), uids, pay, p,
+                                design)
     assert cuda.LAUNCHES["apply_pairs2"] == n0 + 1
     b = pair_sweep.apply_pairs2_plain(state_from_numpy(s, card), uids, pay, p)
     c = pair_sweep.apply_pairs(state_from_numpy(s, card), uids, pay, p)
@@ -333,15 +335,16 @@ def test_cuda_apply2_matches_plain_and_apply_pairs(card, K, wupd, vupd, tff,
         # multiply by the reciprocal on the card, 1 ulp
         torch.testing.assert_close(getattr(a, name), getattr(b, name),
                                    rtol=1e-5, atol=1e-6, msg=name)
-        # against the first design: the same sums in the same order and
-        # the same arithmetic, so the same bits
+        # against B2's kernel: the same sums in the same order and the
+        # same arithmetic, so the same bits
         assert torch.equal(getattr(a, name), getattr(c, name)), name
 
 
 @pytest.mark.parametrize("u", [0, 1, 7])
-def test_cuda_apply2_short_streams(card, u):
-    """No lane, one lane (a thread whose second row does not exist) and an
-    odd count."""
+@pytest.mark.parametrize("design", ["lanes", "tiles"])
+def test_cuda_apply2_short_streams(card, u, design):
+    """No lane, one lane and an odd count (a tile staged by 4-byte
+    copies)."""
     rng = np.random.default_rng(45)
     K = 3
     p = port_params(V_dim=K, V_threshold=0)
@@ -351,12 +354,124 @@ def test_cuda_apply2_short_streams(card, u):
                          ).astype(np.float32)
     uids = torch.from_numpy(uids).to(card)
     pay = torch.from_numpy(pay).to(card)
-    a = pair_sweep.apply_pairs2(state_from_numpy(s, card), uids, pay, p)
+    a = pair_sweep.apply_pairs2(state_from_numpy(s, card), uids, pay, p,
+                                design)
     b = pair_sweep.apply_pairs2_plain(state_from_numpy(s, card), uids, pay, p)
     for name in LEAVES:
         torch.testing.assert_close(getattr(a, name), getattr(b, name),
                                    rtol=1e-5, atol=1e-6, msg=name)
     assert int((a.cnt != torch.from_numpy(s["cnt"]).to(card)).sum()) == u
+
+
+def tile_edge_case(K, rng, trim=0):
+    """A stream across the planar apply's 128-lane tiles (csrc/
+    planar_apply.cu), 1024 - ``trim`` lanes: unique ids; a run over lanes
+    120..135 (across a tile edge); one id over lanes 200..520 (longer than
+    a tile, over four); a tile of unique ids none touched (640..767); a
+    tile of unique ids all below the V gate (768..895); sentinel lanes
+    from 896 on (a whole sentinel tile when ``trim`` is 0). ``trim`` = 3
+    makes U odd to 4, so the payload is staged by 4-byte copies. Returns
+    (state leaves, uids, payload, the ids below the gate)."""
+    runs = [1] * 120 + [16] + [1] * 64 + [321] + [1] * 119 + [1] * 256
+    ids = np.repeat(5 * np.arange(len(runs)) + 1, runs)
+    u = 1024 - trim
+    uids = np.full(u, N, np.int32)
+    uids[:ids.shape[0]] = ids
+    vf = (uids < N).astype(np.float32)
+    grads = rng.normal(size=(1 + K, u)).astype(np.float32) * vf
+    addc = rng.integers(1, 4, u).astype(np.float32) * vf
+    touch = vf.copy()
+    touch[640:768] = 0.0
+    pay = np.concatenate([grads, addc[None], touch[None]], axis=0)
+    s = state_np(K, rng)
+    s["cnt"][uids[uids < N]] = 3.0          # past the gate (V_threshold 2)
+    cold = uids[768:896]
+    s["cnt"][cold] = 1.0                    # below it
+    return s, uids, pay, cold
+
+
+def run_planar_apply(entry, s, uids, pay, p, card, stage):
+    """One call of a planar-apply entry by the design or floor ``stage`` on
+    a copy of ``s``; the state it updated, as planar leaves
+    (``apply_packed`` in place on A and B)."""
+    if entry == "apply_pairs2":
+        st = state_from_numpy(s, card)
+        out = pair_sweep.apply_pairs2(st, uids, pay, p, stage)
+        assert out is st
+        return out
+    a, b = packed_probe.pack_state(state_from_numpy(s, card))
+    a2, b2 = packed_probe.apply_packed(a, b, uids, pay, p, stage)
+    assert a2 is a and b2 is b  # in place on A and B
+    return packed_probe.unpack_state(a, b)
+
+
+def assert_same_bits(got, ref):
+    for name in LEAVES:
+        x, y = getattr(got, name), getattr(ref, name)
+        assert torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32)), name
+
+
+@pytest.mark.parametrize("entry", ["apply_pairs2", "apply_packed"])
+@pytest.mark.parametrize("design", ["lanes", "tiles"])
+@pytest.mark.parametrize("K,wupd,vupd", [(4, "ftrl", "adagrad"),
+                                         (0, "ftrl", "adagrad"),
+                                         (3, "adagrad", "sgd"),
+                                         (2, "sgd", "adagrad")])
+@pytest.mark.parametrize("trim", [0, 3])
+def test_cuda_planar_apply_across_tiles(card, entry, design, K, wupd, vupd,
+                                        trim):
+    """Both designs of each entry on runs across a tile edge and longer
+    than a tile, a tile with no touched row, one with no row past the
+    gate, sentinel tiles: the bits of B2's kernel, and its plain version's
+    values (1 ulp: its scalar division is a multiply by the reciprocal on
+    the card). The plain version runs on the CPU, where its index_add_
+    sums each run in lane order as the kernels do; on the card it adds
+    atomically, in another order each call, which over the 321-lane run
+    moves nV by more than the tolerance. Untouched and below-gate rows
+    keep what they must."""
+    rng = np.random.default_rng(160 + K + trim)
+    p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd)
+    s, uids_np, pay_np, cold = tile_edge_case(K, rng, trim)
+    uids = torch.from_numpy(uids_np).to(card)
+    pay = torch.from_numpy(pay_np).to(card)
+    n0 = cuda.LAUNCHES[entry]
+    got = run_planar_apply(entry, s, uids, pay, p, card, design)
+    assert cuda.LAUNCHES[entry] == n0 + 1
+    ref = pair_sweep.apply_pairs(state_from_numpy(s, card), uids, pay, p)
+    plain = pair_sweep.apply_pairs_plain(state_from_numpy(s), uids.cpu(),
+                                         pay.cpu(), p)
+    assert_same_bits(got, ref)
+    for name in LEAVES:
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(plain, name), rtol=1e-5,
+                                   atol=1e-6, msg=name)
+    untouched = torch.from_numpy(uids_np[640:768]).to(card).long()
+    cold = torch.from_numpy(cold).to(card).long()
+    for name in LEAVES:
+        x0 = torch.from_numpy(s[name]).to(card)
+        assert torch.equal(getattr(got, name)[..., untouched],
+                           x0[..., untouched]), name
+    if K:
+        assert torch.equal(got.V[:, cold], torch.from_numpy(s["V"]).to(
+            card)[:, cold])
+
+
+@pytest.mark.parametrize("entry", ["apply_pairs2", "apply_packed"])
+@pytest.mark.parametrize("K", [0, 4])
+def test_cuda_planar_apply_floors_keep_every_bit(card, entry, K):
+    """The tiles' floor ``rmwonly`` loads and stores back every leaf the
+    update would touch and changes no bit; it counts as a launch of its
+    entry."""
+    rng = np.random.default_rng(170 + K)
+    p = port_params(V_dim=K)
+    s, uids_np, pay_np, _ = tile_edge_case(K, rng)
+    uids = torch.from_numpy(uids_np).to(card)
+    pay = torch.from_numpy(pay_np).to(card)
+    n0 = cuda.LAUNCHES[entry]
+    got = run_planar_apply(entry, s, uids, pay, p, card, "rmwonly")
+    assert cuda.LAUNCHES[entry] == n0 + 1
+    assert_same_bits(got, state_from_numpy(s, card))
 
 
 _UNSORTED_PAIRS = """
@@ -423,8 +538,9 @@ def test_cuda_pull_packed_matches_plain_and_pull_pairs(card, K):
                                              (2, "adagrad", "sgd", 0),
                                              (3, "sgd", "adagrad", 2)])
 @pytest.mark.parametrize("repeat", [False, True])
+@pytest.mark.parametrize("design", ["lanes", "tiles"])
 def test_cuda_apply_packed_matches_plain_and_apply_pairs(card, K, wupd, vupd,
-                                                         tff, repeat):
+                                                         tff, repeat, design):
     rng = np.random.default_rng(95 + K)
     p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
                     tail_feature_filter=tff)
@@ -434,7 +550,8 @@ def test_cuda_apply_packed_matches_plain_and_apply_pairs(card, K, wupd, vupd,
     uids = torch.from_numpy(uids).to(card)
     a, b = packed_probe.pack_state(state_from_numpy(s, card))
     n0 = cuda.LAUNCHES["apply_packed"]
-    a2, b2 = packed_probe.apply_packed(a.clone(), b.clone(), uids, pay, p)
+    a2, b2 = packed_probe.apply_packed(a.clone(), b.clone(), uids, pay, p,
+                                       design)
     assert cuda.LAUNCHES["apply_packed"] == n0 + 1
     got = packed_probe.unpack_state(a2, b2)
     ref = packed_probe.unpack_state(*packed_probe.apply_packed_plain(

@@ -519,315 +519,37 @@ def test_sweep_kernels_take_a_packed_state(kernel):
                                           err_msg=name)
 
 
-@pytest.mark.parametrize(
-    "bl,ub,pp,hi", [(4096, 1024, 8, 1024), (5000, 640, 24, 640),
-                    (2048, 8192, 8, 600)]
-)
-def test_segsum_sorted_matches_jax(bl, ub, pp, hi):
-    """``hi`` < ub leaves the top lanes uncovered: they must be exact 0."""
-    rng = np.random.default_rng(bl + ub)
-    lanes = np.sort(rng.integers(0, hi, bl)).astype(np.int32)
-    inv_p = segsum.pad_sorted_stream(lanes)
-    assert np.array_equal(inv_p, jseg.pad_sorted_stream(lanes))
-    pay = rng.normal(size=(pp, inv_p.shape[0])).astype(np.float32)
-    pay[:, bl:] = 0.0
-    ref = _jax_segsum(pay, inv_p, ub)
-    got = segsum.segsum_sorted(torch.from_numpy(pay),
-                               torch.from_numpy(inv_p), ub).numpy()
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
-    covered = np.zeros(ub, bool)
-    covered[lanes] = True
-    assert np.all(got[:, ~covered] == 0.0)
-
-
-SWEEP_CASES = [
-    (4, "ftrl", "adagrad", 0),
-    (0, "ftrl", "adagrad", 0),
-    (2, "adagrad", "sgd", 0),
-    (3, "sgd", "adagrad", 2),
-]
-
-
-def _port_state(s, layout):
-    st = state_from_numpy(s)
-    return pack_state(st) if layout == "packed" else st
-
-
-def _sweep_both(s, uids, valid, grads, addc, jp, tp, n=N, layout="planar"):
-    """Pull then apply through JAX's ops/sweep.py (interpret mode, planar
-    state) and the port's on a state of ``layout`` (a packed one is
-    unpacked through ``state_to_numpy``); asserts the pull (exact) and the
-    in-place apply (atol 1e-5, rows no id names keep their bits)."""
-    ref = jsweep.sweep_pull(_jstate(s), jnp.asarray(uids), jnp.asarray(valid),
-                            jp, block_rows=BLOCK_ROWS, interpret=True)
-    got = sweep.sweep_pull(_port_state(s, layout), T(uids), T(valid), tp,
-                           block_rows=BLOCK_ROWS)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    ref = jsweep.sweep_apply(_jstate(s), jnp.asarray(uids), jnp.asarray(grads),
-                             jnp.asarray(addc), jnp.asarray(valid), jp,
-                             block_rows=BLOCK_ROWS, interpret=True)
-    st = _port_state(s, layout)
-    # the port takes the per-key gradients planar [1+K, U]
-    out = sweep.sweep_apply(st, T(uids), T(grads.T.copy()), T(addc),
-                            T(valid), tp, block_rows=BLOCK_ROWS)
-    assert out is st  # in place
-    got = state_to_numpy(out)
-    named = np.zeros(n, bool)
-    named[uids[valid]] = True
-    for name in LEAVES:
-        a = np.asarray(getattr(ref, name))
-        np.testing.assert_allclose(got[name], a, rtol=0, atol=1e-5,
-                                   err_msg=name)
-        assert np.array_equal(got[name][..., ~named], s[name][..., ~named])
-
-
-@pytest.mark.parametrize("K,wupd,vupd,tff", SWEEP_CASES)
-def test_sweep_packed_pull_and_apply_match_jax(K, wupd, vupd, tff):
-    """The sweep wrappers on a PackedFMState (pack, run, unpack, all six
-    leaves) against JAX's sweep kernels in interpret mode on the planar
-    state, over the cases of the planar test."""
-    rng = np.random.default_rng(90 + K)
-    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
-                     tail_feature_filter=tff)
-    s = _state_np(K, rng)
-    uids, valid = _sorted_uids(rng)
-    grads = rng.normal(size=(U, 1 + K)).astype(np.float32)
-    addc = rng.integers(1, 4, U).astype(np.float32)
-    _sweep_both(s, uids, valid, grads, addc, jp, tp, layout="packed")
-
-
-def test_sweep_packed_dense_block_matches_jax():
-    """400 ids in one 512-row block, over the row-major table."""
-    K, n, u = 2, 1024, 400
-    rng = np.random.default_rng(4)
-    jp, tp = _params(V_dim=K, V_threshold=0)
-    s = _state_np(K, rng, n=n)
-    uids = np.sort(rng.choice(512, size=u, replace=False)).astype(np.int32)
-    grads = rng.normal(size=(u, 1 + K)).astype(np.float32)
-    _sweep_both(s, uids, np.ones(u, bool), grads, np.ones(u, np.float32), jp,
-                tp, n=n, layout="packed")
-
-
-@pytest.mark.parametrize("K,wupd,vupd,tff", SWEEP_CASES)
-def test_sweep_pull_and_apply_match_jax(K, wupd, vupd, tff):
-    """tests/test_sweep.py's cases: N 4096, block_rows 512."""
-    rng = np.random.default_rng(90 + K)
-    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
-                     tail_feature_filter=tff)
-    s = _state_np(K, rng)
-    uids, valid = _sorted_uids(rng)
-    grads = rng.normal(size=(U, 1 + K)).astype(np.float32)
-    addc = rng.integers(1, 4, U).astype(np.float32)
-    _sweep_both(s, uids, valid, grads, addc, jp, tp)
-
-
-def test_sweep_dense_block_matches_jax():
-    """tests/test_sweep.py's dense case: 400 ids in one 512-row block."""
-    K, n, u = 2, 1024, 400
-    rng = np.random.default_rng(4)
-    jp, tp = _params(V_dim=K, V_threshold=0)
-    s = _state_np(K, rng, n=n)
-    uids = np.sort(rng.choice(512, size=u, replace=False)).astype(np.int32)
-    valid = np.ones(u, bool)
-    grads = rng.normal(size=(u, 1 + K)).astype(np.float32)
-    _sweep_both(s, uids, valid, grads, np.ones(u, np.float32), jp, tp, n=n)
-
-
-@pytest.mark.parametrize("layout", ["planar", "packed"])
-@pytest.mark.parametrize("K", [0, 3])
-def test_sweep_ms_two_streams_with_duplicates_match_jax(K, layout):
-    """The multi-stream kernels themselves: two sorted streams with ids
-    repeated within and across them, sentinel tails, one empty block; on
-    the planar state and on the row-major table."""
-    rng = np.random.default_rng(100 + K)
-    jp, tp = _params(V_dim=K)
-    s = _state_np(K, rng, n=N2)
-    sid, off = id_streams(rng)
-    pay = slot_payload(K, sid.shape[0], rng)
-    real = sid < N2
-    ref = np.asarray(jsweep_ms.sweep_pull_ms(
-        _jstate(s), jnp.asarray(sid), jnp.asarray(off), jp, block_rows=R2,
-        interpret=True))
-    got = sweep_ms.sweep_pull_ms(_port_state(s, layout), T(sid), T(off), tp,
-                                 block_rows=R2).numpy()
-    # the sentinel slots are undefined in the TPU kernel, zero in the port
-    np.testing.assert_array_equal(got[:, real], ref[:, real])
-    assert np.all(got[:, ~real] == 0.0)
-    ref = jsweep_ms.sweep_apply_ms(
-        _jstate(s), jnp.asarray(sid), jnp.asarray(pay), jnp.asarray(off), jp,
-        block_rows=R2, interpret=True)
-    st = _port_state(s, layout)
-    assert sweep_ms.sweep_apply_ms(st, T(sid), T(pay), T(off), tp,
-                                   block_rows=R2) is st  # in place
-    got = state_to_numpy(st)
-    for name in LEAVES:
-        np.testing.assert_allclose(got[name], np.asarray(getattr(ref, name)),
-                                   rtol=0, atol=1e-5, err_msg=name)
-    cnt = s["cnt"].copy()
-    np.add.at(cnt, sid[real], pay[1 + K][real])
-    np.testing.assert_array_equal(got["cnt"], cnt)
-
-
-def test_sweep_wrappers_refuse_a_ragged_table():
-    p = port_params(V_dim=2)
-    st = state_from_numpy(_state_np(2, np.random.default_rng(0), n=N2))
-    sid = torch.full((8,), N2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="multiple of block_rows"):
-        sweep_ms.sweep_pull_ms(st, sid, torch.zeros((1, 4), dtype=torch.int32),
-                               p, block_rows=300)
-    with pytest.raises(ValueError, match="offsets has shape"):
-        sweep_ms.sweep_apply_ms(st, sid, torch.zeros((5, 8)),
-                                torch.zeros((1, 3), dtype=torch.int32), p,
-                                block_rows=R2)
-
-
-# ---------------------------------------------------------------------------
-# the row-major table (layout=packed): PackedFMState, and pull_pairs /
-# apply_pairs over it. On the CPU the wrappers take the plain versions,
-# which read and write the table through the state's column views.
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("K", [0, 4])
-def test_pack_unpack_and_init_packed_match_jax(K):
-    """pack_state / unpack_state against JAX's (copies of the same
-    floats: exact), JAX's ``PackedFMState.tbl`` carried in as a NumPy
-    array, and ``init_state_packed`` against ``pack_state(init_state)``
-    from the same generator (exact)."""
-    rng = np.random.default_rng(70 + K)
-    s = _state_np(K, rng)
-    jpacked = jupd.pack_state(_jstate(s))
-    packed = pack_state(state_from_numpy(s))
-    assert isinstance(packed, PackedFMState)
-    assert (packed.num_rows, packed.k) == (N, K)
-    assert packed.tbl.shape == (N, 4 + 2 * K) and packed.tbl.is_contiguous()
-    np.testing.assert_array_equal(packed.tbl.numpy(), np.asarray(jpacked.tbl))
-    carried = state_from_numpy(np.asarray(jpacked.tbl), layout="packed")
-    assert torch.equal(carried.tbl, packed.tbl)
-    assert torch.equal(state_from_numpy(jpacked, layout="packed").tbl,
-                       packed.tbl)
-    back, jback = unpack_state(packed), jupd.unpack_state(jpacked)
-    for name in LEAVES:
-        leaf = getattr(back, name)
-        assert leaf.is_contiguous(), name
-        np.testing.assert_array_equal(leaf.numpy(), s[name], err_msg=name)
-        np.testing.assert_array_equal(np.asarray(getattr(jback, name)),
-                                      s[name], err_msg=name)
-        # the packed state's leaves are views of its table
-        np.testing.assert_array_equal(getattr(packed, name).numpy(), s[name])
-    np.testing.assert_array_equal(state_to_numpy(packed)["V"], s["V"])
-    _, tp = _params(V_dim=K)
-    a = FMUpdater(tp).init_state_packed(N, 5, "cpu")
-    b = pack_state(FMUpdater(tp).init_state(N, 5, "cpu"))
-    assert torch.equal(a.tbl, b.tbl)
-    if K:
-        assert float(a.V.abs().max()) > 0
-
-
-@pytest.mark.parametrize("K,thr", [(0, 2), (4, 2), (3, 0), (4, 10)])
-def test_packed_pull_matches_jax_and_planar(K, thr):
-    """pull_pairs over a PackedFMState against JAX ``FMUpdater.pull`` on
-    JAX's PackedFMState (a gather and a mask: exact) and the bits of the
-    planar plain version; sentinel lanes are 0."""
-    rng = np.random.default_rng(80 + K)
-    jp, tp = _params(V_dim=K, V_threshold=thr)
-    s = _state_np(K, rng)
-    uids, valid = _sorted_uids(rng)
-    ref = np.asarray(JFMUpdater(jp).pull(jupd.pack_state(_jstate(s)),
-                                         jnp.asarray(uids),
-                                         jnp.asarray(valid)))
-    packed = pack_state(state_from_numpy(s))
-    got = pair_sweep.pull_pairs(packed, T(uids), tp)
-    assert got.shape == (1 + K, U)
-    np.testing.assert_array_equal(got.numpy().T, ref)
-    assert torch.equal(got, pair_sweep.pull_pairs(state_from_numpy(s),
-                                                  T(uids), tp))
-    assert np.all(got.numpy()[:, ~valid] == 0.0)
-    up = FMUpdater(tp).pull(packed, T(uids), T(valid))
-    np.testing.assert_array_equal(up.numpy(), ref)
-
-
-@pytest.mark.parametrize(
-    "K,wupd,vupd,tff,thr",
-    [
-        (4, "ftrl", "adagrad", 0, 2),
-        (0, "ftrl", "adagrad", 0, 2),
-        (2, "adagrad", "sgd", 0, 2),
-        (3, "sgd", "adagrad", 2, 2),
-        (4, "ftrl", "adagrad", 0, 0),
-    ],
-)
-@pytest.mark.parametrize("repeat", [False, True])
-def test_packed_apply_matches_jax_and_planar(K, wupd, vupd, tff, thr, repeat):
-    """apply_pairs over a PackedFMState: the bits of the planar plain
-    version (the same code over the table's column views) on unique and
-    on repeated ids, rows no id names keep their bits, and on unique ids
-    JAX ``FMUpdater.update`` on JAX's PackedFMState (it scatter-adds
-    masked deltas where the apply writes new values: rtol 1e-6, atol
-    1e-6, the planar test's tolerance). The updater's own update runs on
-    the packed state too."""
-    rng = np.random.default_rng(90 + K)
-    jp, tp = _params(V_dim=K, w_updater=wupd, V_updater=vupd,
-                     tail_feature_filter=tff, V_threshold=thr)
-    s = _state_np(K, rng)
-    uids, valid = _sorted_uids(rng, repeat=repeat)
-    pay = _payload(K, valid, rng)
-    packed = pack_state(state_from_numpy(s))
-    out = pair_sweep.apply_pairs(packed, T(uids), T(pay), tp)
-    assert out is packed  # in place
-    got = state_to_numpy(out)
-    planar = state_to_numpy(pair_sweep.apply_pairs(
-        state_from_numpy(s), T(uids), T(pay), tp))
-    touched = np.zeros(N, bool)
-    touched[uids[valid]] = True
-    for name in LEAVES:
-        np.testing.assert_array_equal(got[name], planar[name], err_msg=name)
-        assert np.array_equal(got[name][..., ~touched],
-                              s[name][..., ~touched]), name
-    if repeat:
-        return  # the updaters take unique ids
-    grads, add_cnt = pay[: 1 + K].T, pay[1 + K]
-    ref = jupd.unpack_state(JFMUpdater(jp).update(
-        jupd.pack_state(_jstate(s)), jnp.asarray(uids), jnp.asarray(grads),
-        jnp.asarray(add_cnt), jnp.asarray(valid)))
-    upd = state_to_numpy(FMUpdater(tp).update(
-        pack_state(state_from_numpy(s)), T(uids), T(grads), T(add_cnt),
-        T(valid)))
-    for name in LEAVES:
-        a = np.asarray(getattr(ref, name))
-        np.testing.assert_allclose(got[name], a, rtol=1e-6, atol=1e-6,
-                                   err_msg=name)
-        np.testing.assert_allclose(upd[name], a, rtol=1e-6, atol=1e-6,
-                                   err_msg=name)
-
-
 @pytest.mark.parametrize("kernel", ["apply_pairs2", "sweep_pull_ms",
                                     "sweep_apply_ms"])
-def test_planar_only_kernels_refuse_a_packed_state(kernel):
-    """``apply_pairs2`` reads planar leaves only and raises. The sweep
-    wrappers raised too until csrc/rowmajor_sweep.cu: now they take the
-    row-major table and give the bits of the planar state's result."""
-    rng = np.random.default_rng(99)
-    _, tp = _params(V_dim=2)
-    s = _state_np(2, rng)
-    packed = pack_state(state_from_numpy(s))
-    uids, valid = _sorted_uids(rng)
-    pay = T(_payload(2, valid, rng))
-    off = sweep.offsets_1(T(uids), N, BLOCK_ROWS)
+def test_packed_state_without_factors_on_repeated_streams(kernel):
+    """A row-major table with K = 0 and two streams of ids repeated within
+    and across them (the inputs test_sweep_kernels_take_a_packed_state
+    lacks): ``apply_pairs2`` still refuses the table, on a stream of
+    repeated ids; the sweep wrappers take it and give the bits of the
+    planar state's result, the apply in place."""
+    rng = np.random.default_rng(98)
+    _, tp = _params(V_dim=0)
     if kernel == "apply_pairs2":
+        uids, valid = _sorted_uids(rng, repeat=True)
+        packed = pack_state(state_from_numpy(_state_np(0, rng)))
+        pay = T(_payload(0, valid, rng))
         with pytest.raises(TypeError, match="layout=packed"):
             pair_sweep.apply_pairs2(packed, T(uids), pay, tp)
-    elif kernel == "sweep_pull_ms":
-        got = sweep_ms.sweep_pull_ms(packed, T(uids), off, tp,
-                                     block_rows=BLOCK_ROWS)
+        return
+    s = _state_np(0, rng, n=N2)
+    sid, off = (T(a) for a in id_streams(rng))
+    packed = pack_state(state_from_numpy(s))
+    if kernel == "sweep_pull_ms":
+        got = sweep_ms.sweep_pull_ms(packed, sid, off, tp, block_rows=R2)
         assert torch.equal(got, sweep_ms.sweep_pull_ms(
-            state_from_numpy(s), T(uids), off, tp, block_rows=BLOCK_ROWS))
+            state_from_numpy(s), sid, off, tp, block_rows=R2))
     else:
-        out = sweep_ms.sweep_apply_ms(packed, T(uids), pay, off, tp,
-                                      block_rows=BLOCK_ROWS)
+        pay = T(slot_payload(0, sid.shape[0], rng))
+        out = sweep_ms.sweep_apply_ms(packed, sid, pay, off, tp,
+                                      block_rows=R2)
         assert out is packed
-        ref = sweep_ms.sweep_apply_ms(state_from_numpy(s), T(uids), pay, off,
-                                      tp, block_rows=BLOCK_ROWS)
+        ref = sweep_ms.sweep_apply_ms(state_from_numpy(s), sid, pay, off, tp,
+                                      block_rows=R2)
         for name, v in state_to_numpy(out).items():
             np.testing.assert_array_equal(v, state_to_numpy(ref)[name],
                                           err_msg=name)

@@ -243,7 +243,7 @@ _PALLAS_PACKED = [("num_bits", "12"), ("kernel", "pallas"),
 
 
 @pytest.mark.parametrize("layout", ["packed", "stacked"])
-def test_layout_packed_with_the_sweep_kernels_raises(layout):
+def test_stacked_raises_and_the_jax_store_refuses_packed_with_sweeps(layout):
     """What still raises with the sweep kernels: ``stacked``, which is
     outside the port whatever the kernel, and ``packed`` in the JAX store
     (XLA's lane padding on the TPU). The port's store takes ``packed``:

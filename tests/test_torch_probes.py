@@ -115,6 +115,38 @@ def test_apply_pairs2_is_apply_pairs_on_the_cpu(repeat):
         assert np.array_equal(a[name], b[name]), name
 
 
+@pytest.mark.parametrize("stage", ["lanes", "tiles", "rmwonly", "first",
+                                   "loadonly"])
+def test_planar_apply_stage_words_on_the_cpu(stage):
+    """The stage words of the planar apply's two wrappers on the CPU: the
+    designs (``lanes``, ``tiles``) compute the function, the floor
+    ``rmwonly`` leaves the state, and A and B, as they were; any other
+    word (``first``, ``loadonly``) raises."""
+    rng = np.random.default_rng(215)
+    _, tp = _params(V_dim=3)
+    s = _state_np(3, rng)
+    uids, valid = _sorted_uids(rng, repeat=True)
+    pay = T(_payload(3, valid, rng))
+    a, b = hw_packed_pairs.pack_state(state_from_numpy(s))
+    if stage not in pair_sweep.PLANAR_APPLY_STAGES:
+        with pytest.raises(ValueError, match="stage"):
+            pair_sweep.apply_pairs2(state_from_numpy(s), T(uids), pay, tp,
+                                    stage)
+        with pytest.raises(ValueError, match="stage"):
+            hw_packed_pairs.apply_packed(a, b, T(uids), pay, tp, stage)
+        return
+    got = state_to_numpy(pair_sweep.apply_pairs2(state_from_numpy(s),
+                                                 T(uids), pay, tp, stage))
+    a2, b2 = hw_packed_pairs.apply_packed(a, b, T(uids), pay, tp, stage)
+    assert a2 is a and b2 is b
+    packed = state_to_numpy(hw_packed_pairs.unpack_state(a, b))
+    want = s if stage == "rmwonly" else state_to_numpy(
+        pair_sweep.apply_pairs(state_from_numpy(s), T(uids), pay, tp))
+    for name in LEAVES:
+        assert np.array_equal(got[name], want[name]), name
+        assert np.array_equal(packed[name], want[name]), name
+
+
 # ---------------------------------------------------------------------------
 # S1 packed pull / apply
 # ---------------------------------------------------------------------------
