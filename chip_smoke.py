@@ -43,6 +43,19 @@ Phases, each a hard failure:
 6. run the five kernel probes (``difacto_tpu_torch/probes``) in process
    at their full shapes; each must return 0 and launch its kernels.
 
+FFM (``loss=ffm``) at BASELINE config 5's width (``examples/ffm.conf``:
+batch 4096 x 24 slots, the slot position as field, k = 4, so K = F*k = 96
+factors a feature, 2^22 rows) runs through the same phases: its kernels
+(B1, B2, ``pull_rowmajor``, ``apply_rowmajor`` at K = 96, B3 on 97
+payload rows, the sweep kernels at K = 96) against their plain versions
+and timed in turns, layout by layout; ``ffm_loss_grad`` on the card
+against the CPU; its train and eval steps on every table path against
+the CPU; two more main paths through ``SGDLearner`` (``FFM_PATHS``:
+``kernel=auto``, which resolves to the row-major table, and
+``layout=planar``); and CLI train + ``task=predict``. The packed pull S1a
+is timed in turns with its floor ``readonly`` (its loads alone) and B1,
+beside the sector floor of the run's data.
+
 It prints the card's name and power limit, one JSON line listing the
 kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
 needs a card: without one (or without the rest of the repository) it
@@ -78,16 +91,14 @@ SWEEP_ROWMAJOR_SORTED_KERNELS = ("sweep_pull_rowmajor", "segsum_sorted",
                                  "sweep_apply_rowmajor")
 UPDATER_CASES = ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
                  (K, "sgd", "adagrad"), (0, "ftrl", "adagrad"))
+# BASELINE config 5 (examples/ffm.conf, scripts/hw_ffm_sorted.py:37-49):
+# FFM with the slot position as field, F = 24 fields of k = 4 factors
+FFM_BATCH, FFM_NNZ, FFM_K = 4096, 24, 4
+FFM_WIDTH = FFM_NNZ * FFM_K  # K = F*k = 96 factors a feature
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def zipf_ids(rng, rows: int) -> np.ndarray:
-    from difacto_tpu_torch.probes import common
-
-    return common.zipf_ids(rng, rows, NNZ, NUM_BITS)
 
 
 def flagship_batch(seed: int):
@@ -203,7 +214,14 @@ PLANAR_NAMES = ("apply_pairs_kernel", "planar_apply_kernel")
 # the kernels line's keys beyond the contract's, each measured in the run
 EXTRA_KEYS = ("kernel_ms", "kernel_ms_flushed", "tiles_kernel_ms",
               "tiles_kernel_ms_flushed", "rmwonly_ms", "rmwonly_ms_flushed",
-              "b2_kernel_ms", "b2_kernel_ms_flushed")
+              "b2_kernel_ms", "b2_kernel_ms_flushed", "readonly_ms",
+              "readonly_ms_flushed", "b1_kernel_ms", "b1_kernel_ms_flushed",
+              "sectors", "sector_floor_ms")
+# the figures at FFM's width (K = 96) of the kernels of its path, each
+# measured in the run (k96_launches: the FFM main paths' drives)
+K96_KEYS = ("k96_launches", "k96_max_abs_err", "k96_ms", "k96_kernel_ms",
+            "k96_kernel_ms_flushed", "k96_plain_ms", "k96_bound_ms",
+            "k96_bound_by", "k96_library_ms")
 
 
 def planar_floor(pb, base, q) -> dict:
@@ -664,6 +682,240 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
     return out
 
 
+def ffm_batch(seed: int):
+    """One config-5 batch: 4096 rows of 24 Zipf(1.2) ids hashed into 2^22
+    rows as scripts/hw_ffm_sorted.py draws them, unit values."""
+    from difacto_tpu_torch.probes import common
+
+    return common.flagship_batch(seed, FFM_BATCH, FFM_NNZ, NUM_BITS)
+
+
+def check_ffm_kernels(dev) -> tuple[dict, float]:
+    """Phase 2 at FFM's width, on a config-5 batch and a state of K = 96
+    factors: B1 and ``pull_rowmajor`` exact against their plain version
+    and each other; B2 and ``apply_rowmajor`` against their plain version
+    and, bit for bit, against each other for the updater pairs of
+    UPDATER_CASES; each row-major kernel timed in turns with its planar
+    one, warm and flushed (what ``layout=auto`` gives FFM follows this: it
+    fails if a row-major kernel is slower); B3 on the 97 payload rows of
+    FFM's sorted backward; the sweep kernels at K = 96, row-major against
+    planar; and ``ffm_loss_grad`` on the card against the CPU. Returns
+    ({kernel: its K96_KEYS figures}, ffm_loss_grad ms)."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.models import losses
+    from difacto_tpu_torch.ops import pair_sweep, segsum, sweep, sweep_ms
+    from difacto_tpu_torch.probes import common
+    from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
+                                                    unpack_state)
+    from difacto_tpu_torch.utils.place import place_batch
+
+    num_rows, Kf, R = 1 << NUM_BITS, FFM_WIDTH, BLOCK_ROWS
+    pb = prep_batch(ffm_batch(30), num_rows)
+    pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals, with_slots=True)
+    pb = place_batch(pb, dev)
+    U = pb.uids.shape[0]
+    n_valid = int(pb.valid.sum())
+    lanes = pb.sorted_slots.inv_sorted
+    blp, bl = lanes.shape[0], FFM_BATCH * FFM_NNZ
+    p = FMParam()
+    p.V_dim = Kf
+    st = random_state(FMUpdater(p), num_rows, dev, seed=31)
+    tb = pack_state(st)
+    n_act = past_gate(pb, st, p)
+    log(f"config-5 batch: {FFM_BATCH} x {FFM_NNZ} slots, {n_valid} unique "
+        f"ids in a {U}-lane bucket ({n_act} past the V gate), BLp {blp}, "
+        f"table 2^{NUM_BITS} rows, K = F*k = {Kf}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    out, faster = {}, {}
+    names = ("rowmajor_", "_pairs_kernel")
+
+    def rec(t, k_warm, k_cold, plain_ms, b, err=0.0, library_ms=None):
+        return dict(k96_max_abs_err=err, k96_ms=t, k96_kernel_ms=k_warm,
+                    k96_kernel_ms_flushed=k_cold, k96_plain_ms=plain_ms,
+                    k96_bound_ms=b[0], k96_bound_by=b[1],
+                    k96_library_ms=library_ms)
+
+    # -- pull: exact (a gather with a mask), B1 and row-major alike -------
+    ref = pair_sweep.pull_pairs_plain(st, pb.uids, p)
+    for what, state in (("pull_pairs", st), ("pull_rowmajor", tb)):
+        got = pair_sweep.pull_pairs(state, pb.uids, p)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{what} K={Kf} differs from its plain "
+                                 f"version (max abs err "
+                                 f"{float((got - ref).abs().max()):g}; "
+                                 "tolerance: exact)")
+    del ref, got
+    b = bound(4 * (U + 2 * n_valid + Kf * n_act + (1 + Kf) * U), 0)
+    planar_ms, ms, own = in_turns(
+        dev, lambda: pair_sweep.pull_pairs(st, pb.uids, p),
+        lambda: pair_sweep.pull_pairs(tb, pb.uids, p), names)
+    out["pull_pairs"] = rec(planar_ms, own["warm"][1], own["cold"][1],
+                            cuda_ms(lambda: pair_sweep.pull_pairs_plain(
+                                st, pb.uids, p)), b)
+    out["pull_rowmajor"] = rec(ms, own["warm"][0], own["cold"][0],
+                               cuda_ms(lambda: pair_sweep.pull_pairs_plain(
+                                   tb, pb.uids, p)), b)
+    faster["pull"] = no_slower(own)
+    log(f"pull K={Kf}: kernel time [row-major, planar] {json.dumps(own)}; "
+        f"bound {b[0]:.5f} ms")
+
+    # -- apply: the bits of B2's kernel, every updater pair ----------------
+    vf = pb.valid.to(torch.float32)
+    worst = {"apply_pairs": 0.0, "apply_rowmajor": 0.0}
+    for k, wupd, vupd in UPDATER_CASES:
+        if k == 0:  # FFM has factors
+            continue
+        q = FMParam()
+        q.V_dim, q.w_updater, q.V_updater = Kf, wupd, vupd
+        grads = torch.randn((1 + Kf, U), generator=g, device=dev) * vf
+        payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
+        a = pair_sweep.apply_pairs(clone_state(st), pb.uids, payload, q)
+        r = unpack_state(pair_sweep.apply_pairs(pack_state(st), pb.uids,
+                                                payload, q))
+        same_bits(r, a, f"apply_rowmajor {wupd}/{vupd} K={Kf}", "apply_pairs")
+        del r
+        c = pair_sweep.apply_pairs_plain(clone_state(st), pb.uids, payload, q)
+        for leaf in LEAVES:
+            x, y = getattr(a, leaf), getattr(c, leaf)
+            err = float((x - y).abs().max())
+            worst = {name: max(v, err) for name, v in worst.items()}
+            # the plain version's division by a scalar runs as a multiply
+            # by its float reciprocal on the card: 1 ulp
+            torch.testing.assert_close(
+                x, y, rtol=1e-5, atol=1e-6,
+                msg=f"apply_pairs {wupd}/{vupd} K={Kf} against its plain "
+                    f"version: {leaf}")
+        del a, c
+        work, work_rm = clone_state(st), pack_state(st)
+        planar_ms, ms, own = in_turns(
+            dev, lambda: pair_sweep.apply_pairs(work, pb.uids, payload, q),
+            lambda: pair_sweep.apply_pairs(work_rm, pb.uids, payload, q),
+            names)
+        b = bound(4 * (U + 3 * n_valid + Kf * n_act) + updater_bytes(
+            wupd, vupd, Kf, n_valid, n_act), 20 * n_valid + 8 * Kf * n_act)
+        faster[f"apply {wupd}/{vupd}"] = no_slower(own)
+        log(f"apply {wupd}/{vupd} K={Kf}: kernel time [row-major, planar] "
+            f"{json.dumps(own)}; bound {b[0]:.5f} ms ({b[1]})")
+        if (wupd, vupd) == ("ftrl", "adagrad"):  # the FFM path's
+            out["apply_pairs"] = rec(planar_ms, own["warm"][1],
+                                     own["cold"][1], cuda_ms(
+                lambda: pair_sweep.apply_pairs_plain(work, pb.uids, payload,
+                                                     q)), b)
+            out["apply_rowmajor"] = rec(ms, own["warm"][0], own["cold"][0],
+                                        cuda_ms(lambda: pair_sweep
+                                                .apply_pairs_plain(
+                                                    work_rm, pb.uids,
+                                                    payload, q)), b)
+        del work, work_rm
+    for name, err in worst.items():
+        out[name]["k96_max_abs_err"] = err
+
+    # -- B3 on FFM's 97 payload rows: float64 bound, exact on integers,
+    # untouched lanes 0, a second run bit-equal ---------------------------
+    pp = 1 + Kf
+    payT = torch.randn((pp, blp), generator=g, device=dev)
+    payT[:, bl:] = 0.0
+    ipay = torch.randint(1, 9, (pp, blp), generator=g, device=dev).float()
+    ipay[:, bl:] = 0.0
+    got = segsum.segsum_sorted(payT, lanes, U)
+    ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
+    seg_n = torch.bincount(lanes.long(), minlength=U).double()
+    diff = (got.double() - ref).abs()
+    if not bool((diff <= f64_sum_tolerance(seg_n, segsum.segsum_sorted_plain(
+            payT.abs().double(), lanes, U))).all()):
+        raise AssertionError(f"segsum_sorted on {pp} rows differs from the "
+                             "float64 sums beyond the float32 bound")
+    if not (bool((got[:, seg_n == 0] == 0).all())
+            and torch.equal(segsum.segsum_sorted(payT, lanes, U), got)
+            and torch.equal(segsum.segsum_sorted(ipay, lanes, U),
+                            segsum.segsum_sorted_plain(ipay, lanes, U))):
+        raise AssertionError(f"segsum_sorted on {pp} rows: untouched lanes "
+                             "not 0, a second run's bits, or an integer "
+                             "payload inexact")
+    lanes_l, acc = lanes.long(), torch.zeros((pp, U), device=dev)
+    out["segsum_sorted"] = rec(
+        cuda_ms(lambda: segsum.segsum_sorted(payT, lanes, U)),
+        common.kernel_ms(lambda: segsum.segsum_sorted(payT, lanes, U),
+                         name=("segsum", "Memset")), None,
+        cuda_ms(lambda: segsum.segsum_sorted_plain(payT, lanes, U)),
+        bound(4 * (pp * blp + blp + pp * U), pp * blp),
+        err=float(diff.max()),
+        library_ms=cuda_ms(lambda: acc.index_add_(1, lanes_l, payT)))
+    log(f"segsum_sorted on {pp} payload rows (hottest segment "
+        f"{int(seg_n.max())} slots): within the float32 bound, integers "
+        f"exact; {json.dumps(out['segsum_sorted'])}")
+    del payT, ipay, got, ref, diff, acc
+
+    # -- the sweep kernels at K = 96: row-major against planar ------------
+    sid = pb.uids
+    off = sweep.offsets_1(sid, num_rows, R)
+    ref = sweep_ms.sweep_pull_ms_plain(st, sid, off, p, block_rows=R)
+    for what, state in (("sweep_pull", st), ("sweep_pull_rowmajor", tb)):
+        if not torch.equal(sweep_ms.sweep_pull_ms(state, sid, off, p,
+                                                  block_rows=R), ref):
+            raise AssertionError(f"{what} K={Kf} differs from its plain "
+                                 "version (tolerance: exact)")
+    del ref
+    sweep_own = {}
+    _, _, sweep_own["pull"] = in_turns(
+        dev, lambda: sweep_ms.sweep_pull_ms(st, sid, off, p, block_rows=R),
+        lambda: sweep_ms.sweep_pull_ms(tb, sid, off, p, block_rows=R),
+        ("sweep_",))
+    payload = sweep_ms.apply_payload(
+        torch.randn((1 + Kf, U), generator=g, device=dev), pb.ucounts,
+        pb.valid)
+    a = sweep_ms.sweep_apply_ms(clone_state(st), sid, payload, off, p,
+                                block_rows=R)
+    same_bits(unpack_state(sweep_ms.sweep_apply_ms(
+        pack_state(st), sid, payload, off, p, block_rows=R)), a,
+        f"sweep_apply_rowmajor K={Kf}", "sweep_apply")
+    del a
+    work, work_rm = clone_state(st), pack_state(st)
+    _, _, sweep_own["apply"] = in_turns(
+        dev, lambda: sweep_ms.sweep_apply_ms(work, sid, payload, off, p,
+                                             block_rows=R),
+        lambda: sweep_ms.sweep_apply_ms(work_rm, sid, payload, off, p,
+                                        block_rows=R), ("sweep_",))
+    del work, work_rm
+    for what, own in sweep_own.items():
+        faster[f"sweep {what}"] = no_slower(own)
+    log(f"sweep kernels K={Kf}: pull exact, row-major apply bit-equal to the "
+        f"planar one; kernel time [row-major, planar] "
+        f"{json.dumps(sweep_own)}")
+    log(f"row-major kernels at K={Kf} no slower than the planar ones by "
+        f"kernel time, warm and cold: {json.dumps(faster)} (layout=auto puts "
+        "FFM on the row-major table)")
+    if not all(faster.values()):
+        raise AssertionError(f"layout=auto puts FFM on the row-major table, "
+                             f"where a kernel is slower at K={Kf}: {faster}")
+    del tb
+
+    # -- ffm_loss_grad at config 5 on the card, against the CPU -----------
+    rows = torch.randn((FFM_BATCH, FFM_NNZ, 1 + Kf), generator=g,
+                       device=dev) * 0.1
+    args = (pb.vals, rows[..., 0],
+            rows[..., 1:].reshape(FFM_BATCH, FFM_NNZ, FFM_NNZ, FFM_K),
+            pb.labels, pb.mask)
+    fwd, grads = losses.ffm_loss_grad(*args)
+    cfwd, cgrads = losses.ffm_loss_grad(*(t.cpu() for t in args))
+    for what, x, y in (("py", fwd.py, cfwd.py), ("dW", grads.dW, cgrads.dW),
+                       ("dV", grads.dV, cgrads.dV)):
+        # 552 cross terms a row, summed in another order on the card
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-5,
+                                   msg=f"ffm_loss_grad on the card: {what}")
+    loss_ms = cuda_ms(lambda: losses.ffm_loss_grad(*args))
+    fwd_ms = cuda_ms(lambda: losses.ffm_predict(*args[:3]))
+    log(f"ffm_loss_grad at config 5 ({FFM_BATCH} x {FFM_NNZ} x {FFM_NNZ} x "
+        f"{FFM_K}) matches the CPU (rtol 1e-5, atol 1e-5): {loss_ms:.4f} ms "
+        f"by events, the forward alone {fwd_ms:.4f} ms")
+    del st
+    return out, loss_ms
+
+
 def check_sweep_kernels(dev, pb, st, g):
     """Phase 2, the whole-table sweep kernels, both designs: B4 pull and
     B5 apply over planar leaves (csrc/sweep_pull.cu, csrc/sweep_apply.cu)
@@ -952,12 +1204,31 @@ def check_probe_kernels(dev, pb, st, g, planar):
                                  "tolerance: exact)")
     b_ms, b_by = bound(4 * (U + 2 * n_valid + K * n_act + (1 + K) * U), 0)
     # below ~0.03 ms the event time is the host's enqueue rate: the
-    # kernel's own time, in turns with B1's, warm and flushed
+    # kernel's own time, in turns with its floor readonly (the same loads,
+    # no stores) and B1's, warm and flushed
+    if packed.pull_packed(A, pb.uids, p, "readonly") is not None:
+        raise AssertionError("pull_packed readonly returned an output")
     own = common.kernel_ms_in_turns(dev, {
         "pull_packed": lambda: packed.pull_packed(A, pb.uids, p),
+        "readonly": lambda: packed.pull_packed(A, pb.uids, p, "readonly"),
         "pull_pairs": lambda: pair_sweep.pull_pairs(st, pb.uids, p)},
         ("pull_packed_kernel", "pull_pairs_kernel"))
-    log(f"pull_packed in turns with pull_pairs, kernel ms: {json.dumps(own)}")
+    # the distinct 32-byte sectors the loads touch: w and cnt (two rows of
+    # A) of the real ids, V (K rows) of the ids past the gate; the uids
+    # are read coalesced
+    real = pb.uids[pb.valid].long()
+    gated = real[st.cnt[real] >= p.V_threshold]
+    sectors = (2 * torch.unique(real // 8).numel()
+               + K * torch.unique(gated // 8).numel())
+    floor = dict(sectors=sectors, sector_floor_ms=(32 * sectors + 4 * U)
+                 / HBM_BYTES_PER_S * 1e3)
+    ratio = {temp: t["pull_packed"] / t["readonly"] for temp, t in own.items()}
+    rate = {temp: sectors / t["readonly"] / 1e6 for temp, t in own.items()}
+    log(f"pull_packed in turns with its floor readonly and pull_pairs, "
+        f"kernel ms: {json.dumps(own)}; {json.dumps(floor)}; pull / "
+        f"readonly {json.dumps(ratio)} (the row closes at <= 1.25 warm and "
+        f"flushed: {all(r <= 1.25 for r in ratio.values())}); readonly "
+        f"reads {json.dumps(rate)} G sectors/s")
     out["pull_packed"] = dict(
         route="cuda", source="difacto_tpu_torch/csrc/packed_pairs.cu",
         replaces="scripts/hw_packed_pairs.py:133", max_abs_err=0.0,
@@ -966,6 +1237,10 @@ def check_probe_kernels(dev, pb, st, g, planar):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         kernel_ms=own["warm"]["pull_packed"],
         kernel_ms_flushed=own["cold"]["pull_packed"],
+        readonly_ms=own["warm"]["readonly"],
+        readonly_ms_flushed=own["cold"]["readonly"],
+        b1_kernel_ms=own["warm"]["pull_pairs"],
+        b1_kernel_ms_flushed=own["cold"]["pull_pairs"], **floor,
     )
 
     # -- S1b packed apply (csrc/planar_apply.cu's entry over the rows of A
@@ -1235,11 +1510,22 @@ STEP_PATHS = ((), (("layout", "planar"),), (("layout", "packed"),),
                ("segsum", "sorted")))
 
 
-def check_step_against_cpu(dev):
+# FFM's step paths: the pairs path on either layout and backward, the
+# sweep on either layout
+FFM_STEP_PATHS = ((), (("layout", "planar"),), (("segsum", "scatter"),),
+                  (("kernel", "pallas"),),
+                  (("kernel", "pallas"), ("layout", "planar"),
+                   ("segsum", "sorted")))
+
+
+def check_step_against_cpu(dev, nnz: int = 16, model: tuple = (("V_dim",
+                                                                "8"),),
+                           paths: tuple = STEP_PATHS):
     """Phase 3: the device train and eval steps of every kernel path
-    against the CPU plain path on a small batch, from one state (atol
-    2e-5, rtol 1e-5: sums differ in order between the kernels and
-    index_add_)."""
+    against the CPU plain path on a small batch of ``nnz`` slots a row,
+    from one state (atol 2e-5, rtol 1e-5: sums differ in order between
+    the kernels and index_add_). ``model`` is the loss's settings: the FM
+    with K = 8, or FFM at config 5's width."""
     import torch
 
     from difacto_tpu_torch.config import Config
@@ -1248,22 +1534,22 @@ def check_step_against_cpu(dev):
     from difacto_tpu_torch.parallel.store import LocalStore
     from difacto_tpu_torch.updaters.updater import FMUpdater
 
-    for extra in STEP_PATHS:
+    for extra in paths:
         cfg = Config.from_kwargs([("batch_size", "512"), ("num_bits", "14"),
-                                  ("max_nnz_per_row", "16"), ("V_dim", "8"),
+                                  ("max_nnz_per_row", str(nnz)), *model,
                                   ("lr_eta", "0.1"), ("l1", "0.1"),
                                   ("V_lr_eta", "0.05"), ("V_threshold", "1"),
                                   *extra])
-        upd = FMUpdater(cfg.model)
+        upd = FMUpdater(cfg.effective_model_param())
         gpu = LocalStore(upd, cfg, device=dev)
         cpu = LocalStore(upd, cfg, device="cpu")
         sg = gpu.init_state(5)
         sc = cpu.place_state(clone_state(sg))
         rng = np.random.default_rng(5)
         for s in range(4):
-            ids = rng.integers(0, 1 << 14, (512, 16)).astype(np.int32)
-            ids[rng.random((512, 16)) < 0.1] = -1
-            vals = np.where(ids < 0, 0, rng.normal(size=(512, 16))).astype(
+            ids = rng.integers(0, 1 << 14, (512, nnz)).astype(np.int32)
+            ids[rng.random((512, nnz)) < 0.1] = -1
+            vals = np.where(ids < 0, 0, rng.normal(size=(512, nnz))).astype(
                 np.float32)
             b = Batch(ids, vals, (rng.random(512) > 0.5).astype(np.float32),
                       np.ones(512, np.float32))
@@ -1276,7 +1562,8 @@ def check_step_against_cpu(dev):
         _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, 1 << 14))
         _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, 1 << 14))
         torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
-        log(f"device train/eval steps {dict(extra) or 'kernel=auto'} match "
+        log(f"device train/eval steps {dict(model)} "
+            f"{dict(extra) or 'kernel=auto'} match "
             f"the CPU plain path (4 steps, max |dw| "
             f"{float((sg.w.cpu() - sc.w).abs().max()):g})")
 
@@ -1304,28 +1591,42 @@ def device_profile(prof, wall_s: float, steps: int) -> dict:
     }
 
 
-def write_zipf_libsvm(path: str, rows: int, seed: int) -> None:
+def write_zipf_libsvm(path: str, rows: int, seed: int, nnz: int = NNZ):
+    from difacto_tpu_torch.probes import common
+
     rng = np.random.default_rng(seed)
-    ids = zipf_ids(rng, rows)
+    ids = common.zipf_ids(rng, rows, nnz, NUM_BITS)
     labels = (rng.random(rows) > 0.5).astype(np.int64)
     tok = [f"{i}:1" for i in ids.ravel().tolist()]
     with open(path, "w") as f:
         for r in range(rows):
-            f.write(f"{labels[r]} {' '.join(tok[r * NNZ:(r + 1) * NNZ])}\n")
+            f.write(f"{labels[r]} {' '.join(tok[r * nnz:(r + 1) * nnz])}\n")
 
 
-def write_main_data(tmp: str) -> tuple[str, str]:
-    """The flagship's train file (one epoch) and validation file."""
+def write_main_data(tmp: str, model: dict) -> tuple[str, str]:
+    """A model's train file (one epoch of MAIN_BATCHES batches) and its
+    validation file (one batch)."""
     t0 = time.perf_counter()
-    train = os.path.join(tmp, "flagship.svm")
-    val = os.path.join(tmp, "flagship_val.svm")
-    write_zipf_libsvm(train, MAIN_BATCHES * BATCH, seed=10)
-    write_zipf_libsvm(val, BATCH, seed=11)
-    log(f"main path data written in {time.perf_counter() - t0:.1f} s")
+    train = os.path.join(tmp, f"{model['name']}.svm")
+    val = os.path.join(tmp, f"{model['name']}_val.svm")
+    b, nnz, seed = model["batch"], model["nnz"], model["seed"]
+    write_zipf_libsvm(train, MAIN_BATCHES * b, seed, nnz)
+    write_zipf_libsvm(val, b, seed + 1, nnz)
+    log(f"{model['name']} main path data written in "
+        f"{time.perf_counter() - t0:.1f} s")
     return train, val
 
 
-# the main paths: (config on top of the flagship's, the kernels each step
+# the models the main paths train: the flagship FM and BASELINE config 5
+FLAGSHIP = {"name": "flagship", "batch": BATCH, "nnz": NNZ, "seed": 10,
+            "kw": (("batch_size", str(BATCH)), ("max_nnz_per_row", str(NNZ)),
+                   ("V_dim", str(K)))}
+FFM = {"name": "ffm", "batch": FFM_BATCH, "nnz": FFM_NNZ, "seed": 12,
+       "kw": (("batch_size", str(FFM_BATCH)),
+              ("max_nnz_per_row", str(FFM_NNZ)), ("V_dim", str(FFM_K)),
+              ("loss", "ffm"))}
+
+# the main paths: (config on top of the model's, the kernels each step
 # launches, the pull first: it also serves the validation batch)
 _PALLAS = (("kernel", "pallas"), ("segsum", "sorted"))
 MAIN_PATHS = (
@@ -1338,13 +1639,17 @@ MAIN_PATHS = (
     ((*_PALLAS, ("layout", "planar")), SWEEP_SORTED_KERNELS),
     ((*_PALLAS, ("layout", "packed")), SWEEP_ROWMAJOR_SORTED_KERNELS),
 )
+# FFM as kernel=auto resolves it (the row-major table, the sorted
+# backward), and over planar leaves
+FFM_PATHS = (((), ROWMAJOR_KERNELS), ((("layout", "planar"),), PAIRS_KERNELS))
 
 
-def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple):
-    """Phase 4: SGDLearner at the flagship shapes on the kernel path that
-    ``extra`` selects, which must launch each kernel of ``path`` (its pull
-    first) once per step and no other kernel. Returns (launch counts of
-    the run, timing record)."""
+def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
+                    model: dict = FLAGSHIP, note: dict | None = None):
+    """Phase 4: SGDLearner at ``model``'s full width on the kernel path
+    that ``extra`` selects, which must launch each kernel of ``path`` (its
+    pull first) once per step and no other kernel. ``note`` joins the
+    record. Returns (launch counts of the run, timing record)."""
     import torch
 
     from difacto_tpu_torch.config import Config
@@ -1352,10 +1657,8 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple):
     from difacto_tpu_torch.ops import cuda
 
     cfg = Config.from_kwargs([
-        ("data_in", train), ("data_val", val),
-        ("batch_size", str(BATCH)), ("max_nnz_per_row", str(NNZ)),
-        ("num_bits", str(NUM_BITS)), ("V_dim", str(K)),
-        ("cache_batches", "1"), ("cache_on_device", "1"),
+        ("data_in", train), ("data_val", val), ("num_bits", str(NUM_BITS)),
+        *model["kw"], ("cache_batches", "1"), ("cache_on_device", "1"),
         ("report_interval", "0"), *extra,
     ])
     learner = SGDLearner(cfg)  # the card is the default device
@@ -1379,24 +1682,27 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple):
     va = learner.eval_pass(cfg.data.data_val)
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
-    steps = MAIN_BATCHES
+    steps, batch = MAIN_BATCHES, model["batch"]
     rec = {
+        "model": model["name"],
         "path": {"kernel": "auto", **dict(extra)},
+        "layout": learner.store.layout,
         "epoch0_stream_s": t_stream,
         "replay_ms_per_step": t_replay / steps * 1e3,
-        "replay_examples_per_s": BATCH * steps / t_replay,
+        "replay_examples_per_s": batch * steps / t_replay,
         "train_logloss": [first.logloss, timed.logloss],
         "val_logloss": va.logloss, "val_exact_auc": va.exact_auc,
         "launches": launches,
         "profile": device_profile(prof, t_prof, steps),
+        **(note or {}),
     }
     log("main path: " + json.dumps(rec))
     for v in (first.logloss, timed.logloss, va.logloss):
         if not np.isfinite(v):
             raise AssertionError(f"non-finite logloss on the main path: {rec}")
-    if first.num_examples != steps * BATCH or va.num_examples != BATCH:
+    if first.num_examples != steps * batch or va.num_examples != batch:
         raise AssertionError(f"main path saw the wrong example count: {rec}")
-    for name in ("w", "z", "n", "V", "nV", "cnt"):
+    for name in LEAVES:
         if not bool(torch.isfinite(getattr(learner.state, name)).all()):
             raise AssertionError(f"non-finite state leaf {name}")
     # three train epochs of `steps` steps, then one validation batch that
@@ -1412,7 +1718,8 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple):
 def drive_cli(tmp: str) -> None:
     """Phase 5: on each table path, CLI train with validation and
     model_out, then task=predict on the checkpoint; the scores must match
-    the CPU's."""
+    the CPU's. FFM (k = 4 on the set's 12 slots, 48 factors a feature) on
+    the path ``kernel=auto`` resolves to."""
     from difacto_tpu_torch import cli
     from difacto_tpu_torch.data.synthetic import make_ctr_data, write_libsvm
     from difacto_tpu_torch.ops import cuda
@@ -1427,14 +1734,17 @@ def drive_cli(tmp: str) -> None:
     aucs = {}
     table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
                         + SWEEP_ROWMAJOR_KERNELS)
-    for kernel, layout, path in (("auto", "planar", PAIRS_KERNELS),
-                                 ("auto", "packed", ROWMAJOR_KERNELS),
-                                 ("pallas", "planar", SWEEP_KERNELS),
-                                 ("pallas", "packed", SWEEP_ROWMAJOR_KERNELS)):
+    for kernel, layout, path, loss in (
+            ("auto", "planar", PAIRS_KERNELS, "fm"),
+            ("auto", "packed", ROWMAJOR_KERNELS, "fm"),
+            ("pallas", "planar", SWEEP_KERNELS, "fm"),
+            ("pallas", "packed", SWEEP_ROWMAJOR_KERNELS, "fm"),
+            ("auto", "auto", ROWMAJOR_KERNELS, "ffm")):
         other = table_kernels - set(path)
-        model = os.path.join(tmp, f"model_{kernel}_{layout}")
+        model = os.path.join(tmp, f"model_{kernel}_{layout}_{loss}")
         shape = ["batch_size=512", "num_bits=16", "max_nnz_per_row=12",
-                 "V_dim=8", f"kernel={kernel}", f"layout={layout}"]
+                 "V_dim=8" if loss == "fm" else "V_dim=4", f"loss={loss}",
+                 f"kernel={kernel}", f"layout={layout}"]
         cuda.reset_launches()
         rc = cli.main([f"data_in={tr}", f"data_val={va}", *shape,
                        "lr_eta=0.1", "l1=0.1", "V_lr_eta=0.05",
@@ -1444,7 +1754,7 @@ def drive_cli(tmp: str) -> None:
                                  f"failed (rc {rc})")
         preds = {}
         for dev in (None, "cpu"):
-            out = os.path.join(tmp, f"pred_{kernel}_{layout}_{dev}.txt")
+            out = os.path.join(tmp, f"pred_{kernel}_{layout}_{loss}_{dev}.txt")
             rc = cli.main([f"data_in={va}", *shape, "task=predict",
                            f"model_in={model}", f"pred_out={out}"],
                           device=dev)
@@ -1455,13 +1765,14 @@ def drive_cli(tmp: str) -> None:
         # the path's kernels ran, the other path's did not
         if (min(cuda.LAUNCHES[k] for k in path) == 0
                 or any(cuda.LAUNCHES[k] for k in other)):
-            raise AssertionError(f"the CLI run kernel={kernel} layout={layout} "
-                                 f"went through the wrong kernels: "
-                                 f"{cuda.LAUNCHES}")
+            raise AssertionError(f"the CLI run loss={loss} kernel={kernel} "
+                                 f"layout={layout} went through the wrong "
+                                 f"kernels: {cuda.LAUNCHES}")
         auc = exact_auc(labels, preds[None])
         aucs[kernel, layout] = auc
-        log(f"CLI kernel={kernel} layout={layout}: predict AUC {auc:.6f} over "
-            f"{len(labels)} rows, launches {dict(cuda.LAUNCHES)}")
+        log(f"CLI loss={loss} kernel={kernel} layout={layout}: predict AUC "
+            f"{auc:.6f} over {len(labels)} rows, launches "
+            f"{dict(cuda.LAUNCHES)}")
         if not auc > 0.6:
             raise AssertionError(f"CLI validation AUC {auc} <= 0.6")
         np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
@@ -1495,13 +1806,17 @@ def main() -> int:
     cuda.library()
 
     kernels = check_kernels(dev)
+    k96, ffm_loss_ms = check_ffm_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:  # a short first run of a new kernel
-        log(json.dumps({"kernels_checked": sorted(kernels)}))
+        log(json.dumps({"kernels_checked": sorted(kernels),
+                        "k96_checked": sorted(k96)}))
         return 0
     check_step_against_cpu(dev)
+    check_step_against_cpu(dev, FFM_NNZ, (("V_dim", str(FFM_K)),
+                                          ("loss", "ffm")), FFM_STEP_PATHS)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        files = write_main_data(tmp)
+        files = write_main_data(tmp, FLAGSHIP)
         recs = {}
         for extra, path in MAIN_PATHS:
             got, recs[extra] = drive_main_path(dev, *files, extra, path)
@@ -1519,6 +1834,22 @@ def main() -> int:
                         f"kernel=pallas on the row-major table and on planar "
                         f"leaves disagree on {key}: {b['path']} {b[key]} "
                         f"against {a['path']} {a[key]}")
+        # FFM at config 5's width, on the row-major table (what kernel=auto
+        # resolves to) and on planar leaves: the sorted backward and
+        # bit-equal kernels, so the same metric floats on both
+        files = write_main_data(tmp, FFM)
+        ffm = [drive_main_path(dev, *files, extra, path, FFM,
+                               {"ffm_loss_grad_ms": ffm_loss_ms})
+               for extra, path in FFM_PATHS]
+        for (got, _), (_, path) in zip(ffm, FFM_PATHS):
+            for name in path:
+                k96[name]["k96_launches"] = got[name]
+        for key in ("train_logloss", "val_logloss", "val_exact_auc"):
+            a, b = ffm[0][1][key], ffm[1][1][key]
+            if not np.allclose(a, b, rtol=1e-6, atol=0):
+                raise AssertionError(f"FFM on the row-major table and on "
+                                     f"planar leaves disagree on {key}: {a} "
+                                     f"against {b}")
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -1530,8 +1861,9 @@ def main() -> int:
         # the kernel's own time by torch.profiler, for the kernels short
         # enough that `ms` (CUDA events) is the host's enqueue rate; for
         # the planar apply, flushed too, the tiles and their rmwonly floor
-        # and B2's time in the same turns
-        **{k: v for k, v in kernels[name].items() if k in EXTRA_KEYS}}
+        # and B2's time in the same turns; S1a's floor; at FFM's width
+        **{k: v for k, v in kernels[name].items() if k in EXTRA_KEYS},
+        **{k: v for k, v in k96.get(name, {}).items() if k in K96_KEYS}}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
         + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS]
     log(json.dumps({"kernels": rows}))

@@ -115,8 +115,13 @@ class FMParam(ParamBase):
 
     tail_feature_filter: int = 0   # drop features with count < this (count pass)
 
-    num_fields: int = 0            # loss=ffm only (not in the port yet)
-    ffm_block_size: int = 0        # loss=ffm only (not in the port yet)
+    num_fields: int = 0            # loss=ffm: explicit field count F of
+                                   # libffm data (port: 0, slot position
+                                   # is the field, F = max_nnz_per_row)
+    ffm_block_size: int = 0        # loss=ffm: stream the O(B L^2 K) cross
+                                   # terms in i-blocks of this many slots;
+                                   # 0 = dense when it fits the activation
+                                   # cap, else picked at config time
 
     def validate(self) -> None:
         assert self.V_dim >= 0
@@ -131,7 +136,7 @@ class LearnerParam(ParamBase):
     """Trainer driver knobs (reference: SGDLearnerParam)."""
 
     learner: str = "sgd"           # sgd | bcd (port: sgd)
-    loss: str = "fm"               # fm | logit | ffm (port: fm, logit)
+    loss: str = "fm"               # fm | logit | ffm
     task: str = "train"            # train | predict (predict needs model_in)
     pred_out: str = ""             # write raw margins here when task=predict
     max_num_epochs: int = 1
@@ -181,6 +186,11 @@ class ShardParam(ParamBase):
     hot_count_batches: int = 16    # hot_rows only
 
 
+# loss=ffm activation cap in bytes: the JAX package's constant, kept so
+# that both packages pick the same ffm_block_size (Config.check)
+FFM_ACTIVATION_CAP = 8 << 30
+
+
 # Settings outside the port's slice, each named with the ROADMAP item that
 # brings it; Config.check raises NotImplementedError listing them.
 def _slice_violations(cfg: "Config") -> list[str]:
@@ -190,8 +200,6 @@ def _slice_violations(cfg: "Config") -> list[str]:
         out.append("store=sharded (ROADMAP A9, ShardedStore)")
     if lr.learner == "bcd":
         out.append("learner=bcd (ROADMAP A15, BCD learner)")
-    if lr.loss == "ffm":
-        out.append("loss=ffm (ROADMAP A8, FFM)")
     if s.hot_rows != 0:
         out.append("hot_rows != 0 (ROADMAP A13, hot/cold split)")
     if s.kernel == "xla":
@@ -203,6 +211,8 @@ def _slice_violations(cfg: "Config") -> list[str]:
         out.append("host_localize=0 (ROADMAP A16, device localize)")
     if d.data_format in ("libffm", "csr"):
         out.append(f"data_format={d.data_format} (ROADMAP A18, csr/libffm)")
+    if m.num_fields > 0:
+        out.append("num_fields > 0 (ROADMAP A18, explicit libffm fields)")
     for key in ("data_in", "data_val", "model_in", "model_out", "pred_out"):
         uri = getattr(d if key.startswith("data") else lr, key)
         if "://" in uri and not uri.startswith("file://"):
@@ -244,8 +254,26 @@ class Config:
             raise ValueError(f"unknown store {self.shard.store!r}")
         if self.learner.loss not in ("fm", "logit", "ffm"):
             raise ValueError(f"unknown loss {self.learner.loss!r}")
-        if self.model.num_fields > 0 and self.learner.loss != "ffm":
-            raise ValueError("num_fields is only meaningful with loss=ffm")
+        if self.model.num_fields > 0:
+            if self.learner.loss != "ffm":
+                raise ValueError("num_fields is only meaningful with loss=ffm")
+            if self.data.data_format != "libffm":
+                raise ValueError(
+                    "num_fields > 0 needs data_format=libffm "
+                    "(field:idx:val rows carry the field ids)"
+                )
+        if (
+            self.learner.loss == "ffm"
+            and self.data.data_format == "libffm"
+            and self.model.num_fields == 0
+        ):
+            raise ValueError(
+                "loss=ffm on libffm data needs num_fields=<field count> "
+                "(with num_fields=0 the slot position is the field, which "
+                "ignores the file's field ids)"
+            )
+        if self.learner.loss == "ffm" and self.model.V_dim > 0:
+            self._check_ffm_activations()
         if self.shard.interpret:
             raise ValueError(
                 "interpret=1 is a Pallas option; the port runs its kernels' "
@@ -257,6 +285,59 @@ class Config:
                 "not in the PyTorch port yet: " + "; ".join(bad)
             )
 
+    def _check_ffm_activations(self) -> None:
+        """The FFM activation cap, the JAX package's rule kept for parity
+        (``difacto_tpu/config.py:298-324``), so that both packages sum the
+        cross terms in the same blocks: the dense loss holds ~6 [B, L, L, k]
+        float32 tensors; past ``FFM_ACTIVATION_CAP`` bytes an unset
+        ``ffm_block_size`` becomes the largest multiple of 8 whose ~3
+        [B, block, L, k] tensors fit (at least 8). Unlike the JAX package,
+        an explicit ``ffm_block_size`` is held to the same cap (dense when
+        it is >= L, blocked below): a config over it fails here, not in
+        the middle of an epoch."""
+        B, L, k = (self.data.batch_size, self.data.max_nnz_per_row,
+                   self.model.V_dim)
+        cap = FFM_ACTIVATION_CAP
+        dense = 6 * B * L * L * k * 4
+
+        def blocked(blk):
+            return 3 * B * blk * L * k * 4
+
+        blk = self.model.ffm_block_size
+        if blk:
+            peak = dense if blk >= L else blocked(blk)
+            if peak > cap:
+                raise ValueError(
+                    f"loss=ffm with ffm_block_size={blk}: activations "
+                    f"~{peak / (1 << 30):.1f} GiB exceed the "
+                    f"{cap >> 30} GiB cap (dense when the block is >= "
+                    f"max_nnz_per_row {L}) — lower ffm_block_size, or set "
+                    "0 to have one picked"
+                )
+            return
+        if dense <= cap:
+            return
+        blk = max(8, cap // blocked(1) // 8 * 8)
+        if blocked(blk) > cap:
+            raise ValueError(
+                f"loss=ffm activations ~{dense / (1 << 30):.1f} GiB "
+                f"(6 * batch_size {B} * max_nnz_per_row^2 {L}^2 * "
+                f"V_dim {k} * 4 B) exceed the {cap >> 30} GiB "
+                "cap even blocked — lower batch_size or "
+                "max_nnz_per_row (cost is O(B L^2 K))"
+            )
+        self.model.ffm_block_size = int(min(blk, L))
+
+    def expects_fields(self) -> bool:
+        """True when batches must carry explicit per-slot field ids."""
+        return self.learner.loss == "ffm" and self.model.num_fields > 0
+
     def effective_model_param(self) -> FMParam:
-        """The FMParam the updater/table uses (fm/logit: the model param)."""
-        return dataclasses.replace(self.model)
+        """The FMParam the updater and the table use. For loss=ffm a
+        feature's factor payload is F*k wide (F = num_fields when set, else
+        max_nnz_per_row: slot position is the field), in the same table."""
+        p = dataclasses.replace(self.model)
+        if self.learner.loss == "ffm":
+            F = self.model.num_fields or self.data.max_nnz_per_row
+            p.V_dim = self.model.V_dim * F
+        return p

@@ -64,6 +64,12 @@ class SortedSlots:
     x_sorted: np.ndarray    # f32 [BLp] vals in sorted-slot order
     bidx: np.ndarray        # i32 [BLp] example index per sorted slot
     inv_sorted: np.ndarray  # i32 [BLp] monotone unique lanes
+    # the flat [B*L] slot of each sorted slot (the sort permutation; pads
+    # carry 0 and are masked by position). Built for loss=ffm only: its
+    # per-slot gradient has no per-key factoring, so the sorted backward
+    # gathers the batch-space gradient rows by it
+    # (learners/step.py::worker_grads_sorted).
+    slot_sorted: np.ndarray | None = None
 
 
 @dataclass
@@ -181,10 +187,12 @@ def prep_batch(
     )
 
 
-def build_sorted_slots(inv: np.ndarray, vals: np.ndarray) -> SortedSlots:
+def build_sorted_slots(inv: np.ndarray, vals: np.ndarray,
+                       with_slots: bool = False) -> SortedSlots:
     """SortedSlots for one prepped batch (``inv`` [B*L], ``vals`` [B, L]):
     a stable argsort of ``inv`` — host work the reference also did on
-    worker CPUs — run in the prep workers, overlapped with device steps."""
+    worker CPUs — run in the prep workers, overlapped with device steps.
+    ``with_slots`` also keeps the permutation (``slot_sorted``, FFM)."""
     L = vals.shape[1]
     perm = np.argsort(inv, kind="stable")
     inv_s = pad_sorted_stream(inv[perm].astype(np.int32, copy=False))
@@ -193,4 +201,9 @@ def build_sorted_slots(inv: np.ndarray, vals: np.ndarray) -> SortedSlots:
     x[:bl] = vals.reshape(-1)[perm]
     bidx = np.zeros(blp, np.int32)
     bidx[:bl] = (perm // L).astype(np.int32)
-    return SortedSlots(x_sorted=x, bidx=bidx, inv_sorted=inv_s)
+    slot_s = None
+    if with_slots:
+        slot_s = np.zeros(blp, np.int32)
+        slot_s[:bl] = perm
+    return SortedSlots(x_sorted=x, bidx=bidx, inv_sorted=inv_s,
+                       slot_sorted=slot_s)

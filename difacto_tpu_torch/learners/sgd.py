@@ -143,11 +143,15 @@ class SGDLearner:
             return ThreadedIter(src, depth=4)
         num_rows = self.store.num_rows
         min_ub = self.cfg.shard.unique_size or None
+        # FFM's sorted backward gathers its per-slot payload by the sort
+        # permutation (SortedSlots.slot_sorted)
+        with_slots = self.cfg.learner.loss == "ffm"
 
         def prep(b):
             pb = prep_batch(b, num_rows, min_ub=min_ub)
             if sorted_slots:
-                pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
+                pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
+                                                     with_slots=with_slots)
             return pb
 
         # prep_workers=0 -> auto: leave cores for the parse thread, the

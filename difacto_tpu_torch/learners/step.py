@@ -1,6 +1,6 @@
 """Worker-side batch math of the train and eval steps.
 
-Port of the fm/logit half of ``difacto_tpu/learners/step.py`` (reference:
+Port of ``difacto_tpu/learners/step.py`` (reference:
 the body of ``src/sgd/sgd_learner.h`` :: SGDLearner::Process — pull ->
 Loss::Predict/CalcGrad -> per-key gradient aggregation -> push). The
 store (parallel/store.py) decides where the table rows come from and
@@ -14,6 +14,11 @@ Two per-key aggregations:
   ``kernel=pairs``'s default): the backward runs in host-sorted slot
   order and the per-key sums come from the segment-sum kernel
   (ops/segsum.py).
+
+``loss`` is ``fm`` (K = 0 is logit) or ``ffm``: then a row's K = F*k
+factors are F field blocks of k (F = ``num_fields``, or L when slot
+position is the field) and the math is models/losses.py::ffm_loss_grad,
+streamed in ``ffm_block``-slot chunks when that is set.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.losses import fm_loss_grad, fm_predict, logit_grad_coeff
+from ..models.losses import (ffm_loss_grad, ffm_predict, fm_loss_grad,
+                             fm_predict, logit_grad_coeff)
 from ..ops.localize import Localized
 from ..ops.metrics import NUM_AUC_BINS, auc_hist_update
 from ..ops.segsum import segsum_sorted
@@ -71,20 +77,53 @@ def _batch_metrics(py, loss, correct, labels, mask) -> StepMetrics:
     )
 
 
+def _rows(rows_u: torch.Tensor, loc: Localized, B: int, L: int):
+    """The batch's [B, L, 1+K] rows, gathered from the unique rows."""
+    return rows_u.index_select(0, loc.inv).reshape(B, L, rows_u.shape[1])
+
+
+def _ffm_factors(rows: torch.Tensor, num_fields: int) -> torch.Tensor:
+    """V4 [B, L, F, k] from the rows' K = F*k factors."""
+    B, L, D = rows.shape
+    F = num_fields or L
+    assert (D - 1) % F == 0, "ffm rows must be [U, 1 + F*k]"
+    return rows[..., 1:].reshape(B, L, F, (D - 1) // F)
+
+
+def _loss_grad(rows, vals, labels, mask, loss, fields, num_fields,
+               ffm_block):
+    """The loss's forward and per-slot gradients on the batch's rows."""
+    if loss == "ffm":
+        return ffm_loss_grad(vals, rows[..., 0],
+                             _ffm_factors(rows, num_fields), labels, mask,
+                             fields=fields, block=ffm_block)
+    return fm_loss_grad(vals, rows[..., 0], rows[..., 1:], labels, mask)
+
+
 def worker_forward(
     rows_u: torch.Tensor,  # f32 [U, 1+K] pulled unique rows (w | V)
     loc: Localized,
     vals: torch.Tensor,    # f32 [B, L]
     labels: torch.Tensor,  # f32 [B] in {0,1}
     mask: torch.Tensor,    # f32 [B]
+    *,
+    loss: str = "fm",      # fm | ffm (fm with K = 0 is logit)
+    fields: torch.Tensor | None = None,  # [B, L] explicit fields (ffm)
+    num_fields: int = 0,   # ffm field count F (0: F = L, slot position)
+    ffm_block: int = 0,    # ffm: chunked cross terms (0 = dense)
 ) -> tuple[torch.Tensor, StepMetrics]:
-    """The eval step's math: forward only. Returns (py [B], metrics)."""
+    """The eval step's math: forward only (the JAX store's eval runs the
+    whole loss and keeps its forward: the same margins). Returns (py [B],
+    metrics)."""
     B, L = vals.shape
-    D = rows_u.shape[1]
-    rows = rows_u.index_select(0, loc.inv).reshape(B, L, D)
-    fwd = fm_predict(vals, rows[..., 0], rows[..., 1:])
-    _, loss, correct = logit_grad_coeff(fwd.py, labels, mask)
-    return fwd.py, _batch_metrics(fwd.py, loss, correct, labels, mask)
+    rows = _rows(rows_u, loc, B, L)
+    if loss == "ffm":
+        py = ffm_predict(vals, rows[..., 0], _ffm_factors(rows, num_fields),
+                         fields=fields, block=ffm_block)
+    else:
+        py = fm_predict(vals, rows[..., 0], rows[..., 1:]).py
+    _, lossv, correct = logit_grad_coeff(py, labels, mask)
+    return py, _batch_metrics(py, lossv, correct, labels, mask)
 
 
 def worker_grads(
@@ -93,15 +132,21 @@ def worker_grads(
     vals: torch.Tensor,    # f32 [B, L]
     labels: torch.Tensor,  # f32 [B] in {0,1}
     mask: torch.Tensor,    # f32 [B]
+    *,
+    loss: str = "fm",
+    fields: torch.Tensor | None = None,
+    num_fields: int = 0,
+    ffm_block: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, StepMetrics]:
     """Per-unique-id aggregated gradients by scatter-add. Returns
-    (grads_u [U, 1+K], py [B], metrics)."""
+    (grads_u [U, 1+K], py [B], metrics). The loss keywords are those of
+    :func:`worker_forward`."""
     B, L = vals.shape
     U, D = rows_u.shape
-    K = D - 1
-    rows = rows_u.index_select(0, loc.inv).reshape(B, L, D)
-    fwd, g = fm_loss_grad(vals, rows[..., 0], rows[..., 1:], labels, mask)
-    flat = torch.cat([g.dW.reshape(B * L, 1), g.dV.reshape(B * L, K)], dim=1)
+    fwd, g = _loss_grad(_rows(rows_u, loc, B, L), vals, labels, mask, loss,
+                        fields, num_fields, ffm_block)
+    flat = torch.cat([g.dW.reshape(B * L, 1), g.dV.reshape(B * L, D - 1)],
+                     dim=1)
     grads_u = torch.zeros((U, D), dtype=flat.dtype, device=flat.device)
     grads_u.index_add_(0, loc.inv, flat)
     return grads_u, fwd.py, _batch_metrics(fwd.py, g.loss, g.correct,
@@ -115,6 +160,13 @@ def worker_grads_sorted(
     labels: torch.Tensor,  # f32 [B]
     mask: torch.Tensor,    # f32 [B]
     ss: tuple,             # (x_sorted [BLp], bidx [BLp], inv_sorted [BLp])
+    *,
+    loss: str = "fm",
+    fields: torch.Tensor | None = None,
+    num_fields: int = 0,
+    ffm_block: int = 0,
+    slot_s: torch.Tensor | None = None,  # i32 [BLp] flat slot of each
+                           # sorted slot (the sort permutation; ffm only)
 ) -> tuple[torch.Tensor, torch.Tensor, StepMetrics]:
     """worker_grads with the aggregation done by the segment-sum kernel.
 
@@ -126,15 +178,30 @@ def worker_grads_sorted(
               = sum_s (dw_s * S_b(s))  -  V_u * sum_s (dw_s * x_s)
 
     — the payload is 2+K rows (dw | dw*x | dw*S; 1 row when K == 0) and
-    one per-key combine against the pulled rows. Returns grads PLANAR
+    one per-key combine against the pulled rows. FFM's per-slot gradient
+    has no such factoring (a slot's gradient depends on its field-crossed
+    partners) and ffm_loss_grad has it in batch space already: its
+    payload is the 1+K rows of each slot's gradient gathered by
+    ``slot_s``, pads zeroed, summed with no combine. Returns grads PLANAR
     [1+K, U] (the apply payload layout), py and metrics. Sums differ from
     the scatter path by float association only."""
     B, L = vals.shape
     K = rows_u.shape[1] - 1
     x_s, bidx, inv_s = ss
-    rows = rows_u.index_select(0, loc.inv).reshape(B, L, K + 1)
+    rows = _rows(rows_u, loc, B, L)
+    if loss == "ffm":
+        fwd, g = _loss_grad(rows, vals, labels, mask, loss, fields,
+                            num_fields, ffm_block)
+        flat = torch.cat([g.dW.reshape(B * L, 1), g.dV.reshape(B * L, K)],
+                         dim=1)
+        real = torch.arange(slot_s.shape[0], device=flat.device) < B * L
+        pay = torch.where(real[:, None],
+                          flat.index_select(0, slot_s.long()), 0.0)
+        grads_p = segsum_sorted(pay.T.contiguous(), inv_s, rows_u.shape[0])
+        return grads_p, fwd.py, _batch_metrics(fwd.py, g.loss, g.correct,
+                                               labels, mask)
     fwd = fm_predict(vals, rows[..., 0], rows[..., 1:])
-    d, loss, correct = logit_grad_coeff(fwd.py, labels, mask)
+    d, lossv, correct = logit_grad_coeff(fwd.py, labels, mask)
     if K > 0:
         dS = torch.cat([d[:, None], fwd.S], dim=1)        # [B, 1+K]
         g = dS.index_select(0, bidx)                      # [BLp, 1+K]
@@ -149,5 +216,5 @@ def worker_grads_sorted(
         grads_p = torch.cat([segs[:1], gV], dim=0)
     else:
         grads_p = segs
-    return grads_p, fwd.py, _batch_metrics(fwd.py, loss, correct, labels,
+    return grads_p, fwd.py, _batch_metrics(fwd.py, lossv, correct, labels,
                                            mask)

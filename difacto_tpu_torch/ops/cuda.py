@@ -73,8 +73,8 @@ _SIGNATURES = {
     # as dft_apply_pairs, then the stage flags before the stream
     "dft_apply_pairs2": [_VP] * 8 + [_LL, _I, _I] + [_F] * 8
     + [_I, _I, _I, _I, _VP],
-    # A, uids, out, N, K, U, V_threshold, stream
-    "dft_pull_packed": [_VP] * 3 + [_LL, _I, _I, _F, _VP],
+    # A, uids, out, N, K, U, V_threshold, flags, stream
+    "dft_pull_packed": [_VP] * 3 + [_LL, _I, _I, _F, _I, _VP],
     # A, B, uids, payload, N, K, U, then as dft_apply_pairs2 from lr_eta on
     "dft_apply_packed": [_VP] * 4 + [_LL, _I, _I] + [_F] * 8
     + [_I, _I, _I, _I, _VP],

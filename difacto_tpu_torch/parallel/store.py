@@ -22,7 +22,10 @@ and the per-key aggregation, as the JAX store does
 
 Both take the host-prepped batch (data/prep.py) and run the hand-written
 kernels when the state lies on the card, their plain versions when it
-lies on the CPU. The sharded store waits (ROADMAP A9).
+lies on the CPU. ``loss=ffm`` runs every path with rows of 1 + F*k
+floats (``Config.effective_model_param``) and the FFM math of
+learners/step.py (JAX ``store.py:227-230``). The sharded store waits
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def _resolve_layout(cfg: Config) -> str:
     and moves nobody onto a kernel that is slower. With factors
     (V_dim > 0) every row-major kernel, pairs and sweep, is faster than
     its planar counterpart for every updater pair, with the L2 warm and
-    cold: packed. Without factors the row-major sweep kernels and the pair
+    cold, at K = 16 and at FFM's K = F*k = 96 alike: packed. Without factors the row-major sweep kernels and the pair
     apply are faster too, but the pair pull reads w out of a table four
     times the size of the planar w and is slower with the L2 cold: packed
     on ``kernel=pallas``, planar on the pairs path."""
@@ -86,6 +89,16 @@ class LocalStore:
         self.device = resolve_device(device)
         self.num_rows = 1 << cfg.data.num_bits
         self.param = updater.param
+        width = cfg.effective_model_param().V_dim
+        if self.param.V_dim != width:
+            raise ValueError(
+                f"the updater's V_dim {self.param.V_dim} is not the config's "
+                f"factor width {width} (Config.effective_model_param: F*k "
+                "for loss=ffm)")
+        # the loss and its keywords for learners/step.py (fields: A18)
+        self.loss = cfg.learner.loss
+        self.loss_kw = dict(loss=self.loss, num_fields=cfg.model.num_fields,
+                            ffm_block=cfg.model.ffm_block_size)
         s = cfg.shard
         self.pallas = s.kernel == "pallas"
         self.layout = _resolve_layout(cfg)
@@ -121,7 +134,7 @@ class LocalStore:
         k = self.param.V_dim
         if host_state.k != k:
             raise ValueError(f"checkpoint has V_dim {host_state.k} but this "
-                             f"store expects {k}")
+                             f"store expects {k} (F*k for loss=ffm)")
         packed_in = isinstance(host_state, PackedFMState)
         if packed_in:
             tbl = host_state.tbl[: self.num_rows]
@@ -147,12 +160,16 @@ class LocalStore:
     def _placed(self, pb: PreppedBatch, need_slots: bool) -> PreppedBatch:
         """The batch as tensors on this store's device. Host batches get
         their sorted slots built here when the prep workers did not
-        (kept on the batch, so replayed batches reuse them)."""
-        if need_slots and pb.sorted_slots is None:
+        (kept on the batch, so replayed batches reuse them); FFM's also
+        keep the sort permutation."""
+        ffm = self.loss == "ffm"
+        ss = pb.sorted_slots
+        if need_slots and (ss is None or (ffm and ss.slot_sorted is None)):
             if isinstance(pb.inv, torch.Tensor):
                 raise ValueError("a placed batch needs its sorted slots "
                                  "built before placement (data/prep.py)")
-            pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
+            pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
+                                                 with_slots=ffm)
         return place_batch(pb, self.device)
 
     def _pull(self, state, pb: PreppedBatch) -> torch.Tensor:
@@ -187,10 +204,12 @@ class LocalStore:
             grads, _, metrics = worker_grads_sorted(
                 rows_u, loc, pb.vals, pb.labels, pb.mask,
                 (ss.x_sorted, ss.bidx, ss.inv_sorted),
+                slot_s=ss.slot_sorted, **self.loss_kw,
             )
         else:
             grads_u, _, metrics = worker_grads(rows_u, loc, pb.vals,
-                                               pb.labels, pb.mask)
+                                               pb.labels, pb.mask,
+                                               **self.loss_kw)
             grads = grads_u.T
         return self._apply(state, pb, grads), metrics
 
@@ -201,7 +220,7 @@ class LocalStore:
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
         py, metrics = worker_forward(self._pull(state, pb), loc, pb.vals,
-                                     pb.labels, pb.mask)
+                                     pb.labels, pb.mask, **self.loss_kw)
         return metrics, py
 
     def stats(self, state) -> dict[str, float]:

@@ -74,13 +74,25 @@ def pull_packed_plain(a: torch.Tensor, uids: torch.Tensor,
     return out
 
 
-def pull_packed(a: torch.Tensor, uids: torch.Tensor,
-                param: FMParam) -> torch.Tensor:
+# The pull's stage words, flags of csrc/packed_pairs.cu's C entry: ``pull``
+# the kernel; ``readonly`` its floor, the same loads and no stores.
+PULL_PACKED_STAGES = {"pull": 0, "readonly": 1}
+
+
+def pull_packed(a: torch.Tensor, uids: torch.Tensor, param: FMParam,
+                stage: str = "pull") -> torch.Tensor | None:
     """``pull_pairs`` over the packed A: rows [1+K, U] for sorted unique
     ``uids`` (i32, sentinel ``N`` pads); row 0 is w, rows 1..K are V gated
     by ``cnt >= V_threshold``; sentinel lanes are 0 (undefined in the TPU
-    script's output)."""
+    script's output). ``stage="readonly"`` launches the kernel's floor,
+    which issues the pull's loads and stores nothing, and returns None
+    (on the CPU it does nothing)."""
+    if stage not in PULL_PACKED_STAGES:
+        raise ValueError(f"stage {stage!r} not in "
+                         f"{sorted(PULL_PACKED_STAGES)}")
     if uids.device.type == "cpu":
+        if stage == "readonly":
+            return None
         return pull_packed_plain(a, uids, param)
     dev = a.device
     k, n, u = a.shape[0] - 2, a.shape[1], uids.shape[0]
@@ -89,10 +101,11 @@ def pull_packed(a: torch.Tensor, uids: torch.Tensor,
     out = torch.empty((1 + k, u), dtype=torch.float32, device=dev)
     rc = cuda.library().dft_pull_packed(
         a.data_ptr(), uids.data_ptr(), out.data_ptr(), n, k, u,
-        float(param.V_threshold), cuda.stream(dev))
+        float(param.V_threshold), PULL_PACKED_STAGES[stage],
+        cuda.stream(dev))
     cuda.check(rc, "pull_packed")
     cuda.LAUNCHES["pull_packed"] += 1
-    return out
+    return None if stage == "readonly" else out
 
 
 def apply_packed_plain(a, b, uids, payload, param: FMParam):
@@ -203,6 +216,8 @@ def main(argv=None, device=None) -> int:
     if dev.type == "cuda":
         calls = {
             "pull packed": lambda: pull_packed(a, uids, p),
+            "pull packed readonly": lambda: pull_packed(a, uids, p,
+                                                        "readonly"),
             "pull current": lambda: pair_sweep.pull_pairs(state, uids, p),
             "apply current": lambda: pair_sweep.apply_pairs(s2, uids, pay,
                                                             p)}

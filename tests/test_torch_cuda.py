@@ -120,7 +120,7 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("K", [0, 4])
+@pytest.mark.parametrize("K", [0, 4, 96])
 def test_cuda_pull_matches_plain(card, K):
     rng = np.random.default_rng(30 + K)
     p = port_params(V_dim=K)
@@ -135,7 +135,8 @@ def test_cuda_pull_matches_plain(card, K):
 @pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
                                              (0, "ftrl", "adagrad", 0),
                                              (2, "adagrad", "sgd", 0),
-                                             (3, "sgd", "adagrad", 2)])
+                                             (3, "sgd", "adagrad", 2),
+                                             (96, "ftrl", "adagrad", 0)])
 @pytest.mark.parametrize("repeat", [False, True])
 def test_cuda_apply_matches_plain(card, K, wupd, vupd, tff, repeat):
     rng = np.random.default_rng(40 + K)
@@ -197,7 +198,7 @@ def test_cuda_segsum_exact_on_integers(card):
     assert torch.equal(got, segsum.segsum_sorted_plain(pay_t, lanes_t, ub))
 
 
-@pytest.mark.parametrize("K", [0, 4, 40])
+@pytest.mark.parametrize("K", [0, 4, 40, 96])
 @pytest.mark.parametrize("lens", [(300,), (300, 200)])
 def test_cuda_sweep_pull_matches_plain(card, K, lens):
     rng = np.random.default_rng(60 + K + len(lens))
@@ -215,7 +216,8 @@ def test_cuda_sweep_pull_matches_plain(card, K, lens):
 @pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
                                              (0, "ftrl", "adagrad", 0),
                                              (40, "adagrad", "sgd", 0),
-                                             (3, "sgd", "adagrad", 2)])
+                                             (3, "sgd", "adagrad", 2),
+                                             (96, "ftrl", "adagrad", 0)])
 @pytest.mark.parametrize("lens", [(300,), (300, 200)])
 def test_cuda_sweep_apply_matches_plain(card, K, wupd, vupd, tff, lens):
     rng = np.random.default_rng(70 + K + len(lens))
@@ -516,7 +518,7 @@ def test_cuda_apply_refuses_an_unsorted_stream(card, kernel):
     assert "device-side assert" in out or "non-decreasing" in out, out
 
 
-@pytest.mark.parametrize("K", [0, 4])
+@pytest.mark.parametrize("K", [0, 4, 96])
 def test_cuda_pull_packed_matches_plain_and_pull_pairs(card, K):
     rng = np.random.default_rng(90 + K)
     p = port_params(V_dim=K)
@@ -730,7 +732,7 @@ def lane_payload(K, valid, rng):
     return np.concatenate([grads, addc[None], vf[None]], axis=0)
 
 
-@pytest.mark.parametrize("K", [0, 1, 3, 4, 6, 16, 40, 100])
+@pytest.mark.parametrize("K", [0, 1, 3, 4, 6, 16, 40, 96, 100])
 @pytest.mark.parametrize("u,n_valid", [(384, 336), (1, 1), (70, 0),
                                        (1000, 999)])
 def test_cuda_pull_rowmajor_matches_plain_and_pull_pairs(card, K, u, n_valid):
@@ -762,6 +764,7 @@ def test_cuda_pull_rowmajor_matches_plain_and_pull_pairs(card, K, u, n_valid):
                                              (3, "sgd", "adagrad", 2),
                                              (16, "ftrl", "adagrad", 0),
                                              (5, "ftrl", "sgd", 1),
+                                             (96, "ftrl", "adagrad", 0),
                                              (100, "ftrl", "adagrad", 0)])
 @pytest.mark.parametrize("u,n_valid,repeat", [(384, 336, False),
                                               (384, 336, True),
@@ -867,7 +870,7 @@ def test_cuda_planar_only_kernels_refuse_a_packed_state(card):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("K", [0, 1, 3, 4, 6, 16, 40, 100])
+@pytest.mark.parametrize("K", [0, 1, 3, 4, 6, 16, 40, 96, 100])
 @pytest.mark.parametrize("lens", [(300,), (300, 200), (40, 300, 5)])
 def test_cuda_sweep_pull_rowmajor_matches_plain_and_sweep_pull(card, K, lens):
     """One, two and three streams with ids repeated within and across
@@ -900,6 +903,7 @@ def test_cuda_sweep_pull_rowmajor_matches_plain_and_sweep_pull(card, K, lens):
                                              (3, "sgd", "adagrad", 2),
                                              (16, "ftrl", "adagrad", 0),
                                              (5, "ftrl", "sgd", 1),
+                                             (96, "ftrl", "adagrad", 0),
                                              (100, "ftrl", "adagrad", 0)])
 @pytest.mark.parametrize("lens", [(300,), (300, 200), (40, 300, 5)])
 def test_cuda_sweep_apply_rowmajor_matches_plain_and_sweep_apply(
@@ -1031,6 +1035,7 @@ def _segsum_designs(pay_t, lanes_t, ub):
                                           (100, 64, 3, False),
                                           (1, 8, 1, False),
                                           (4099, 300, 40, True),
+                                          (20000, 4096, 97, True),
                                           (20000, 640, 300, True)])
 def test_cuda_segsum_designs(card, design, bl, ub, pp, pad):
     """Every design, on a power-law lane stream whose hot lane spans
@@ -1085,3 +1090,64 @@ def test_cuda_segsum_unaligned_payload(card):
     assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
     assert torch.equal(segsum.segsum_sorted(odd, lanes_t, ub),
                        segsum.segsum_sorted_plain(odd, lanes_t, ub))
+
+
+def test_cuda_pull_packed_readonly_issues_the_loads_and_stores_nothing(card):
+    """The packed pull's floor: one launch under the pull's count, no
+    output, A as it was."""
+    rng = np.random.default_rng(95)
+    p = port_params(V_dim=96)
+    a, _ = packed_probe.pack_state(state_from_numpy(state_np(96, rng),
+                                                    device=card))
+    before = a.clone()
+    uids = torch.from_numpy(sorted_uids(rng)[0]).to(card)
+    n0 = cuda.LAUNCHES["pull_packed"]
+    assert packed_probe.pull_packed(a, uids, p, "readonly") is None
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["pull_packed"] == n0 + 1
+    assert torch.equal(a, before)
+
+
+@pytest.mark.parametrize("extra", [
+    (), (("layout", "planar"),), (("segsum", "scatter"),),
+    (("kernel", "pallas"),), (("kernel", "pallas"), ("layout", "planar"),
+                              ("segsum", "sorted")),
+    (("ffm_block_size", "5"),)])
+@pytest.mark.parametrize("L,k", [(8, 2), (24, 4)])
+def test_cuda_ffm_store_steps_match_cpu(card, extra, L, k):
+    """loss=ffm train and eval steps on the card, every table path (K = 16
+    and the config-5 width K = 96, 97 payload rows), against the same
+    steps on the CPU from one state: leaves atol 2e-5 rtol 1e-5 (sums in
+    another order), margins likewise."""
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data.batch_iter import Batch
+    from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+
+    cfg = Config.from_kwargs([
+        ("batch_size", "256"), ("num_bits", "14"), ("loss", "ffm"),
+        ("max_nnz_per_row", str(L)), ("V_dim", str(k)), ("lr_eta", "0.1"),
+        ("l1", "0.1"), ("V_lr_eta", "0.05"), ("V_threshold", "1"), *extra])
+    upd = FMUpdater(cfg.effective_model_param())
+    gpu = LocalStore(upd, cfg, device=card)
+    cpu = LocalStore(upd, cfg, device="cpu")
+    sg = gpu.init_state(5)
+    sc = cpu.place_state(sg)
+    rng = np.random.default_rng(300 + L)
+    n = 1 << 14
+    for _ in range(4):
+        ids = rng.integers(0, n, (256, L)).astype(np.int32)
+        ids[rng.random((256, L)) < 0.1] = -1
+        vals = np.where(ids < 0, 0, rng.normal(size=(256, L))).astype(
+            np.float32)
+        b = Batch(ids, vals, (rng.random(256) > 0.5).astype(np.float32),
+                  np.ones(256, np.float32))
+        sg, _ = gpu.train_step_prepped(sg, prep_batch(b, n))
+        sc, _ = cpu.train_step_prepped(sc, prep_batch(b, n))
+    for name in LEAVES:
+        torch.testing.assert_close(getattr(sg, name).cpu(), getattr(sc, name),
+                                   atol=2e-5, rtol=1e-5, msg=name)
+    _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, n))
+    _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, n))
+    torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)

@@ -417,26 +417,28 @@ def test_unknown_key_is_fatal():
         Config.from_kwargs([("V_dim", "4"), ("no_such_key", "1")])
 
 
-@pytest.mark.parametrize(
-    "key,val,item",
-    [
-        ("store", "sharded", "A9"),
-        ("learner", "bcd", "A15"),
-        ("loss", "ffm", "A8"),
-        ("hot_rows", "1024", "A13"),
-        ("kernel", "xla", "A14"),
-        ("layout", "stacked", "A14"),
-        ("pred_out", "hdfs://host/pred", "A19"),
-        ("host_localize", "0", "A16"),
-        ("data_format", "libffm", "A18"),
-        ("data_format", "csr", "A18"),
-        ("data_in", "s3://bucket/train", "A19"),
-        ("model_out", "gs://bucket/model", "A19"),
-    ],
-)
-def test_out_of_slice_setting_raises(key, val, item):
+_OUT_OF_SLICE = [
+    ("store", "sharded", "A9", ()),
+    ("learner", "bcd", "A15", ()),
+    # FFM is in the port by slot position; explicit libffm fields are not
+    ("loss", "ffm", "A18", (("data_format", "libffm"), ("num_fields", "4"))),
+    ("hot_rows", "1024", "A13", ()),
+    ("kernel", "xla", "A14", ()),
+    ("layout", "stacked", "A14", ()),
+    ("pred_out", "hdfs://host/pred", "A19", ()),
+    ("host_localize", "0", "A16", ()),
+    ("data_format", "libffm", "A18", ()),
+    ("data_format", "csr", "A18", ()),
+    ("data_in", "s3://bucket/train", "A19", ()),
+    ("model_out", "gs://bucket/model", "A19", ()),
+]
+
+
+@pytest.mark.parametrize("key,val,item,extra", _OUT_OF_SLICE,
+                         ids=[f"{k}-{v}-{i}" for k, v, i, _ in _OUT_OF_SLICE])
+def test_out_of_slice_setting_raises(key, val, item, extra):
     with pytest.raises(NotImplementedError, match=item):
-        Config.from_kwargs([(key, val)])
+        Config.from_kwargs([(key, val), *extra])
 
 
 @pytest.mark.parametrize(

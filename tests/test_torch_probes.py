@@ -187,6 +187,28 @@ def test_pull_packed_matches_jax(K):
         got, pair_sweep.pull_pairs(state_from_numpy(s), T(uids), tp).numpy())
 
 
+@pytest.mark.parametrize("stage", ["pull", "readonly", "loads"])
+def test_pull_packed_stage_words_on_the_cpu(stage):
+    """The packed pull's stage words on the CPU: ``pull`` is the pull,
+    the floor ``readonly`` (loads alone, nothing stored on the card)
+    returns None, any other word raises."""
+    rng = np.random.default_rng(235)
+    _, tp = _params(V_dim=3)
+    s = _state_np(3, rng)
+    uids, _ = _sorted_uids(rng)
+    a, _ = hw_packed_pairs.pack_state(state_from_numpy(s))
+    if stage not in hw_packed_pairs.PULL_PACKED_STAGES:
+        with pytest.raises(ValueError, match="stage"):
+            hw_packed_pairs.pull_packed(a, T(uids), tp, stage)
+        return
+    got = hw_packed_pairs.pull_packed(a, T(uids), tp, stage)
+    if stage == "readonly":
+        assert got is None
+    else:
+        assert torch.equal(got, hw_packed_pairs.pull_packed_plain(
+            a, T(uids), tp))
+
+
 @pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
                                              (0, "ftrl", "adagrad", 0),
                                              (2, "adagrad", "sgd", 0),
