@@ -45,10 +45,10 @@ Phases, each a hard failure:
 
 FFM (``loss=ffm``) at BASELINE config 5's width (``examples/ffm.conf``:
 batch 4096 x 24 slots, the slot position as field, k = 4, so K = F*k = 96
-factors a feature, 2^22 rows) runs through the same phases: its kernels
-(B1, B2, ``pull_rowmajor``, ``apply_rowmajor`` at K = 96, B3 on 97
-payload rows, the sweep kernels at K = 96) against their plain versions
-and timed in turns, layout by layout; ``ffm_loss_grad`` on the card
+factors a feature, 2^22 rows) runs through the same phases: the checks of
+the row-major kernels, pairs and sweep, and of B3's designs run again at
+its width (K = 96, B3 on 97 payload rows), against their plain versions
+and the planar kernels and timed in turns; ``ffm_loss_grad`` on the card
 against the CPU; its train and eval steps on every table path against
 the CPU; two more main paths through ``SGDLearner`` (``FFM_PATHS``:
 ``kernel=auto``, which resolves to the row-major table, and
@@ -215,8 +215,7 @@ PLANAR_NAMES = ("apply_pairs_kernel", "planar_apply_kernel")
 EXTRA_KEYS = ("kernel_ms", "kernel_ms_flushed", "tiles_kernel_ms",
               "tiles_kernel_ms_flushed", "rmwonly_ms", "rmwonly_ms_flushed",
               "b2_kernel_ms", "b2_kernel_ms_flushed", "readonly_ms",
-              "readonly_ms_flushed", "b1_kernel_ms", "b1_kernel_ms_flushed",
-              "sectors", "sector_floor_ms")
+              "readonly_ms_flushed", "b1_kernel_ms", "b1_kernel_ms_flushed")
 # the figures at FFM's width (K = 96) of the kernels of its path, each
 # measured in the run (k96_launches: the FFM main paths' drives)
 K96_KEYS = ("k96_launches", "k96_max_abs_err", "k96_ms", "k96_kernel_ms",
@@ -297,6 +296,94 @@ def planar_turns(dev, pb, base, q, payload, calls) -> dict:
     return recs
 
 
+def check_segsum(dev, pb, g, pp: int) -> dict:
+    """Phase 2, B3 in its three designs on a ``pp``-row payload over the
+    batch's sorted slots: segsum_sorted (the one the paths run),
+    segsum_sorted_chunks (the first design) and segsum_sorted_rows
+    (row-major payload). Each against the float64 sums, exact on integers,
+    untouched lanes 0, and the same bits on a second run; then timed in
+    turns, warm and flushed, and segsum_sorted must be the fastest. Returns
+    their records."""
+    import torch
+
+    from difacto_tpu_torch.ops import segsum
+    from difacto_tpu_torch.probes import common
+
+    U = pb.uids.shape[0]
+    lanes = pb.sorted_slots.inv_sorted
+    blp, bl = lanes.shape[0], pb.vals.numel()
+    payT = torch.randn((pp, blp), generator=g, device=dev)
+    payT[:, bl:] = 0.0
+    # integers in [1, 8]: every partial sum stays below 2^24 and is exact
+    # in float32, so a slot or tile piece lost or added twice shows,
+    # however long the hot key's segment (the float64 bound is loose there)
+    ipay = torch.randint(1, 9, (pp, blp), generator=g, device=dev).float()
+    ipay[:, bl:] = 0.0
+    pay_rm, ipay_rm = payT.T.contiguous(), ipay.T.contiguous()
+    seg_designs = {
+        "segsum_sorted": (lambda x, xr: segsum.segsum_sorted(x, lanes, U),
+                          "difacto_tpu_torch/csrc/segsum_tiles.cu"),
+        "segsum_chunks": (lambda x, xr: segsum.segsum_sorted_chunks(
+            x, lanes, U), "difacto_tpu_torch/csrc/segsum.cu"),
+        "segsum_rows": (lambda x, xr: segsum.segsum_sorted_rows(xr, lanes, U),
+                        "difacto_tpu_torch/csrc/segsum_tiles.cu"),
+    }
+    ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
+    seg_n = torch.bincount(lanes.long(), minlength=U).double()
+    tol = f64_sum_tolerance(seg_n, segsum.segsum_sorted_plain(
+        payT.abs().double(), lanes, U))
+    untouched = seg_n == 0
+    iref = segsum.segsum_sorted_plain(ipay, lanes, U)
+    seg_err = {}
+    for name, (fn, _) in seg_designs.items():
+        got = fn(payT, pay_rm)
+        diff = (got.double() - ref).abs()
+        seg_err[name] = float(diff.max())
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"{name} on {pp} rows differs from its plain "
+                                 f"version beyond the float32 summation "
+                                 f"bound (max abs err {seg_err[name]:g})")
+        if not bool((got[:, untouched] == 0).all()):
+            raise AssertionError(f"{name} on {pp} rows: untouched lanes are "
+                                 "not 0")
+        if not torch.equal(fn(payT, pay_rm), got):
+            raise AssertionError(f"{name} on {pp} rows: a second run gave "
+                                 "other bits")
+        if not torch.equal(fn(ipay, ipay_rm), iref):
+            raise AssertionError(f"{name} on {pp} rows differs from its plain "
+                                 "version on an integer payload (tolerance: "
+                                 "exact)")
+    log(f"segsum on {pp} payload rows: hottest segment {int(seg_n.max())} "
+        f"slots; max abs err against the float64 sums {json.dumps(seg_err)}; "
+        "integer payload exact, untouched lanes 0 and a second run "
+        "bit-equal, all designs")
+    del ipay, ipay_rm, ref, iref, tol
+    lanes_l = lanes.long()
+    acc = torch.zeros((pp, U), device=dev)
+    b_ms, b_by = bound(4 * (pp * blp + blp + pp * U), pp * blp)
+    seg_names = ("segsum", "Memset")  # each design's kernels and its memset
+    calls = {name: (lambda f=f: f[0](payT, pay_rm))
+             for name, f in seg_designs.items()}
+    order = list(calls) + list(calls)[::-1]
+    seg_ms = dict.fromkeys(calls, 0.0)
+    for name in order:
+        seg_ms[name] += cuda_ms(calls[name]) / 2
+    own = common.kernel_ms_in_turns(dev, calls, seg_names)
+    log(f"segsum designs on {pp} payload rows in turns, kernel time with the "
+        f"memset: {json.dumps(own)}; by events {json.dumps(seg_ms)}")
+    if not all(t["segsum_sorted"] <= min(t.values()) for t in own.values()):
+        raise AssertionError(f"the paths' segsum_sorted is not the fastest of "
+                             f"the three designs on {pp} rows: {own}")
+    plain_ms = cuda_ms(lambda: segsum.segsum_sorted_plain(payT, lanes, U))
+    library_ms = cuda_ms(lambda: acc.index_add_(1, lanes_l, payT))
+    return {name: dict(
+        route="cuda", source=seg_designs[name][1],
+        replaces="difacto_tpu/ops/segsum.py:156", max_abs_err=seg_err[name],
+        ms=seg_ms[name], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, kernel_ms=own["warm"][name],
+        kernel_ms_flushed=own["cold"][name]) for name in seg_designs}
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version at the flagship
     shapes. Returns the kernels' records (without launches)."""
@@ -305,7 +392,6 @@ def check_kernels(dev):
     from difacto_tpu_torch.config import FMParam
     from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
     from difacto_tpu_torch.ops import cuda, pair_sweep, segsum
-    from difacto_tpu_torch.probes import common
     from difacto_tpu_torch.updaters.updater import FMUpdater
     from difacto_tpu_torch.utils.place import place_batch
 
@@ -342,56 +428,11 @@ def check_kernels(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
-    # -- segsum, three designs: segsum_sorted (the one the paths run),
-    # segsum_sorted_chunks (the first design) and segsum_sorted_rows
-    # (row-major payload). Each against the
-    # float64 sums, exact on integers, untouched lanes 0, and the same
-    # bits on a second run; then timed in turns --------------------------
-    pp = 2 + K
-    lanes = pb.sorted_slots.inv_sorted
+    # -- segsum: B3's three designs on the FM payload's 2 + K rows; then
+    # segsum_sorted on more rows than one block has threads --------------
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    payT = torch.randn((pp, blp), generator=g, device=dev)
-    payT[:, BATCH * NNZ:] = 0.0
-    # integers in [1, 8]: every partial sum stays below 2^24 and is exact
-    # in float32, so a slot or tile piece lost or added twice shows,
-    # however long the hot key's segment (the float64 bound is loose there)
-    ipay = torch.randint(1, 9, (pp, blp), generator=g, device=dev).float()
-    ipay[:, BATCH * NNZ:] = 0.0
-    pay_rm, ipay_rm = payT.T.contiguous(), ipay.T.contiguous()
-    seg_designs = {
-        "segsum_sorted": (lambda x, xr: segsum.segsum_sorted(x, lanes, U),
-                          "difacto_tpu_torch/csrc/segsum_tiles.cu"),
-        "segsum_chunks": (lambda x, xr: segsum.segsum_sorted_chunks(
-            x, lanes, U), "difacto_tpu_torch/csrc/segsum.cu"),
-        "segsum_rows": (lambda x, xr: segsum.segsum_sorted_rows(xr, lanes, U),
-                        "difacto_tpu_torch/csrc/segsum_tiles.cu"),
-    }
-    ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
-    seg_n = torch.bincount(lanes.long(), minlength=U).double()
-    tol = f64_sum_tolerance(seg_n, segsum.segsum_sorted_plain(
-        payT.abs().double(), lanes, U))
-    untouched = seg_n == 0
-    iref = segsum.segsum_sorted_plain(ipay, lanes, U)
-    seg_err = {}
-    for name, (fn, _) in seg_designs.items():
-        got = fn(payT, pay_rm)
-        diff = (got.double() - ref).abs()
-        seg_err[name] = float(diff.max())
-        if not bool((diff <= tol).all()):
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"beyond the float32 summation bound "
-                                 f"(max abs err {seg_err[name]:g})")
-        if not bool((got[:, untouched] == 0).all()):
-            raise AssertionError(f"{name}: untouched lanes are not 0")
-        if not torch.equal(fn(payT, pay_rm), got):
-            raise AssertionError(f"{name}: a second run gave other bits")
-        if not torch.equal(fn(ipay, ipay_rm), iref):
-            raise AssertionError(f"{name} differs from its plain version on "
-                                 "an integer payload (tolerance: exact)")
-    log(f"segsum: hottest segment {int(seg_n.max())} slots; max abs err "
-        f"against the float64 sums {json.dumps(seg_err)}; integer payload "
-        "exact, untouched lanes 0 and a second run bit-equal, all designs")
+    out.update(check_segsum(dev, pb, g, 2 + K))
     # more payload rows than the second pass's block has threads (V_dim
     # > 254), with a run that crosses more tiles than one thread sums
     lw = torch.cat([torch.arange(3000) // 3, torch.full((5000,), 1000),
@@ -408,33 +449,6 @@ def check_kernels(dev):
                              f"{cuda.LAUNCHES}")
     log("segsum_sorted on 300 payload rows of integers: exact")
     del lw, wpay
-    lanes_l = lanes.long()
-    acc = torch.zeros((pp, U), device=dev)
-    b_ms, b_by = bound(4 * (pp * blp + blp + pp * U), pp * blp)
-    seg_names = ("segsum", "Memset")  # each design's kernels and its memset
-    calls = {name: (lambda f=f: f[0](payT, pay_rm))
-             for name, f in seg_designs.items()}
-    order = list(calls) + list(calls)[::-1]
-    seg_ms = dict.fromkeys(calls, 0.0)
-    for name in order:
-        seg_ms[name] += cuda_ms(calls[name]) / 2
-    own = common.kernel_ms_in_turns(dev, calls, seg_names)
-    log(f"segsum designs in turns, kernel time with the memset: "
-        f"{json.dumps(own)}; by events {json.dumps(seg_ms)}")
-    if not all(t["segsum_sorted"] <= min(t.values()) for t in own.values()):
-        raise AssertionError("the paths' segsum_sorted is not the fastest of "
-                             f"the three designs: {own}")
-    plain_ms = cuda_ms(lambda: segsum.segsum_sorted_plain(payT, lanes, U))
-    library_ms = cuda_ms(lambda: acc.index_add_(1, lanes_l, payT))
-    for name in seg_designs:
-        out[name] = dict(
-            route="cuda", source=seg_designs[name][1],
-            replaces="difacto_tpu/ops/segsum.py:156",
-            max_abs_err=seg_err[name], ms=seg_ms[name], plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-            kernel_ms=own["warm"][name],
-        )
-    del ipay, pay_rm, ipay_rm, ref, iref, tol
 
     # -- apply on planar leaves (B2 one row per thread; B6 by the entry of
     # csrc/planar_apply.cu): every w/V updater pair, and K = 0; B6 by
@@ -520,9 +534,14 @@ def check_kernels(dev):
         [torch.randn((1 + K, U), generator=g, device=dev) * vf,
          (pb.ucounts * vf)[None], vf[None]]), PLANAR_CALLS)
     out["apply_pairs2"].update(planar["apply_pairs2"])
-    out.update(check_sweep_kernels(dev, pb, st, g))
+    out.update(check_sweep_kernels(dev, pb, st, g, K))
     out.update(check_probe_kernels(dev, pb, st, g, planar["apply_packed"]))
-    out.update(check_rowmajor_kernels(dev, pb, st, out))
+    rm = check_rowmajor_kernels(dev, pb, st, K)
+    for name in ("pull_pairs", "apply_pairs"):  # their time in those turns
+        planar_rec = rm.pop(name)
+        for key in ("kernel_ms", "kernel_ms_flushed"):
+            out[name][key] = planar_rec[key]
+    out.update(rm)
     for name, rec in out.items():
         log(f"kernel {name}: max_abs_err {rec['max_abs_err']:g}  "
             f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
@@ -531,13 +550,17 @@ def check_kernels(dev):
     return out
 
 
-def check_rowmajor_kernels(dev, pb, st, planar_recs):
+def check_rowmajor_kernels(dev, pb, st, k_main: int) -> dict:
     """Phase 2, the pull and apply over the row-major table
-    (layout=packed, csrc/rowmajor_pairs.cu): against their plain versions
-    and, bit for bit, against the planar kernels B1 and B2 on the same
-    state; each timed in turns with its planar counterpart, for every
-    updater pair and K = 0. Returns their records, and adds the planar
-    kernels' own time (``kernel_ms``) to theirs in ``planar_recs``."""
+    (layout=packed, csrc/rowmajor_pairs.cu) at ``k_main`` factors, the
+    width of ``st``: against their plain versions and, bit for bit,
+    against the planar kernels B1 and B2 on the same state; each timed in
+    turns with its planar counterpart, warm and flushed, for every updater
+    pair and K = 0. Fails if a row-major kernel is slower at ``k_main``
+    (``layout=auto`` puts the pairs path with factors on the row-major
+    table). Returns the records of the four kernels, the planar ones timed
+    in the same turns (``ms``, ``kernel_ms``, ``kernel_ms_flushed``) with
+    their plain versions on the planar state."""
     import torch
 
     from difacto_tpu_torch.config import FMParam
@@ -549,13 +572,24 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
     U = pb.uids.shape[0]
     n_valid = int(pb.valid.sum())
     p = FMParam()
-    p.V_dim = K
+    p.V_dim = k_main
     out, faster = {}, {}
     # its own draws: the checks before it keep theirs wherever this runs
     g = torch.Generator(device=dev)
     g.manual_seed(4)
 
     pair_names = ("rowmajor_", "_pairs_kernel")
+
+    def turns_recs(rm_name, planar_name, planar_ms, ms, own, common_rec,
+                   rm_plain, planar_plain):
+        for name, t, i, plain_fn, src in (
+                (rm_name, ms, 0, rm_plain, "rowmajor_pairs.cu"),
+                (planar_name, planar_ms, 1, planar_plain, f"{planar_name}.cu")):
+            out[name] = dict(
+                route="cuda", source=f"difacto_tpu_torch/csrc/{src}", ms=t,
+                plain_ms=cuda_ms(plain_fn), library_ms=None,
+                kernel_ms=own["warm"][i], kernel_ms_flushed=own["cold"][i],
+                **common_rec)
 
     # -- pull: exact (a gather with a mask); the narrower pieces too -------
     tb = pack_state(st)
@@ -566,28 +600,28 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
               pair_sweep._pull_rowmajor(tb, pb.uids, p, vec=v)) for v in (1, 2)]
     for what, ref in refs:
         if not torch.equal(got, ref):
-            raise AssertionError(f"pull_rowmajor differs from {what} (max abs "
-                                 f"err {float((got - ref).abs().max()):g}; "
+            raise AssertionError(f"pull_rowmajor K={k_main} differs from "
+                                 f"{what} (max abs err "
+                                 f"{float((got - ref).abs().max()):g}; "
                                  "tolerance: exact)")
+    del got, refs
     n_act = past_gate(pb, st, p)
-    b_ms, b_by = bound(4 * (U + 2 * n_valid + K * n_act + (1 + K) * U), 0)
+    b_ms, b_by = bound(4 * (U + 2 * n_valid + k_main * n_act
+                            + (1 + k_main) * U), 0)
     planar_ms, ms, own = in_turns(
         dev, lambda: pair_sweep.pull_pairs(st, pb.uids, p),
         lambda: pair_sweep.pull_pairs(tb, pb.uids, p), pair_names)
-    out["pull_rowmajor"] = dict(
-        route="cuda", source="difacto_tpu_torch/csrc/rowmajor_pairs.cu",
-        replaces="difacto_tpu/ops/pair_sweep.py:346", max_abs_err=0.0, ms=ms,
-        plain_ms=cuda_ms(lambda: pair_sweep.pull_pairs_plain(tb, pb.uids, p)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        kernel_ms=own["warm"][0],
-    )
-    planar_recs["pull_pairs"]["kernel_ms"] = own["warm"][1]
-    faster[f"pull K={K}"] = no_slower(own)
+    turns_recs("pull_rowmajor", "pull_pairs", planar_ms, ms, own,
+               dict(replaces="difacto_tpu/ops/pair_sweep.py:346",
+                    max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by),
+               lambda: pair_sweep.pull_pairs_plain(tb, pb.uids, p),
+               lambda: pair_sweep.pull_pairs_plain(st, pb.uids, p))
+    faster[f"pull K={k_main}"] = no_slower(own)
     scalar_ms = cuda_ms(lambda: pair_sweep._pull_rowmajor(tb, pb.uids, p,
                                                           vec=1))
-    log(f"pull_rowmajor K={K}: {ms:.4f} ms against pull_pairs {planar_ms:.4f} "
-        f"ms in turns; kernel time [row-major, planar] {json.dumps(own)}; "
-        f"scalar path (1-float pieces) {scalar_ms:.4f} ms")
+    log(f"pull_rowmajor K={k_main}: {ms:.4f} ms against pull_pairs "
+        f"{planar_ms:.4f} ms in turns; kernel time [row-major, planar] "
+        f"{json.dumps(own)}; scalar path (1-float pieces) {scalar_ms:.4f} ms")
     q0 = FMParam()
     q0.V_dim = 0
     st0 = random_state(FMUpdater(q0), num_rows, dev, seed=3)
@@ -607,9 +641,10 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
     vf = pb.valid.to(torch.float32)
     worst = 0.0
     for k, wupd, vupd in UPDATER_CASES:
+        k = k_main if k else 0
         q = FMParam()
         q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
-        base = st if k == K else st0
+        base = st if k else st0
         grads = torch.randn((1 + k, U), generator=g, device=dev) * vf
         payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
         act = past_gate(pb, base, q)
@@ -658,27 +693,32 @@ def check_rowmajor_kernels(dev, pb, st, planar_recs):
             f"{act} past the V gate): {json.dumps(rec)}; apply_pairs in "
             f"turns {planar_ms:.4f} ms; kernel time [row-major, planar] "
             f"{json.dumps(own)}; scalar path {scalar_ms:.4f} ms")
-        if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
-            out["apply_rowmajor"] = dict(
-                route="cuda",
-                source="difacto_tpu_torch/csrc/rowmajor_pairs.cu",
-                replaces="difacto_tpu/ops/pair_sweep.py:449", **rec,
-                library_ms=None, kernel_ms=own["warm"][0],
-            )
-            planar_recs["apply_pairs"]["kernel_ms"] = own["warm"][1]
+        if (k, wupd, vupd) == (k_main, "ftrl", "adagrad"):  # the main path's
+            turns_recs("apply_rowmajor", "apply_pairs", planar_ms, ms, own,
+                       dict(replaces="difacto_tpu/ops/pair_sweep.py:449",
+                            bound_ms=rec["bound_ms"],
+                            bound_by=rec["bound_by"]),
+                       lambda: pair_sweep.apply_pairs_plain(
+                           work, pb.uids, payload, q),
+                       lambda: pair_sweep.apply_pairs_plain(
+                           work_p, pb.uids, payload, q))
         del work, work_p
-    out["apply_rowmajor"]["max_abs_err"] = worst
+    # the row-major apply has B2's bits: the same error against the plain
+    # version
+    for name in ("apply_rowmajor", "apply_pairs"):
+        out[name]["max_abs_err"] = worst
     by_k = {f"K={k}": all(v for name, v in faster.items()
-                          if name.endswith(f"K={k}")) for k in (K, 0)}
+                          if name.endswith(f"K={k}")) for k in (k_main, 0)}
     log(f"row-major kernels no slower than the planar ones by kernel time, "
         f"warm and cold: {json.dumps(faster)}; every case of one width: "
         f"{json.dumps(by_k)} (what parallel/store.py::_resolve_layout gives "
         "layout=auto on the pairs path follows this line: packed for the "
         "widths where every case holds)")
-    if not by_k[f"K={K}"]:
+    if not by_k[f"K={k_main}"]:
         raise AssertionError("layout=auto puts the pairs path with factors on "
                              "the row-major table, where a kernel is now "
-                             f"slower than its planar one: {faster}")
+                             f"slower than its planar one at K={k_main}: "
+                             f"{faster}")
     return out
 
 
@@ -692,207 +732,43 @@ def ffm_batch(seed: int):
 
 def check_ffm_kernels(dev) -> tuple[dict, float]:
     """Phase 2 at FFM's width, on a config-5 batch and a state of K = 96
-    factors: B1 and ``pull_rowmajor`` exact against their plain version
-    and each other; B2 and ``apply_rowmajor`` against their plain version
-    and, bit for bit, against each other for the updater pairs of
-    UPDATER_CASES; each row-major kernel timed in turns with its planar
-    one, warm and flushed (what ``layout=auto`` gives FFM follows this: it
-    fails if a row-major kernel is slower); B3 on the 97 payload rows of
-    FFM's sorted backward; the sweep kernels at K = 96, row-major against
-    planar; and ``ffm_loss_grad`` on the card against the CPU. Returns
-    ({kernel: its K96_KEYS figures}, ffm_loss_grad ms)."""
+    factors: the checks of the flagship's width run again there (B3's
+    designs on the 97 payload rows of FFM's sorted backward; the pull and
+    apply over the row-major table against their plain versions and, bit
+    for bit, against B1 and B2, timed in turns with them, which fails if a
+    row-major kernel is slower, since ``layout=auto`` puts FFM on the
+    row-major table; the sweep kernels likewise), and ``ffm_loss_grad`` on
+    the card against the CPU. Returns ({kernel of the FFM paths: its
+    K96_KEYS figures}, ffm_loss_grad ms)."""
     import torch
 
     from difacto_tpu_torch.config import FMParam
     from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
     from difacto_tpu_torch.models import losses
-    from difacto_tpu_torch.ops import pair_sweep, segsum, sweep, sweep_ms
-    from difacto_tpu_torch.probes import common
-    from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
-                                                    unpack_state)
+    from difacto_tpu_torch.updaters.updater import FMUpdater
     from difacto_tpu_torch.utils.place import place_batch
 
-    num_rows, Kf, R = 1 << NUM_BITS, FFM_WIDTH, BLOCK_ROWS
+    num_rows, Kf = 1 << NUM_BITS, FFM_WIDTH
     pb = prep_batch(ffm_batch(30), num_rows)
     pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals, with_slots=True)
     pb = place_batch(pb, dev)
     U = pb.uids.shape[0]
     n_valid = int(pb.valid.sum())
-    lanes = pb.sorted_slots.inv_sorted
-    blp, bl = lanes.shape[0], FFM_BATCH * FFM_NNZ
     p = FMParam()
     p.V_dim = Kf
     st = random_state(FMUpdater(p), num_rows, dev, seed=31)
-    tb = pack_state(st)
-    n_act = past_gate(pb, st, p)
     log(f"config-5 batch: {FFM_BATCH} x {FFM_NNZ} slots, {n_valid} unique "
-        f"ids in a {U}-lane bucket ({n_act} past the V gate), BLp {blp}, "
-        f"table 2^{NUM_BITS} rows, K = F*k = {Kf}")
+        f"ids in a {U}-lane bucket ({past_gate(pb, st, p)} past the V gate), "
+        f"BLp {pb.sorted_slots.inv_sorted.shape[0]}, table 2^{NUM_BITS} rows, "
+        f"K = F*k = {Kf}")
     g = torch.Generator(device=dev)
     g.manual_seed(32)
-    out, faster = {}, {}
-    names = ("rowmajor_", "_pairs_kernel")
-
-    def rec(t, k_warm, k_cold, plain_ms, b, err=0.0, library_ms=None):
-        return dict(k96_max_abs_err=err, k96_ms=t, k96_kernel_ms=k_warm,
-                    k96_kernel_ms_flushed=k_cold, k96_plain_ms=plain_ms,
-                    k96_bound_ms=b[0], k96_bound_by=b[1],
-                    k96_library_ms=library_ms)
-
-    # -- pull: exact (a gather with a mask), B1 and row-major alike -------
-    ref = pair_sweep.pull_pairs_plain(st, pb.uids, p)
-    for what, state in (("pull_pairs", st), ("pull_rowmajor", tb)):
-        got = pair_sweep.pull_pairs(state, pb.uids, p)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"{what} K={Kf} differs from its plain "
-                                 f"version (max abs err "
-                                 f"{float((got - ref).abs().max()):g}; "
-                                 "tolerance: exact)")
-    del ref, got
-    b = bound(4 * (U + 2 * n_valid + Kf * n_act + (1 + Kf) * U), 0)
-    planar_ms, ms, own = in_turns(
-        dev, lambda: pair_sweep.pull_pairs(st, pb.uids, p),
-        lambda: pair_sweep.pull_pairs(tb, pb.uids, p), names)
-    out["pull_pairs"] = rec(planar_ms, own["warm"][1], own["cold"][1],
-                            cuda_ms(lambda: pair_sweep.pull_pairs_plain(
-                                st, pb.uids, p)), b)
-    out["pull_rowmajor"] = rec(ms, own["warm"][0], own["cold"][0],
-                               cuda_ms(lambda: pair_sweep.pull_pairs_plain(
-                                   tb, pb.uids, p)), b)
-    faster["pull"] = no_slower(own)
-    log(f"pull K={Kf}: kernel time [row-major, planar] {json.dumps(own)}; "
-        f"bound {b[0]:.5f} ms")
-
-    # -- apply: the bits of B2's kernel, every updater pair ----------------
-    vf = pb.valid.to(torch.float32)
-    worst = {"apply_pairs": 0.0, "apply_rowmajor": 0.0}
-    for k, wupd, vupd in UPDATER_CASES:
-        if k == 0:  # FFM has factors
-            continue
-        q = FMParam()
-        q.V_dim, q.w_updater, q.V_updater = Kf, wupd, vupd
-        grads = torch.randn((1 + Kf, U), generator=g, device=dev) * vf
-        payload = torch.cat([grads, (pb.ucounts * vf)[None], vf[None]])
-        a = pair_sweep.apply_pairs(clone_state(st), pb.uids, payload, q)
-        r = unpack_state(pair_sweep.apply_pairs(pack_state(st), pb.uids,
-                                                payload, q))
-        same_bits(r, a, f"apply_rowmajor {wupd}/{vupd} K={Kf}", "apply_pairs")
-        del r
-        c = pair_sweep.apply_pairs_plain(clone_state(st), pb.uids, payload, q)
-        for leaf in LEAVES:
-            x, y = getattr(a, leaf), getattr(c, leaf)
-            err = float((x - y).abs().max())
-            worst = {name: max(v, err) for name, v in worst.items()}
-            # the plain version's division by a scalar runs as a multiply
-            # by its float reciprocal on the card: 1 ulp
-            torch.testing.assert_close(
-                x, y, rtol=1e-5, atol=1e-6,
-                msg=f"apply_pairs {wupd}/{vupd} K={Kf} against its plain "
-                    f"version: {leaf}")
-        del a, c
-        work, work_rm = clone_state(st), pack_state(st)
-        planar_ms, ms, own = in_turns(
-            dev, lambda: pair_sweep.apply_pairs(work, pb.uids, payload, q),
-            lambda: pair_sweep.apply_pairs(work_rm, pb.uids, payload, q),
-            names)
-        b = bound(4 * (U + 3 * n_valid + Kf * n_act) + updater_bytes(
-            wupd, vupd, Kf, n_valid, n_act), 20 * n_valid + 8 * Kf * n_act)
-        faster[f"apply {wupd}/{vupd}"] = no_slower(own)
-        log(f"apply {wupd}/{vupd} K={Kf}: kernel time [row-major, planar] "
-            f"{json.dumps(own)}; bound {b[0]:.5f} ms ({b[1]})")
-        if (wupd, vupd) == ("ftrl", "adagrad"):  # the FFM path's
-            out["apply_pairs"] = rec(planar_ms, own["warm"][1],
-                                     own["cold"][1], cuda_ms(
-                lambda: pair_sweep.apply_pairs_plain(work, pb.uids, payload,
-                                                     q)), b)
-            out["apply_rowmajor"] = rec(ms, own["warm"][0], own["cold"][0],
-                                        cuda_ms(lambda: pair_sweep
-                                                .apply_pairs_plain(
-                                                    work_rm, pb.uids,
-                                                    payload, q)), b)
-        del work, work_rm
-    for name, err in worst.items():
-        out[name]["k96_max_abs_err"] = err
-
-    # -- B3 on FFM's 97 payload rows: float64 bound, exact on integers,
-    # untouched lanes 0, a second run bit-equal ---------------------------
-    pp = 1 + Kf
-    payT = torch.randn((pp, blp), generator=g, device=dev)
-    payT[:, bl:] = 0.0
-    ipay = torch.randint(1, 9, (pp, blp), generator=g, device=dev).float()
-    ipay[:, bl:] = 0.0
-    got = segsum.segsum_sorted(payT, lanes, U)
-    ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
-    seg_n = torch.bincount(lanes.long(), minlength=U).double()
-    diff = (got.double() - ref).abs()
-    if not bool((diff <= f64_sum_tolerance(seg_n, segsum.segsum_sorted_plain(
-            payT.abs().double(), lanes, U))).all()):
-        raise AssertionError(f"segsum_sorted on {pp} rows differs from the "
-                             "float64 sums beyond the float32 bound")
-    if not (bool((got[:, seg_n == 0] == 0).all())
-            and torch.equal(segsum.segsum_sorted(payT, lanes, U), got)
-            and torch.equal(segsum.segsum_sorted(ipay, lanes, U),
-                            segsum.segsum_sorted_plain(ipay, lanes, U))):
-        raise AssertionError(f"segsum_sorted on {pp} rows: untouched lanes "
-                             "not 0, a second run's bits, or an integer "
-                             "payload inexact")
-    lanes_l, acc = lanes.long(), torch.zeros((pp, U), device=dev)
-    out["segsum_sorted"] = rec(
-        cuda_ms(lambda: segsum.segsum_sorted(payT, lanes, U)),
-        common.kernel_ms(lambda: segsum.segsum_sorted(payT, lanes, U),
-                         name=("segsum", "Memset")), None,
-        cuda_ms(lambda: segsum.segsum_sorted_plain(payT, lanes, U)),
-        bound(4 * (pp * blp + blp + pp * U), pp * blp),
-        err=float(diff.max()),
-        library_ms=cuda_ms(lambda: acc.index_add_(1, lanes_l, payT)))
-    log(f"segsum_sorted on {pp} payload rows (hottest segment "
-        f"{int(seg_n.max())} slots): within the float32 bound, integers "
-        f"exact; {json.dumps(out['segsum_sorted'])}")
-    del payT, ipay, got, ref, diff, acc
-
-    # -- the sweep kernels at K = 96: row-major against planar ------------
-    sid = pb.uids
-    off = sweep.offsets_1(sid, num_rows, R)
-    ref = sweep_ms.sweep_pull_ms_plain(st, sid, off, p, block_rows=R)
-    for what, state in (("sweep_pull", st), ("sweep_pull_rowmajor", tb)):
-        if not torch.equal(sweep_ms.sweep_pull_ms(state, sid, off, p,
-                                                  block_rows=R), ref):
-            raise AssertionError(f"{what} K={Kf} differs from its plain "
-                                 "version (tolerance: exact)")
-    del ref
-    sweep_own = {}
-    _, _, sweep_own["pull"] = in_turns(
-        dev, lambda: sweep_ms.sweep_pull_ms(st, sid, off, p, block_rows=R),
-        lambda: sweep_ms.sweep_pull_ms(tb, sid, off, p, block_rows=R),
-        ("sweep_",))
-    payload = sweep_ms.apply_payload(
-        torch.randn((1 + Kf, U), generator=g, device=dev), pb.ucounts,
-        pb.valid)
-    a = sweep_ms.sweep_apply_ms(clone_state(st), sid, payload, off, p,
-                                block_rows=R)
-    same_bits(unpack_state(sweep_ms.sweep_apply_ms(
-        pack_state(st), sid, payload, off, p, block_rows=R)), a,
-        f"sweep_apply_rowmajor K={Kf}", "sweep_apply")
-    del a
-    work, work_rm = clone_state(st), pack_state(st)
-    _, _, sweep_own["apply"] = in_turns(
-        dev, lambda: sweep_ms.sweep_apply_ms(work, sid, payload, off, p,
-                                             block_rows=R),
-        lambda: sweep_ms.sweep_apply_ms(work_rm, sid, payload, off, p,
-                                        block_rows=R), ("sweep_",))
-    del work, work_rm
-    for what, own in sweep_own.items():
-        faster[f"sweep {what}"] = no_slower(own)
-    log(f"sweep kernels K={Kf}: pull exact, row-major apply bit-equal to the "
-        f"planar one; kernel time [row-major, planar] "
-        f"{json.dumps(sweep_own)}")
-    log(f"row-major kernels at K={Kf} no slower than the planar ones by "
-        f"kernel time, warm and cold: {json.dumps(faster)} (layout=auto puts "
-        "FFM on the row-major table)")
-    if not all(faster.values()):
-        raise AssertionError(f"layout=auto puts FFM on the row-major table, "
-                             f"where a kernel is slower at K={Kf}: {faster}")
-    del tb
+    recs = {"segsum_sorted": check_segsum(dev, pb, g, 1 + Kf)["segsum_sorted"],
+            **check_rowmajor_kernels(dev, pb, st, Kf)}
+    check_sweep_kernels(dev, pb, st, g, Kf)
+    out = {name: {f"k96_{key}": rec[key] for key in (
+        "max_abs_err", "ms", "kernel_ms", "kernel_ms_flushed", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")} for name, rec in recs.items()}
 
     # -- ffm_loss_grad at config 5 on the card, against the CPU -----------
     rows = torch.randn((FFM_BATCH, FFM_NNZ, 1 + Kf), generator=g,
@@ -916,15 +792,16 @@ def check_ffm_kernels(dev) -> tuple[dict, float]:
     return out, loss_ms
 
 
-def check_sweep_kernels(dev, pb, st, g):
-    """Phase 2, the whole-table sweep kernels, both designs: B4 pull and
-    B5 apply over planar leaves (csrc/sweep_pull.cu, csrc/sweep_apply.cu)
-    and over the row-major table (csrc/rowmajor_sweep.cu). One stream of
-    the flagship batch's sorted unique ids, as ops/sweep.py passes it,
-    then two streams of repeated ids, then a dense block. Each design
-    against the plain version; the row-major one also bit for bit against
-    the planar one after ``unpack_state``, at every piece width, and timed
-    in turns with it, warm and with the L2 flushed. Returns their records."""
+def check_sweep_kernels(dev, pb, st, g, k_main: int):
+    """Phase 2, the whole-table sweep kernels, both designs, at ``k_main``
+    factors (the width of ``st``): B4 pull and B5 apply over planar leaves
+    (csrc/sweep_pull.cu, csrc/sweep_apply.cu) and over the row-major table
+    (csrc/rowmajor_sweep.cu). One stream of the batch's sorted unique ids,
+    as ops/sweep.py passes it, then two streams of repeated ids, then a
+    dense block. Each design against the plain version; the row-major one
+    also bit for bit against the planar one after ``unpack_state``, at
+    every piece width, and timed in turns with it, warm and with the L2
+    flushed. Returns their records."""
     import torch
 
     from difacto_tpu_torch.config import FMParam
@@ -939,7 +816,7 @@ def check_sweep_kernels(dev, pb, st, g):
     U = sid.shape[0]
     n_valid = int(pb.valid.sum())
     p = FMParam()
-    p.V_dim = K
+    p.V_dim = k_main
     out, faster = {}, {}
     names = ("sweep_",)  # every sweep kernel, the planar pull's two and
     #                      the planar apply's order check included
@@ -964,9 +841,9 @@ def check_sweep_kernels(dev, pb, st, g):
     # useful bytes: the ids and offsets, w and cnt of the named rows, V of
     # the gated ones, the [1+K, U] output; a full sweep reads w, cnt and V
     # whole instead
-    io = 4 * (U + (nb + 1) + (1 + K) * U)
-    b_ms, b_by = bound(io + 4 * (2 * n_valid + K * n_act), 0)
-    whole_ms = (io + 4 * (2 + K) * num_rows) / HBM_BYTES_PER_S * 1e3
+    io = 4 * (U + (nb + 1) + (1 + k_main) * U)
+    b_ms, b_by = bound(io + 4 * (2 * n_valid + k_main * n_act), 0)
+    whole_ms = (io + 4 * (2 + k_main) * num_rows) / HBM_BYTES_PER_S * 1e3
     planar_ms, ms, own = in_turns(dev, lambda: pull(st), lambda: pull(tb),
                                   names)
     plain_ms = cuda_ms(lambda: sweep_ms.sweep_pull_ms_plain(
@@ -980,9 +857,9 @@ def check_sweep_kernels(dev, pb, st, g):
             replaces="difacto_tpu/ops/sweep_ms.py:140", max_abs_err=0.0,
             ms=t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, kernel_ms=k_ms)
-    faster[f"pull K={K}"] = no_slower(own)
+    faster[f"pull K={k_main}"] = no_slower(own)
     log(f"sweep_pull: useful-byte bound {b_ms:.5f} ms; a whole-table "
-        f"sweep would move {io + 4 * (2 + K) * num_rows} B, "
+        f"sweep would move {io + 4 * (2 + k_main) * num_rows} B, "
         f"{whole_ms:.5f} ms; row-major {ms:.4f} ms against planar "
         f"{planar_ms:.4f} ms in turns; kernel time [row-major, planar] "
         f"{json.dumps(own)}")
@@ -1008,9 +885,10 @@ def check_sweep_kernels(dev, pb, st, g):
     vf = pb.valid.to(torch.float32)
     worst = {"sweep_apply": 0.0, "sweep_apply_rowmajor": 0.0}
     for k, wupd, vupd in UPDATER_CASES:
+        k = k_main if k else 0
         q = FMParam()
         q.V_dim, q.w_updater, q.V_updater = k, wupd, vupd
-        base = st if k == K else st0
+        base = st if k else st0
         grads = torch.randn((1 + k, U), generator=g, device=dev) * vf
         payload = sweep_ms.apply_payload(grads, pb.ucounts, pb.valid)
 
@@ -1070,7 +948,7 @@ def check_sweep_kernels(dev, pb, st, g):
             f"past the V gate; a whole-table sweep moves {whole} B): "
             f"{json.dumps(rec)}; kernel time [row-major, planar] "
             f"{json.dumps(own)}")
-        if (k, wupd, vupd) == (K, "ftrl", "adagrad"):  # the main path's
+        if (k, wupd, vupd) == (k_main, "ftrl", "adagrad"):  # the main path's
             for name, src, t, k_ms in (
                     ("sweep_apply", "difacto_tpu_torch/csrc/sweep_apply.cu",
                      planar_ms, own["warm"][1]),
@@ -1084,7 +962,7 @@ def check_sweep_kernels(dev, pb, st, g):
     for name, err in worst.items():
         out[name]["max_abs_err"] = err
     by_k = {f"K={k}": all(v for name, v in faster.items()
-                          if name.endswith(f"K={k}")) for k in (K, 0)}
+                          if name.endswith(f"K={k}")) for k in (k_main, 0)}
     log(f"row-major sweep kernels no slower than the planar ones by kernel "
         f"time, warm and cold: {json.dumps(faster)}; every case of one "
         f"width: {json.dumps(by_k)} (what parallel/store.py::_resolve_layout "
@@ -1117,11 +995,11 @@ def check_sweep_kernels(dev, pb, st, g):
             raise AssertionError(f"{what} differs from its plain version on "
                                  "two streams of repeated ids")
     q = FMParam()
-    q.V_dim, q.w_updater, q.V_updater, q.V_threshold = K, "sgd", "sgd", 0
+    q.V_dim, q.w_updater, q.V_updater, q.V_threshold = k_main, "sgd", "sgd", 0
     q.lr_eta, q.l2, q.V_lr_eta, q.V_l2 = 1.0, 0.0, 1.0, 0.0
     zero = FMUpdater(q).init_state(num_rows, 0, dev)
     zero.V.zero_()
-    ipay = torch.randint(1, 9, (3 + K, sid2.shape[0]), generator=g,
+    ipay = torch.randint(1, 9, (3 + k_main, sid2.shape[0]), generator=g,
                          device=dev).float()
     b = sweep_ms.sweep_apply_ms_plain(clone_state(zero), sid2, ipay, off2, q,
                                       block_rows=R)
@@ -1150,8 +1028,8 @@ def check_sweep_kernels(dev, pb, st, g):
     sid3 = torch.from_numpy(np.r_[ids, np.full(124, num_rows)].astype(
         np.int32)).to(dev)
     off3 = sweep.offsets_1(sid3, num_rows, R)
-    pay3 = torch.randn((3 + K, sid3.shape[0]), generator=g, device=dev)
-    pay3[1 + K:] = (sid3 < num_rows).float()
+    pay3 = torch.randn((3 + k_main, sid3.shape[0]), generator=g, device=dev)
+    pay3[1 + k_main:] = (sid3 < num_rows).float()
     ref = sweep_ms.sweep_pull_ms_plain(st, sid3, off3, p, block_rows=R)
     if not torch.equal(sweep_ms.sweep_pull_ms(pack_state(st), sid3, off3, p,
                                               block_rows=R), ref):
@@ -1240,7 +1118,7 @@ def check_probe_kernels(dev, pb, st, g, planar):
         readonly_ms=own["warm"]["readonly"],
         readonly_ms_flushed=own["cold"]["readonly"],
         b1_kernel_ms=own["warm"]["pull_pairs"],
-        b1_kernel_ms_flushed=own["cold"]["pull_pairs"], **floor,
+        b1_kernel_ms_flushed=own["cold"]["pull_pairs"],
     )
 
     # -- S1b packed apply (csrc/planar_apply.cu's entry over the rows of A

@@ -18,7 +18,9 @@
 // a sixth of the stream), in two passes, without atomics, so the sums
 // repeat bit for bit. What changed:
 //   pass 1, planar (segsum_tiles_kernel): a warp owns a tile of 32 x SPT
-//     consecutive slots (SPT = 4 a thread) for ALL pp payload rows. It reads the tile's lanes
+//     consecutive slots (SPT = 4 a thread) for all pp payload rows, or for
+//     a group of them when the tiles alone give the card too few warps
+//     (ST_MIN_WARPS; each group works the structure out again). It reads the tile's lanes
 //     once (16 bytes a thread) and works out the segment structure once:
 //     where runs end inside each thread's SPT slots, which threads a carry
 //     passes through (one ballot; the five steps of the warp's segmented
@@ -52,6 +54,10 @@
 #define SPT 4           // slots per thread, planar: one 16-byte load a row
                         // (8 was 10-17 % slower on an H100)
 #define ST_SLOTS (32 * SPT)  // slots per tile, planar
+#define ST_MIN_WARPS 4096  // fewer tiles than this: the rows are split
+                          // into groups, a warp each (FFM's 97 rows over
+                          // 768 tiles, a warp walking all of them, took
+                          // 0.065 ms on an H100, the first design 0.059)
 #define SR_SLOTS 128    // slots per tile, row-major
 #define SR_THREADS 256  // at most, per pass-1 block, row-major
 
@@ -65,7 +71,7 @@ __global__ void __launch_bounds__(32 * ST_WARPS)
 segsum_tiles_kernel(const float* __restrict__ pay,
                     const int* __restrict__ lanes, float* __restrict__ out,
                     float* __restrict__ head, float* __restrict__ tail,
-                    int pp, int blp, int ub, int nt, int aligned) {
+                    int pp, int blp, int ub, int nt, int aligned, int rg) {
   constexpr int W = ST_SLOTS;
   const int t = threadIdx.x & 31;
   const int c = blockIdx.x * ST_WARPS + (threadIdx.x >> 5);
@@ -147,16 +153,18 @@ segsum_tiles_kernel(const float* __restrict__ pay,
       for (int i = 0; i < SPT; ++i) v[i] = j0 + i < end ? row[j0 + i] : 0.0f;
     }
   };
-  // the load of row r + 1 starts before row r is summed: 9 % faster on
-  // an H100 than loading in turn; two to four rows ahead were slower
+  // this warp's rows: group blockIdx.y of rg rows. The load of row r + 1
+  // starts before row r is summed: 9 % faster on an H100 than loading in
+  // turn; two to four rows ahead were slower
+  const int r_lo = blockIdx.y * rg, r_hi = min(pp, r_lo + rg);
   float ahead[SPT];
-  load_row(0, ahead);
+  load_row(r_lo, ahead);
 #pragma unroll 1
-  for (int r = 0; r < pp; ++r) {
+  for (int r = r_lo; r < r_hi; ++r) {
     float v[SPT];
 #pragma unroll
     for (int i = 0; i < SPT; ++i) v[i] = ahead[i];
-    if (r + 1 < pp) load_row(r + 1, ahead);
+    if (r + 1 < r_hi) load_row(r + 1, ahead);
     // s[i]: the sum of slot i's run from its first slot in this thread
     float s[SPT];
     float run = 0.0f;
@@ -355,10 +363,16 @@ extern "C" int dft_segsum_tiles(const void* pay, const void* lanes, void* out,
   const int nt = (blp + ST_SLOTS - 1) / ST_SLOTS;
   const int aligned = blp % 4 == 0 && (uintptr_t)pay % 16 == 0 &&
                       (uintptr_t)lanes % 16 == 0;
-  const unsigned int blocks = (unsigned int)((nt + ST_WARPS - 1) / ST_WARPS);
+  // each row's sum is the same whichever group takes it: the bits do not
+  // depend on the split
+  int groups = nt < ST_MIN_WARPS ? min(pp, (ST_MIN_WARPS + nt - 1) / nt) : 1;
+  const int rg = (pp + groups - 1) / groups;
+  groups = (pp + rg - 1) / rg;
+  const dim3 blocks((unsigned int)((nt + ST_WARPS - 1) / ST_WARPS),
+                    (unsigned int)groups);
   segsum_tiles_kernel<<<blocks, 32 * ST_WARPS, 0, s>>>(
       (const float*)pay, (const int*)lanes, (float*)out, (float*)head,
-      (float*)tail, pp, blp, ub, nt, aligned);
+      (float*)tail, pp, blp, ub, nt, aligned, rg);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return cross_pass((const int*)lanes, (float*)out, (const float*)head,
