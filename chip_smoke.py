@@ -56,6 +56,22 @@ the CPU; two more main paths through ``SGDLearner`` (``FFM_PATHS``:
 is timed in turns with its floor ``readonly`` (its loads alone) and B1,
 beside the sector floor of the run's data.
 
+The repo's data formats at full width (``drive_formats``): P1
+``examples/fm_criteo.conf`` as written (csr parts made from the flagship
+text by the port's converter; its epoch-0 stream time beside the text's,
+parsed by the native parser), then CLI train + ``task=predict`` on the
+parts; P2 Criteo in libffm form (39 explicit fields shuffled within each
+row, k = 4, K = 156, ``examples/ffm.conf``'s updater settings) on
+``kernel=auto`` and ``layout=planar``, its steps against the CPU, CLI
+train + ``task=predict`` on the libffm files; P3 P1 on
+``examples/northstar.conf``'s config-4 table (2^26 rows), whose prep must
+take the native radix localizer, timed against NumPy's searchsorted on
+one batch (host CPU times). The kernel checks of the flagship's width run
+again at K = 156 on a libffm batch and at K = 640 (FFM, 40 slots of
+k = 16, 2^16 rows: the row-major kernels past one shared-memory tile),
+with the train and eval steps at K = 640 against the CPU. The native
+host engines must build (g++).
+
 It prints the card's name and power limit, one JSON line listing the
 kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
 needs a card: without one (or without the rest of the repository) it
@@ -95,6 +111,20 @@ UPDATER_CASES = ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
 # FFM with the slot position as field, F = 24 fields of k = 4 factors
 FFM_BATCH, FFM_NNZ, FFM_K = 4096, 24, 4
 FFM_WIDTH = FFM_NNZ * FFM_K  # K = F*k = 96 factors a feature
+# Criteo in libffm form as the libffm authors publish it (Juan et al.,
+# "Field-aware Factorization Machines for CTR Prediction", RecSys 2016):
+# 39 fields of k = 4, explicit field ids shuffled within each row
+LIBFFM_BATCH, LIBFFM_FIELDS, LIBFFM_K = 4096, 39, 4
+LIBFFM_WIDTH = LIBFFM_FIELDS * LIBFFM_K  # K = 156, a 157-row payload
+# the width past one shared-memory tile of the row-major kernels: FFM with
+# the slot position as field, 40 slots of k = 16 (K = 640), on a small
+# batch and table
+WIDE_BATCH, WIDE_NNZ, WIDE_KF, WIDE_BITS = 512, 40, 16, 16
+WIDE_WIDTH = WIDE_NNZ * WIDE_KF
+# the repo's example configs whose data formats the paths read
+CRITEO_CONF = "examples/fm_criteo.conf"   # csr parts, BASELINE config 3
+FFM_CONF = "examples/ffm.conf"            # its updater settings for libffm
+BIG_BITS = 26  # examples/northstar.conf's config-4 table
 
 
 def log(msg: str) -> None:
@@ -218,9 +248,14 @@ EXTRA_KEYS = ("kernel_ms", "kernel_ms_flushed", "tiles_kernel_ms",
               "readonly_ms_flushed", "b1_kernel_ms", "b1_kernel_ms_flushed")
 # the figures at FFM's width (K = 96) of the kernels of its path, each
 # measured in the run (k96_launches: the FFM main paths' drives)
-K96_KEYS = ("k96_launches", "k96_max_abs_err", "k96_ms", "k96_kernel_ms",
-            "k96_kernel_ms_flushed", "k96_plain_ms", "k96_bound_ms",
-            "k96_bound_by", "k96_library_ms")
+WIDTH_KEYS = ("launches", "max_abs_err", "ms", "kernel_ms",
+              "kernel_ms_flushed", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+K96_KEYS = tuple(f"k96_{key}" for key in WIDTH_KEYS)
+# ... likewise at libffm Criteo's width (K = 156: k156_launches from its
+# main paths) and at K = 640 (k640_launches: its learner steps)
+K156_KEYS = tuple(f"k156_{key}" for key in WIDTH_KEYS)
+K640_KEYS = tuple(f"k640_{key}" for key in WIDTH_KEYS)
 
 
 def planar_floor(pb, base, q) -> dict:
@@ -300,10 +335,10 @@ def check_segsum(dev, pb, g, pp: int) -> dict:
     """Phase 2, B3 in its three designs on a ``pp``-row payload over the
     batch's sorted slots: segsum_sorted (the one the paths run),
     segsum_sorted_chunks (the first design) and segsum_sorted_rows
-    (row-major payload). Each against the float64 sums, exact on integers,
-    untouched lanes 0, and the same bits on a second run; then timed in
-    turns, warm and flushed, and segsum_sorted must be the fastest. Returns
-    their records."""
+    (row-major payload, up to its 256 payload columns). Each against the
+    float64 sums, exact on integers, untouched lanes 0, and the same bits
+    on a second run; then timed in turns, warm and flushed, and
+    segsum_sorted must be the fastest. Returns their records."""
     import torch
 
     from difacto_tpu_torch.ops import segsum
@@ -328,6 +363,8 @@ def check_segsum(dev, pb, g, pp: int) -> dict:
         "segsum_rows": (lambda x, xr: segsum.segsum_sorted_rows(xr, lanes, U),
                         "difacto_tpu_torch/csrc/segsum_tiles.cu"),
     }
+    if pp > segsum.ROWS_MAX_COLS:  # the probe design's limit; no path's
+        del seg_designs["segsum_rows"]
     ref = segsum.segsum_sorted_plain(payT.double(), lanes, U)
     seg_n = torch.bincount(lanes.long(), minlength=U).double()
     tol = f64_sum_tolerance(seg_n, segsum.segsum_sorted_plain(
@@ -568,7 +605,7 @@ def check_rowmajor_kernels(dev, pb, st, k_main: int) -> dict:
     from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
                                                     unpack_state)
 
-    num_rows = 1 << NUM_BITS
+    num_rows = st.num_rows
     U = pb.uids.shape[0]
     n_valid = int(pb.valid.sum())
     p = FMParam()
@@ -730,21 +767,30 @@ def ffm_batch(seed: int):
     return common.flagship_batch(seed, FFM_BATCH, FFM_NNZ, NUM_BITS)
 
 
+def check_width(dev, pb, st, g, k: int, prefix: str) -> dict:
+    """Phase 2's checks of the flagship's width at another width ``k``
+    (the width of ``st``), on a batch of that model: B3's designs on its
+    1 + k payload rows, the pull and apply over the row-major table and
+    the sweep kernels against their plain versions and, bit for bit,
+    against the planar kernels, timed in turns with them (each fails if
+    a row-major kernel is slower, since ``layout=auto`` puts these widths
+    on the row-major table). Returns {kernel: its ``prefix``_ figures}."""
+    recs = {"segsum_sorted": check_segsum(dev, pb, g, 1 + k)["segsum_sorted"],
+            **check_rowmajor_kernels(dev, pb, st, k),
+            **check_sweep_kernels(dev, pb, st, g, k)}
+    return {name: {f"{prefix}_{key}": rec[key] for key in WIDTH_KEYS
+                   if key in rec} for name, rec in recs.items()}
+
+
 def check_ffm_kernels(dev) -> tuple[dict, float]:
     """Phase 2 at FFM's width, on a config-5 batch and a state of K = 96
-    factors: the checks of the flagship's width run again there (B3's
-    designs on the 97 payload rows of FFM's sorted backward; the pull and
-    apply over the row-major table against their plain versions and, bit
-    for bit, against B1 and B2, timed in turns with them, which fails if a
-    row-major kernel is slower, since ``layout=auto`` puts FFM on the
-    row-major table; the sweep kernels likewise), and ``ffm_loss_grad`` on
-    the card against the CPU. Returns ({kernel of the FFM paths: its
-    K96_KEYS figures}, ffm_loss_grad ms)."""
+    factors: :func:`check_width`, and ``ffm_loss_grad`` on the card
+    against the CPU. Returns ({kernel of the FFM paths: its K96_KEYS
+    figures}, ffm_loss_grad ms)."""
     import torch
 
     from difacto_tpu_torch.config import FMParam
     from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
-    from difacto_tpu_torch.models import losses
     from difacto_tpu_torch.updaters.updater import FMUpdater
     from difacto_tpu_torch.utils.place import place_batch
 
@@ -763,33 +809,128 @@ def check_ffm_kernels(dev) -> tuple[dict, float]:
         f"K = F*k = {Kf}")
     g = torch.Generator(device=dev)
     g.manual_seed(32)
-    recs = {"segsum_sorted": check_segsum(dev, pb, g, 1 + Kf)["segsum_sorted"],
-            **check_rowmajor_kernels(dev, pb, st, Kf)}
-    check_sweep_kernels(dev, pb, st, g, Kf)
-    out = {name: {f"k96_{key}": rec[key] for key in (
-        "max_abs_err", "ms", "kernel_ms", "kernel_ms_flushed", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for name, rec in recs.items()}
-
-    # -- ffm_loss_grad at config 5 on the card, against the CPU -----------
-    rows = torch.randn((FFM_BATCH, FFM_NNZ, 1 + Kf), generator=g,
-                       device=dev) * 0.1
-    args = (pb.vals, rows[..., 0],
-            rows[..., 1:].reshape(FFM_BATCH, FFM_NNZ, FFM_NNZ, FFM_K),
-            pb.labels, pb.mask)
-    fwd, grads = losses.ffm_loss_grad(*args)
-    cfwd, cgrads = losses.ffm_loss_grad(*(t.cpu() for t in args))
-    for what, x, y in (("py", fwd.py, cfwd.py), ("dW", grads.dW, cgrads.dW),
-                       ("dV", grads.dV, cgrads.dV)):
-        # 552 cross terms a row, summed in another order on the card
-        torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-5,
-                                   msg=f"ffm_loss_grad on the card: {what}")
-    loss_ms = cuda_ms(lambda: losses.ffm_loss_grad(*args))
-    fwd_ms = cuda_ms(lambda: losses.ffm_predict(*args[:3]))
-    log(f"ffm_loss_grad at config 5 ({FFM_BATCH} x {FFM_NNZ} x {FFM_NNZ} x "
-        f"{FFM_K}) matches the CPU (rtol 1e-5, atol 1e-5): {loss_ms:.4f} ms "
-        f"by events, the forward alone {fwd_ms:.4f} ms")
+    out = check_width(dev, pb, st, g, Kf, "k96")
+    loss_ms = check_ffm_loss(dev, pb, g, FFM_NNZ, FFM_K, "config 5")
     del st
     return out, loss_ms
+
+
+def check_ffm_loss(dev, pb, g, F: int, k: int, what: str) -> float:
+    """``ffm_loss_grad`` on the card against the CPU on the placed batch
+    ``pb`` (its explicit fields when it has them, else the slot position)
+    with random rows of F*k factors. Returns its ms by events."""
+    import torch
+
+    from difacto_tpu_torch.models import losses
+
+    B, L = pb.vals.shape
+    rows = torch.randn((B, L, 1 + F * k), generator=g, device=dev) * 0.1
+    args = (pb.vals, rows[..., 0], rows[..., 1:].reshape(B, L, F, k),
+            pb.labels, pb.mask)
+    fields = pb.fields
+    fwd, grads = losses.ffm_loss_grad(*args, fields=fields)
+    cfwd, cgrads = losses.ffm_loss_grad(
+        *(t.cpu() for t in args),
+        fields=None if fields is None else fields.cpu())
+    for name, x, y in (("py", fwd.py, cfwd.py), ("dW", grads.dW, cgrads.dW),
+                       ("dV", grads.dV, cgrads.dV)):
+        # L(L-1) cross terms a row, summed in another order on the card
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-5,
+                                   msg=f"ffm_loss_grad on the card: {name}")
+    loss_ms = cuda_ms(lambda: losses.ffm_loss_grad(*args, fields=fields))
+    fwd_ms = cuda_ms(lambda: losses.ffm_predict(*args[:3], fields=fields))
+    log(f"ffm_loss_grad at {what} ({B} x {L} x {F} x {k}, fields "
+        f"{'explicit' if fields is not None else 'by slot'}) matches the CPU "
+        f"(rtol 1e-5, atol 1e-5): {loss_ms:.4f} ms by events, the forward "
+        f"alone {fwd_ms:.4f} ms")
+    return loss_ms
+
+
+def libffm_block(rows: int, seed: int):
+    """Criteo-shaped libffm rows: 39 fields of Zipf-popular values with an
+    FM ground truth (data/synthetic.py), each row's slots shuffled, so
+    that the field is not the slot position."""
+    from difacto_tpu_torch.data.synthetic import make_ctr_data
+
+    return make_ctr_data(rows, num_fields=LIBFFM_FIELDS, seed=seed,
+                         with_fields=True, shuffle_slots=True)
+
+
+def check_libffm_kernels(dev) -> tuple[dict, float]:
+    """Phase 2 at libffm Criteo's width (K = 156, 157 payload rows), on
+    one of its batches (4096 x 39 slots, explicit shuffled fields) and a
+    2^22-row state: :func:`check_width`, and ``ffm_loss_grad`` with the
+    batch's fields on the card against the CPU. Returns ({kernel: its
+    K156_KEYS figures}, ffm_loss_grad ms)."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.data.batch_iter import rowblock_to_batches
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.place import place_batch
+
+    num_rows, Kf = 1 << NUM_BITS, LIBFFM_WIDTH
+    b = next(rowblock_to_batches(libffm_block(LIBFFM_BATCH, 40),
+                                 LIBFFM_BATCH, LIBFFM_FIELDS, NUM_BITS))
+    pb = prep_batch(b, num_rows, num_fields=LIBFFM_FIELDS)
+    pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals, with_slots=True)
+    pb = place_batch(pb, dev)
+    p = FMParam()
+    p.V_dim = Kf
+    st = random_state(FMUpdater(p), num_rows, dev, seed=41)
+    log(f"libffm batch: {LIBFFM_BATCH} x {LIBFFM_FIELDS} slots, "
+        f"{int(pb.valid.sum())} unique ids in a {pb.uids.shape[0]}-lane "
+        f"bucket ({past_gate(pb, st, p)} past the V gate), table "
+        f"2^{NUM_BITS} rows, K = F*k = {Kf}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(42)
+    out = check_width(dev, pb, st, g, Kf, "k156")
+    loss_ms = check_ffm_loss(dev, pb, g, LIBFFM_FIELDS, LIBFFM_K,
+                             "libffm Criteo")
+    del st
+    return out, loss_ms
+
+
+def check_wide_kernels(dev) -> dict:
+    """Phase 2 past one shared-memory tile of the row-major kernels: a
+    512 x 40 batch of FFM with the slot position as field (k = 16, so
+    K = 640) and a 2^16-row state, :func:`check_width`; then the train
+    and eval steps of ``kernel=auto`` at that width against the CPU,
+    whose launches the K640 figures keep. Returns {kernel: its K640_KEYS
+    figures}."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.probes import common
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.place import place_batch
+
+    num_rows, Kf = 1 << WIDE_BITS, WIDE_WIDTH
+    pb = prep_batch(common.flagship_batch(50, WIDE_BATCH, WIDE_NNZ,
+                                          WIDE_BITS), num_rows)
+    pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals, with_slots=True)
+    pb = place_batch(pb, dev)
+    p = FMParam()
+    p.V_dim = Kf
+    st = random_state(FMUpdater(p), num_rows, dev, seed=51)
+    log(f"K = {Kf} batch: {WIDE_BATCH} x {WIDE_NNZ} slots, "
+        f"{int(pb.valid.sum())} unique ids ({past_gate(pb, st, p)} past the "
+        f"V gate), table 2^{WIDE_BITS} rows, chunks of 128 factors")
+    g = torch.Generator(device=dev)
+    g.manual_seed(52)
+    out = check_width(dev, pb, st, g, Kf, "k640")
+    del st
+    cuda.reset_launches()
+    check_step_against_cpu(dev, WIDE_NNZ, (("V_dim", str(WIDE_KF)),
+                                           ("loss", "ffm")), ((),))
+    for name in ROWMAJOR_KERNELS:
+        out[name]["k640_launches"] = cuda.LAUNCHES[name]
+        if not cuda.LAUNCHES[name]:
+            raise AssertionError(f"the K = {Kf} steps never launched {name}")
+    return out
 
 
 def check_sweep_kernels(dev, pb, st, g, k_main: int):
@@ -809,7 +950,7 @@ def check_sweep_kernels(dev, pb, st, g, k_main: int):
     from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
                                                     unpack_state)
 
-    num_rows, R = 1 << NUM_BITS, BLOCK_ROWS
+    num_rows, R = st.num_rows, BLOCK_ROWS
     nb = num_rows // R
     sid = pb.uids  # sorted; the sentinel N on every invalid lane
     off = sweep.offsets_1(sid, num_rows, R)
@@ -980,7 +1121,8 @@ def check_sweep_kernels(dev, pb, st, g, k_main: int):
     slots = 1 << 16
     parts, offs, pos = [], [], 0
     for seed in (20, 21):
-        ids = flagship_batch(seed).ids.reshape(-1)[:slots].astype(np.int64)
+        ids = flagship_batch(seed).ids.reshape(-1)[:slots].astype(
+            np.int64) % num_rows
         ids = np.r_[np.sort(ids), np.full(1000, num_rows)]
         offs.append(np.searchsorted(ids, np.arange(nb + 1) * R) + pos)
         parts.append(ids)
@@ -1403,7 +1545,8 @@ def check_step_against_cpu(dev, nnz: int = 16, model: tuple = (("V_dim",
     against the CPU plain path on a small batch of ``nnz`` slots a row,
     from one state (atol 2e-5, rtol 1e-5: sums differ in order between
     the kernels and index_add_). ``model`` is the loss's settings: the FM
-    with K = 8, or FFM at config 5's width."""
+    with K = 8, FFM at config 5's width or at K = 640, or FFM with
+    explicit libffm fields (each row's slots a shuffle of the fields)."""
     import torch
 
     from difacto_tpu_torch.config import Config
@@ -1424,21 +1567,28 @@ def check_step_against_cpu(dev, nnz: int = 16, model: tuple = (("V_dim",
         sg = gpu.init_state(5)
         sc = cpu.place_state(clone_state(sg))
         rng = np.random.default_rng(5)
+        nf = cfg.model.num_fields if cfg.expects_fields() else 0
         for s in range(4):
             ids = rng.integers(0, 1 << 14, (512, nnz)).astype(np.int32)
             ids[rng.random((512, nnz)) < 0.1] = -1
             vals = np.where(ids < 0, 0, rng.normal(size=(512, nnz))).astype(
                 np.float32)
+            fields = (rng.random((512, nnz)).argsort(axis=1) % nf).astype(
+                np.int32) if nf else None
             b = Batch(ids, vals, (rng.random(512) > 0.5).astype(np.float32),
-                      np.ones(512, np.float32))
-            sg, mg = gpu.train_step_prepped(sg, prep_batch(b, 1 << 14))
-            sc, mc = cpu.train_step_prepped(sc, prep_batch(b, 1 << 14))
+                      np.ones(512, np.float32), fields)
+            sg, mg = gpu.train_step_prepped(sg, prep_batch(b, 1 << 14,
+                                                           num_fields=nf))
+            sc, mc = cpu.train_step_prepped(sc, prep_batch(b, 1 << 14,
+                                                           num_fields=nf))
         for name in ("w", "z", "n", "V", "nV", "cnt"):
             torch.testing.assert_close(
                 getattr(sg, name).cpu(), getattr(sc, name), atol=2e-5,
                 rtol=1e-5, msg=f"device step vs CPU {extra}: {name}")
-        _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, 1 << 14))
-        _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, 1 << 14))
+        _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, 1 << 14,
+                                                      num_fields=nf))
+        _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, 1 << 14,
+                                                      num_fields=nf))
         torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
         log(f"device train/eval steps {dict(model)} "
             f"{dict(extra) or 'kernel=auto'} match "
@@ -1593,6 +1743,190 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
     return launches, rec
 
 
+def conf_kw(name: str) -> tuple:
+    """An example config's keys, less the data paths, ``model_out`` and
+    ``max_num_epochs``, which each drive sets."""
+    from difacto_tpu_torch.utils import arg_parser
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
+    return tuple((k, v) for k, v in arg_parser.read_file(path)
+                 if k not in ("data_in", "data_val", "model_out",
+                              "max_num_epochs"))
+
+
+def to_parts(tmp: str, files: tuple) -> tuple[str, str]:
+    """The port's converter on (train, val) libsvm text: the globs of
+    their csr parts, as examples/fm_criteo.conf names them."""
+    from difacto_tpu_torch.data import converter
+
+    out = os.path.join(tmp, "csr")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    n = [len(converter.convert_file(f, os.path.join(out, os.path.basename(f))))
+         for f in files]
+    log(f"converter: {n} csr parts in {time.perf_counter() - t0:.2f} s")
+    return tuple(os.path.join(out, os.path.basename(f)) + ".part*.npz"
+                 for f in files)
+
+
+def cli_train_predict(tmp: str, name: str, argv: list, val: str,
+                      path: tuple) -> None:
+    """CLI train (3 epochs, ``model_out``) on ``argv`` (an example config
+    and its overrides), which must launch the kernels of ``path`` and no
+    other table kernel, then ``task=predict`` on ``val`` with that
+    checkpoint, on the card and on the CPU: the same scores (pred_out
+    keeps 6 digits), finite. The CLI logs the predict AUC."""
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.ops import cuda
+
+    model = os.path.join(tmp, f"model_{name}")
+    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
+                        + SWEEP_ROWMAJOR_KERNELS)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main([*argv, "max_num_epochs=3", f"model_out={model}"])
+    train_s = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(model + ".npz"):
+        raise AssertionError(f"CLI train {name} failed (rc {rc})")
+    launches = dict(cuda.LAUNCHES)
+    if (min(launches[k] for k in path) == 0
+            or any(launches[k] for k in table_kernels - set(path))):
+        raise AssertionError(f"the CLI run {name} went through the wrong "
+                             f"kernels: {launches}")
+    preds = {}
+    for dev in (None, "cpu"):
+        out = os.path.join(tmp, f"pred_{name}_{dev}.txt")
+        rc = cli.main([*argv, f"data_in={val}", "task=predict",
+                       f"model_in={model}", f"pred_out={out}"], device=dev)
+        if rc != 0:
+            raise AssertionError(f"CLI predict {name} failed (rc {rc})")
+        preds[dev] = np.loadtxt(out)
+    if not (preds[None].size and np.isfinite(preds[None]).all()):
+        raise AssertionError(f"CLI predict {name}: no or non-finite scores")
+    np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
+                               atol=1e-5)
+    log(f"CLI {name}: train 3 epochs {train_s:.1f} s, launches {launches}; "
+        f"predict on the card = on the CPU over {preds[None].size} rows")
+
+
+def drive_formats(dev, tmp: str, flagship_files: tuple, k156: dict,
+                  libffm_loss_ms: float) -> None:
+    """The data formats of the repo's example configs on the card, each
+    at full width (8 batches, 3 epochs, one validation batch):
+
+    P1  examples/fm_criteo.conf as written (csr parts, the flagship FM,
+        FTRL/AdaGrad, the device batch cache) on the flagship data turned
+        into parts by the port's converter, through SGDLearner (and the
+        same keys on the text, for the stream time), then CLI train and
+        ``task=predict`` on the parts;
+    P2  FFM with explicit fields: Criteo in libffm form (39 fields, k = 4,
+        K = 156, fields shuffled within each row) with examples/ffm.conf's
+        updater settings, on the row-major table (``kernel=auto``) and on
+        planar leaves, then CLI train and ``task=predict`` on the libffm
+        files (launches into ``k156``);
+    P3  P1 at examples/northstar.conf's config-4 table (2^26 rows), whose
+        prep must take the native radix localizer; the prep's time on one
+        batch by either engine.
+    """
+    from difacto_tpu_torch.data import _native, prep
+    from difacto_tpu_torch.data.batch_iter import BatchIter
+    from difacto_tpu_torch.data.synthetic import write_libffm
+
+    # -- P1: csr parts at the flagship ------------------------------------
+    criteo = {"name": "criteo_csr", "batch": BATCH, "nnz": NNZ, "seed": 10,
+              "kw": conf_kw(CRITEO_CONF)}
+    parts = to_parts(tmp, flagship_files)
+    _, csr = drive_main_path(dev, *parts, (), ROWMAJOR_KERNELS, criteo)
+    text = dict(criteo, name="criteo_text")
+    _native.reset_runs()
+    _, txt = drive_main_path(dev, *flagship_files, (("data_format", "libsvm"),),
+                             ROWMAJOR_KERNELS, text)
+    if not _native.RUNS["parse_native"] or _native.RUNS["parse_numpy"]:
+        raise AssertionError(f"the text was not parsed by the native engine: "
+                             f"{_native.RUNS}")
+    log(f"P1 epoch0_stream_s: csr parts {csr['epoch0_stream_s']:.3f} s, "
+        f"libsvm text {txt['epoch0_stream_s']:.3f} s (native parser); "
+        f"replay ms a step {csr['replay_ms_per_step']:.3f} and "
+        f"{txt['replay_ms_per_step']:.3f}")
+    for key in ("train_logloss", "val_logloss", "val_exact_auc"):
+        # the same rows in the same batches: the same floats
+        if not np.allclose(csr[key], txt[key], rtol=1e-6, atol=0):
+            raise AssertionError(f"csr parts and their text disagree on "
+                                 f"{key}: {csr[key]} against {txt[key]}")
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        CRITEO_CONF)
+    cli_train_predict(tmp, "criteo_csr", [conf, f"data_in={parts[0]}",
+                                          f"data_val={parts[1]}"],
+                      parts[1], ROWMAJOR_KERNELS)
+
+    # -- P2: libffm with explicit fields at K = 156 -----------------------
+    t0 = time.perf_counter()
+    ffm_files = tuple(os.path.join(tmp, f"libffm_{w}.ffm")
+                      for w in ("train", "val"))
+    write_libffm(libffm_block(MAIN_BATCHES * LIBFFM_BATCH, 14), ffm_files[0])
+    write_libffm(libffm_block(LIBFFM_BATCH, 15), ffm_files[1])
+    log(f"libffm data written in {time.perf_counter() - t0:.1f} s")
+    libffm = {"name": "libffm_criteo", "batch": LIBFFM_BATCH,
+              "nnz": LIBFFM_FIELDS, "seed": 14,
+              "kw": conf_kw(FFM_CONF) + (
+                  ("data_format", "libffm"),
+                  ("num_fields", str(LIBFFM_FIELDS)),
+                  ("max_nnz_per_row", str(LIBFFM_FIELDS)))}
+    runs = [drive_main_path(dev, *ffm_files, extra, path, libffm,
+                            {"ffm_loss_grad_ms": libffm_loss_ms})
+            for extra, path in FFM_PATHS]
+    for (got, _), (_, path) in zip(runs, FFM_PATHS):
+        for name in path:
+            k156[name]["k156_launches"] = got[name]
+    for key in ("train_logloss", "val_logloss", "val_exact_auc"):
+        a, b = runs[0][1][key], runs[1][1][key]
+        if not np.allclose(a, b, rtol=1e-6, atol=0):
+            raise AssertionError(f"libffm FFM on the row-major table and on "
+                                 f"planar leaves disagree on {key}: {a} "
+                                 f"against {b}")
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), FFM_CONF)
+    # one checkpoint of the 5.3 GB table, at the end
+    cli_train_predict(tmp, "libffm_criteo", [
+        conf, "data_format=libffm", f"num_fields={LIBFFM_FIELDS}",
+        f"max_nnz_per_row={LIBFFM_FIELDS}", f"data_in={ffm_files[0]}",
+        f"data_val={ffm_files[1]}", "save_interval_epochs=3"], ffm_files[1],
+        ROWMAJOR_KERNELS)
+
+    # -- P3: the config-4 table, the native localizer ---------------------
+    _native.reset_runs()
+    drive_main_path(dev, *parts, (("num_bits", str(BIG_BITS)),),
+                    ROWMAJOR_KERNELS, dict(criteo, name="criteo_csr_2^26"))
+    runs3 = dict(_native.RUNS)
+    if runs3["localize_native"] != MAIN_BATCHES + 1 or runs3[
+            "localize_searchsorted"]:
+        raise AssertionError(f"the prep at 2^{BIG_BITS} rows did not take the "
+                             f"native localizer on every batch: {runs3}")
+    b = next(iter(BatchIter(parts[0], BATCH, NNZ, BIG_BITS,
+                            data_format="csr")))
+    flat, n = b.ids.reshape(-1), 1 << BIG_BITS
+    engines = {"native": lambda: _native.localize(flat, n),
+               "numpy_searchsorted": lambda: prep._localize_numpy(flat, n)}
+    for a, c in zip(*(fn() for fn in engines.values())):
+        if not np.array_equal(a, c):
+            raise AssertionError("the native localizer differs from NumPy's "
+                                 f"on a 2^{BIG_BITS}-row batch")
+    host_ms = dict.fromkeys(engines, 0.0)
+    for name in list(engines) + list(engines)[::-1]:  # in turns
+        t0 = time.perf_counter()
+        for _ in range(5):
+            engines[name]()
+        host_ms[name] += (time.perf_counter() - t0) / 10 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        prep.prep_batch(b, n)
+    prep_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"P3 prep at 2^{BIG_BITS} rows on the host CPU of the card's machine, "
+        f"one {BATCH} x {NNZ} batch: localize ms {json.dumps(host_ms)} "
+        f"(speedup {host_ms['numpy_searchsorted'] / host_ms['native']:.2f}x), "
+        f"prep_batch {prep_ms:.2f} ms with the native engine; engine runs "
+        f"{json.dumps(runs3)}")
+
+
 def drive_cli(tmp: str) -> None:
     """Phase 5: on each table path, CLI train with validation and
     model_out, then task=predict on the checkpoint; the scores must match
@@ -1682,19 +2016,34 @@ def main() -> int:
     _, secs, ptxas = cuda.build(verbose=True)
     log(f"kernels built in {secs:.1f} s (nvcc, sm_90a)\n{ptxas}")
     cuda.library()
+    from difacto_tpu_torch.data import _native
+
+    t0 = time.perf_counter()
+    if not _native.available():  # the native parser and localizer
+        raise AssertionError(f"the native host engines did not build: "
+                             f"{_native.build_error()}")
+    log(f"native host engines built in {time.perf_counter() - t0:.1f} s "
+        "(g++)")
 
     kernels = check_kernels(dev)
     k96, ffm_loss_ms = check_ffm_kernels(dev)
+    k156, libffm_loss_ms = check_libffm_kernels(dev)
+    k640 = check_wide_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:  # a short first run of a new kernel
         log(json.dumps({"kernels_checked": sorted(kernels),
-                        "k96_checked": sorted(k96)}))
+                        "k96_checked": sorted(k96),
+                        "k156_checked": sorted(k156),
+                        "k640_checked": sorted(k640)}))
         return 0
     check_step_against_cpu(dev)
     check_step_against_cpu(dev, FFM_NNZ, (("V_dim", str(FFM_K)),
                                           ("loss", "ffm")), FFM_STEP_PATHS)
+    check_step_against_cpu(dev, LIBFFM_FIELDS, (
+        ("V_dim", str(LIBFFM_K)), ("loss", "ffm"), ("data_format", "libffm"),
+        ("num_fields", str(LIBFFM_FIELDS))), FFM_STEP_PATHS)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        files = write_main_data(tmp, FLAGSHIP)
+        files = flagship_files = write_main_data(tmp, FLAGSHIP)
         recs = {}
         for extra, path in MAIN_PATHS:
             got, recs[extra] = drive_main_path(dev, *files, extra, path)
@@ -1728,6 +2077,7 @@ def main() -> int:
                 raise AssertionError(f"FFM on the row-major table and on "
                                      f"planar leaves disagree on {key}: {a} "
                                      f"against {b}")
+        drive_formats(dev, tmp, flagship_files, k156, libffm_loss_ms)
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -1739,9 +2089,12 @@ def main() -> int:
         # the kernel's own time by torch.profiler, for the kernels short
         # enough that `ms` (CUDA events) is the host's enqueue rate; for
         # the planar apply, flushed too, the tiles and their rmwonly floor
-        # and B2's time in the same turns; S1a's floor; at FFM's width
+        # and B2's time in the same turns; S1a's floor; at FFM's width, at
+        # libffm Criteo's and at K = 640
         **{k: v for k, v in kernels[name].items() if k in EXTRA_KEYS},
-        **{k: v for k, v in k96.get(name, {}).items() if k in K96_KEYS}}
+        **{k: v for width in (k96, k156, k640)
+           for k, v in width.get(name, {}).items()
+           if k in K96_KEYS + K156_KEYS + K640_KEYS}}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
         + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS]
     log(json.dumps({"kernels": rows}))

@@ -64,7 +64,7 @@ class DataParam(ParamBase):
 
     data_in: str = ""              # training data URI (file, dir, or glob)
     data_val: str = ""             # validation data URI
-    data_format: str = "libsvm"    # libsvm | libffm | csr (port: libsvm)
+    data_format: str = "libsvm"    # libsvm | libffm | csr
     batch_size: int = 8192         # examples per step
     shuffle: bool = True           # shuffle batches within a file part
     num_parts_per_file: int = 1    # split each file into N parts (InputSplit)
@@ -116,8 +116,8 @@ class FMParam(ParamBase):
     tail_feature_filter: int = 0   # drop features with count < this (count pass)
 
     num_fields: int = 0            # loss=ffm: explicit field count F of
-                                   # libffm data (port: 0, slot position
-                                   # is the field, F = max_nnz_per_row)
+                                   # libffm data (0 = slot position is
+                                   # the field, F = max_nnz_per_row)
     ffm_block_size: int = 0        # loss=ffm: stream the O(B L^2 K) cross
                                    # terms in i-blocks of this many slots;
                                    # 0 = dense when it fits the activation
@@ -194,7 +194,7 @@ FFM_ACTIVATION_CAP = 8 << 30
 # Settings outside the port's slice, each named with the ROADMAP item that
 # brings it; Config.check raises NotImplementedError listing them.
 def _slice_violations(cfg: "Config") -> list[str]:
-    d, m, lr, s = cfg.data, cfg.model, cfg.learner, cfg.shard
+    d, lr, s = cfg.data, cfg.learner, cfg.shard
     out = []
     if s.store == "sharded":
         out.append("store=sharded (ROADMAP A9, ShardedStore)")
@@ -209,10 +209,6 @@ def _slice_violations(cfg: "Config") -> list[str]:
         out.append("layout=stacked (ROADMAP A14, the XLA path's layout)")
     if not d.host_localize:
         out.append("host_localize=0 (ROADMAP A16, device localize)")
-    if d.data_format in ("libffm", "csr"):
-        out.append(f"data_format={d.data_format} (ROADMAP A18, csr/libffm)")
-    if m.num_fields > 0:
-        out.append("num_fields > 0 (ROADMAP A18, explicit libffm fields)")
     for key in ("data_in", "data_val", "model_in", "model_out", "pred_out"):
         uri = getattr(d if key.startswith("data") else lr, key)
         if "://" in uri and not uri.startswith("file://"):

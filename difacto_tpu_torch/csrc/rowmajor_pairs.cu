@@ -42,6 +42,9 @@
 //      ran, steps (V, nV) and writes both pieces back. The pull stages
 //      its pieces in a shared-memory tile [1+K][32] per warp and then
 //      writes the planar output one row per 128-byte store.
+//   Past RM_KC = 128 factors (csrc/rowmajor.cuh) phase B takes them in
+//   chunks, each through the tile: the pull's chunks are grid rows, the
+//   apply's are walked in turn; K <= 128 is the one tile of every K.
 // VEC is 4 when K % 4 == 0 and the table is 16-byte aligned (V and nV
 // pieces then pair up as float4), 2 when K is even, 1 (the scalar path)
 // for odd K: the same kernel template, narrower pieces.
@@ -71,7 +74,9 @@
 #include "rowmajor.cuh"
 #include "table_update.cuh"
 
-template <int VEC>
+// CHUNKED: K > RM_KC, this block's chunk of the factors is blockIdx.y;
+// else the one tile of all K (the code of every K up to RM_KC).
+template <int VEC, bool CHUNKED>
 __global__ void __launch_bounds__(RM_THREADS)
 rowmajor_pull_kernel(const float* __restrict__ tbl,
                      const int* __restrict__ uids, float* __restrict__ out,
@@ -104,28 +109,16 @@ rowmajor_pull_kernel(const float* __restrict__ tbl,
     if (lane < U) out[lane] = w;
     return;
   }
-  float* tile = smem + (size_t)warp * (1 + K) * RM_TILE_LD;
+  float* tile =
+      smem + (size_t)warp * (1 + (CHUNKED ? RM_KC : K)) * RM_TILE_LD;
   tile[t] = w;
-  // phase B: the V pieces of the warp's 32 rows, piece-fastest
-  const int PV = K / VEC;
-  for (int it = 0; it < PV; ++it) {
-    const int q = it * 32 + t;
-    const int ll = q / PV;
-    const int piece = q - ll * PV;
-    const int rid = __shfl_sync(0xffffffffu, id, ll);
-    const int ract = __shfl_sync(0xffffffffu, (int)act, ll);
-    float v[VEC];
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) v[c] = 0.0f;
-    if (ract) ld_vec<VEC>(tbl + (long long)rid * D + 4 + piece * VEC, v);
-#pragma unroll
-    for (int c = 0; c < VEC; ++c)
-      tile[(1 + piece * VEC + c) * RM_TILE_LD + ll] = v[c];
-  }
-  __syncwarp();
-  if (lane < U) {
-    for (int r = 0; r <= K; ++r)
-      out[(long long)r * U + lane] = tile[r * RM_TILE_LD + t];
+  // phase B: the V pieces of the warp's 32 rows through the tile
+  if (CHUNKED) {
+    const int k0 = blockIdx.y * RM_KC;
+    pull_chunk<VEC>(tbl, D, id, act, tile, out, U, lane, t, k0,
+                    min(K - k0, RM_KC));
+  } else {
+    pull_chunk<VEC>(tbl, D, id, act, tile, out, U, lane, t, 0, K);
   }
 }
 
@@ -141,14 +134,11 @@ rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
   if (lane0 >= U) return;
   const int D = 4 + 2 * K;
   const int lane = lane0 + t;
-  // the warp's tile [K][32] of the gV payload, one 128-byte row a copy,
-  // on its way to shared memory (cp.async) while phase A runs
-  float* tile = smem + (size_t)(threadIdx.x >> 5) * K * 32;
-  if (lane < U)
-    for (int r = 0; r < K; ++r)
-      __pipeline_memcpy_async(tile + r * 32 + t,
-                              pay + (long long)(1 + r) * U + lane, 4);
-  __pipeline_commit();
+  // the warp's tile [Kc][32] of the gV payload, one 128-byte row a copy:
+  // the first chunk is on its way to shared memory (cp.async) while
+  // phase A runs
+  float* tile = smem + (size_t)(threadIdx.x >> 5) * rm_chunk(K) * 32;
+  stage_gv(tile, pay, U, lane, 0, rm_chunk(K));
   // phase A: the lane that starts a run updates the row's head
   int id = -1, end = 0;
   if (lane < U) {
@@ -177,33 +167,44 @@ rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
     store_head<VEC>(row, h);
     active = K > 0 && tail_ok && c >= p.V_threshold;
   }
-  // phase B: the (V, nV) pieces of the rows past the gate, piece-fastest
-  const int PV = K / VEC;
-  __pipeline_wait_prior(0);
-  __syncwarp();
-  for (int it = 0; it < PV; ++it) {
-    const int q = it * 32 + t;
-    const int ll = q / PV;
-    const int piece = q - ll * PV;
-    const int rid = __shfl_sync(0xffffffffu, id, ll);
-    const int rend = __shfl_sync(0xffffffffu, end, ll);
-    const int ract = __shfl_sync(0xffffffffu, (int)active, ll);
-    if (ract) {
-      float* v = tbl + (long long)rid * D + 4 + piece * VEC;
-      VEnt e[VEC];
-      load_v_row<VEC>(v, K, e, p);
-      // the run's lanes inside the warp's tile, then (a run that outlasts
-      // the warp) the rest from the payload: lane order, as run_sum
-      const int cut = min(rend, lane0 + 32);
+  // phase B, a chunk of at most RM_KC factors at a time: the chunk's
+  // (V, nV) pieces of the rows past the gate, piece-fastest. Each factor
+  // steps on its own, so the chunks change no bit
+  for (int k0 = 0; k0 < K; k0 += RM_KC) {
+    const int kc = min(K - k0, RM_KC);
+    if (k0 > 0) {
+      __syncwarp();                // the last chunk's tile is read
+      stage_gv(tile, pay, U, lane, k0, kc);
+    }
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    const int PV = kc / VEC;
+    for (int it = 0; it < PV; ++it) {
+      const int q = it * 32 + t;
+      const int ll = q / PV;
+      const int piece = q - ll * PV;
+      const int rid = __shfl_sync(0xffffffffu, id, ll);
+      const int rend = __shfl_sync(0xffffffffu, end, ll);
+      const int ract = __shfl_sync(0xffffffffu, (int)active, ll);
+      if (ract) {
+        float* v = tbl + (long long)rid * D + 4 + k0 + piece * VEC;
+        VEnt e[VEC];
+        load_v_row<VEC>(v, K, e, p);
+        // the run's lanes inside the warp's tile, then (a run that
+        // outlasts the warp) the rest from the payload: lane order, as
+        // run_sum
+        const int cut = min(rend, lane0 + 32);
 #pragma unroll
-      for (int c = 0; c < VEC; ++c) {
-        const int r = piece * VEC + c;
-        float gv = 0.0f;
-        for (int j = ll; j < cut - lane0; ++j) gv += tile[r * 32 + j];
-        for (int j = cut; j < rend; ++j) gv += pay[(long long)(1 + r) * U + j];
-        e[c] = step_v(e[c], gv, p);
+        for (int c = 0; c < VEC; ++c) {
+          const int r = piece * VEC + c;
+          float gv = 0.0f;
+          for (int j = ll; j < cut - lane0; ++j) gv += tile[r * 32 + j];
+          for (int j = cut; j < rend; ++j)
+            gv += pay[(long long)(1 + k0 + r) * U + j];
+          e[c] = step_v(e[c], gv, p);
+        }
+        store_v_row<VEC>(v, K, e, p);
       }
-      store_v_row<VEC>(v, K, e, p);
     }
   }
 }
@@ -213,20 +214,20 @@ extern "C" int dft_pull_rowmajor(const void* tbl, const void* uids, void* out,
                                  void* stream) {
   if (U <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks = (unsigned int)((U + RM_THREADS - 1) / RM_THREADS);
-  const size_t smem =
-      K > 0 ? sizeof(float) * RM_WARPS * (size_t)(1 + K) * RM_TILE_LD : 0;
-#define RM_PULL(V)                                                          \
+  const dim3 grid = pull_grid(U, K);
+  const size_t smem = pull_smem(K);
+#define RM_PULL(V, C)                                                       \
   do {                                                                      \
-    cudaError_t e = allow_smem(rowmajor_pull_kernel<V>, smem);              \
+    cudaError_t e = allow_smem(rowmajor_pull_kernel<V, C>, smem);           \
     if (e != cudaSuccess) return (int)e;                                    \
-    rowmajor_pull_kernel<V><<<blocks, RM_THREADS, smem, st>>>(              \
+    rowmajor_pull_kernel<V, C><<<grid, RM_THREADS, smem, st>>>(             \
         (const float*)tbl, (const int*)uids, (float*)out, N, K, U, thr);    \
   } while (0)
+  const bool chunked = K > RM_KC;
   switch (pick_vec(tbl, K, vec)) {
-    case 4: RM_PULL(4); break;
-    case 2: RM_PULL(2); break;
-    default: RM_PULL(1); break;
+    case 4: if (chunked) RM_PULL(4, true); else RM_PULL(4, false); break;
+    case 2: if (chunked) RM_PULL(2, true); else RM_PULL(2, false); break;
+    default: if (chunked) RM_PULL(1, true); else RM_PULL(1, false); break;
   }
 #undef RM_PULL
   return (int)cudaGetLastError();
@@ -243,7 +244,7 @@ extern "C" int dft_apply_rowmajor(void* tbl, const void* uids, const void* pay,
                 V_threshold, tail, w_updater, V_updater};
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned int blocks = (unsigned int)((U + RM_THREADS - 1) / RM_THREADS);
-  const size_t smem = sizeof(float) * RM_WARPS * (size_t)K * 32;
+  const size_t smem = sizeof(float) * RM_WARPS * (size_t)rm_chunk(K) * 32;
 #define RM_APPLY(V)                                                         \
   do {                                                                      \
     cudaError_t e = allow_smem(rowmajor_apply_kernel<V>, smem);             \

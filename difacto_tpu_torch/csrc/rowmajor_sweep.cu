@@ -49,7 +49,8 @@
 //    while phase A runs. The pull reads every covered slot's row itself
 //    (equal ids re-read a row the L1 holds) and writes the planar output
 //    through a transposed tile in 128-byte stores, zeros included, in one
-//    launch.
+//    launch. Past RM_KC factors (csrc/rowmajor.cuh) phase B takes them
+//    in chunks, as the pair kernels do.
 // The order check is the kernels' own: each slot compares itself with its
 // left neighbour, ids the kernel reads anyway.
 #include <assert.h>
@@ -138,7 +139,9 @@ __device__ __forceinline__ float slots_sum_tiled(
   return acc;
 }
 
-template <int VEC>
+// CHUNKED as in csrc/rowmajor_pairs.cu's pull: past RM_KC factors, this
+// block's chunk is blockIdx.y.
+template <int VEC, bool CHUNKED>
 __global__ void __launch_bounds__(RM_THREADS)
 rowmajor_sweep_pull_kernel(const float* __restrict__ tbl,
                            const int* __restrict__ sid,
@@ -177,28 +180,16 @@ rowmajor_sweep_pull_kernel(const float* __restrict__ tbl,
     if (lane < nnz) out[lane] = w;
     return;
   }
-  float* tile = smem + (size_t)warp * (1 + K) * RM_TILE_LD;
+  float* tile =
+      smem + (size_t)warp * (1 + (CHUNKED ? RM_KC : K)) * RM_TILE_LD;
   tile[t] = w;
-  // phase B: the V pieces of the warp's 32 slots, piece-fastest
-  const int PV = K / VEC;
-  for (int it = 0; it < PV; ++it) {
-    const int q = it * 32 + t;
-    const int ll = q / PV;
-    const int piece = q - ll * PV;
-    const int rid = __shfl_sync(0xffffffffu, id, ll);
-    const int ract = __shfl_sync(0xffffffffu, (int)act, ll);
-    float v[VEC];
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) v[c] = 0.0f;
-    if (ract) ld_vec<VEC>(tbl + (long long)rid * D + 4 + piece * VEC, v);
-#pragma unroll
-    for (int c = 0; c < VEC; ++c)
-      tile[(1 + piece * VEC + c) * RM_TILE_LD + ll] = v[c];
-  }
-  __syncwarp();
-  if (lane < nnz) {
-    for (int r = 0; r <= K; ++r)
-      out[(long long)r * nnz + lane] = tile[r * RM_TILE_LD + t];
+  // phase B: the V pieces of the warp's 32 slots through the tile
+  if (CHUNKED) {
+    const int k0 = blockIdx.y * RM_KC;
+    pull_chunk<VEC>(tbl, D, id, act, tile, out, nnz, lane, t, k0,
+                    min(K - k0, RM_KC));
+  } else {
+    pull_chunk<VEC>(tbl, D, id, act, tile, out, nnz, lane, t, 0, K);
   }
 }
 
@@ -216,14 +207,11 @@ rowmajor_sweep_apply_kernel(float* tbl, const int* __restrict__ sid,
   const int D = 4 + 2 * K;
   const int nb1 = nb + 1;
   const int lane = lane0 + t;
-  // the warp's tile [K][32] of the gV payload, one 128-byte row a copy,
-  // on its way to shared memory (cp.async) while phase A runs
-  float* tile = smem + (size_t)(threadIdx.x >> 5) * K * 32;
-  if (lane < nnz)
-    for (int r = 0; r < K; ++r)
-      __pipeline_memcpy_async(tile + r * 32 + t,
-                              pay + (long long)(1 + r) * nnz + lane, 4);
-  __pipeline_commit();
+  // the warp's tile [Kc][32] of the gV payload, one 128-byte row a copy:
+  // the first chunk is on its way to shared memory (cp.async) while
+  // phase A runs
+  float* tile = smem + (size_t)(threadIdx.x >> 5) * rm_chunk(K) * 32;
+  stage_gv(tile, pay, nnz, lane, 0, rm_chunk(K));
   // phase A: the slot that owns a row updates the row's head
   int id = -1, end = 0, s0 = 0;
   if (lane < nnz) {
@@ -253,31 +241,40 @@ rowmajor_sweep_apply_kernel(float* tbl, const int* __restrict__ sid,
     store_head<VEC>(row, h);
     active = K > 0 && on && c >= p.V_threshold;
   }
-  // phase B: the (V, nV) pieces of the rows past the gate, piece-fastest
-  const int PV = K / VEC;
-  __pipeline_wait_prior(0);
-  __syncwarp();
-  for (int it = 0; it < PV; ++it) {
-    const int q = it * 32 + t;
-    const int ll = q / PV;
-    const int piece = q - ll * PV;
-    const int rid = __shfl_sync(0xffffffffu, id, ll);
-    const int rend = __shfl_sync(0xffffffffu, end, ll);
-    const int rs0 = __shfl_sync(0xffffffffu, s0, ll);
-    const int ract = __shfl_sync(0xffffffffu, (int)active, ll);
-    if (ract) {
-      float* v = tbl + (long long)rid * D + 4 + piece * VEC;
-      VEnt e[VEC];
-      load_v_row<VEC>(v, K, e, p);
+  // phase B, a chunk of at most RM_KC factors at a time: the chunk's
+  // (V, nV) pieces of the rows past the gate, piece-fastest. Each factor
+  // steps on its own, so the chunks change no bit
+  for (int k0 = 0; k0 < K; k0 += RM_KC) {
+    const int kc = min(K - k0, RM_KC);
+    if (k0 > 0) {
+      __syncwarp();                // the last chunk's tile is read
+      stage_gv(tile, pay, nnz, lane, k0, kc);
+    }
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    const int PV = kc / VEC;
+    for (int it = 0; it < PV; ++it) {
+      const int q = it * 32 + t;
+      const int ll = q / PV;
+      const int piece = q - ll * PV;
+      const int rid = __shfl_sync(0xffffffffu, id, ll);
+      const int rend = __shfl_sync(0xffffffffu, end, ll);
+      const int rs0 = __shfl_sync(0xffffffffu, s0, ll);
+      const int ract = __shfl_sync(0xffffffffu, (int)active, ll);
+      if (ract) {
+        float* v = tbl + (long long)rid * D + 4 + k0 + piece * VEC;
+        VEnt e[VEC];
+        load_v_row<VEC>(v, K, e, p);
 #pragma unroll
-      for (int c = 0; c < VEC; ++c) {
-        const int r = piece * VEC + c;
-        const float gv = slots_sum_tiled(
-            tile + r * 32, lane0, pay + (long long)(1 + r) * nnz, sid, off, S,
-            nb1, R, rid, rs0, lane0 + ll, rend);
-        e[c] = step_v(e[c], gv, p);
+        for (int c = 0; c < VEC; ++c) {
+          const int r = piece * VEC + c;
+          const float gv = slots_sum_tiled(
+              tile + r * 32, lane0, pay + (long long)(1 + k0 + r) * nnz, sid,
+              off, S, nb1, R, rid, rs0, lane0 + ll, rend);
+          e[c] = step_v(e[c], gv, p);
+        }
+        store_v_row<VEC>(v, K, e, p);
       }
-      store_v_row<VEC>(v, K, e, p);
     }
   }
 }
@@ -289,23 +286,28 @@ extern "C" int dft_sweep_pull_rowmajor(const void* tbl, const void* sid,
                                        void* stream) {
   if (nnz <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks =
-      (unsigned int)((nnz + RM_THREADS - 1) / RM_THREADS);
-  const size_t smem =
-      K > 0 ? sizeof(float) * RM_WARPS * (size_t)(1 + K) * RM_TILE_LD : 0;
-#define RM_SWEEP_PULL(V)                                                    \
+  const dim3 grid = pull_grid(nnz, K);
+  const size_t smem = pull_smem(K);
+#define RM_SWEEP_PULL(V, C)                                                 \
   do {                                                                      \
-    cudaError_t e = allow_smem(rowmajor_sweep_pull_kernel<V>, smem);        \
+    cudaError_t e = allow_smem(rowmajor_sweep_pull_kernel<V, C>, smem);     \
     if (e != cudaSuccess) return (int)e;                                    \
-    rowmajor_sweep_pull_kernel<V><<<blocks, RM_THREADS, smem, st>>>(        \
+    rowmajor_sweep_pull_kernel<V, C><<<grid, RM_THREADS, smem, st>>>(       \
         (const float*)tbl, (const int*)sid, (const int*)off, (float*)out,   \
         N, K, nnz, S, nb, R, thr);                                          \
   } while (0)
+  const bool chunked = K > RM_KC;
+#define RM_SWEEP_PULL_C(V)                                                  \
+  do {                                                                      \
+    if (chunked) RM_SWEEP_PULL(V, true);                                    \
+    else RM_SWEEP_PULL(V, false);                                           \
+  } while (0)
   switch (pick_vec(tbl, K, vec)) {
-    case 4: RM_SWEEP_PULL(4); break;
-    case 2: RM_SWEEP_PULL(2); break;
-    default: RM_SWEEP_PULL(1); break;
+    case 4: RM_SWEEP_PULL_C(4); break;
+    case 2: RM_SWEEP_PULL_C(2); break;
+    default: RM_SWEEP_PULL_C(1); break;
   }
+#undef RM_SWEEP_PULL_C
 #undef RM_SWEEP_PULL
   return (int)cudaGetLastError();
 }
@@ -322,7 +324,7 @@ extern "C" int dft_sweep_apply_rowmajor(
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned int blocks =
       (unsigned int)((nnz + RM_THREADS - 1) / RM_THREADS);
-  const size_t smem = sizeof(float) * RM_WARPS * (size_t)K * 32;
+  const size_t smem = sizeof(float) * RM_WARPS * (size_t)rm_chunk(K) * 32;
 #define RM_SWEEP_APPLY(V)                                                   \
   do {                                                                      \
     cudaError_t e = allow_smem(rowmajor_sweep_apply_kernel<V>, smem);       \

@@ -22,7 +22,8 @@ import numpy as np
 
 from ..base import hash_ids
 from .io import expand_uri
-from .libsvm import RowBlock, iter_file_chunks, parse_libsvm
+from .converter import load_csr_shard
+from .libsvm import RowBlock, iter_file_chunks, parse_libffm, parse_libsvm
 
 PAD_ID = -1
 
@@ -35,6 +36,8 @@ class Batch:
     vals: np.ndarray     # f32 [B, L]; 0 for padding slots
     labels: np.ndarray   # f32 [B] in {0, 1}
     mask: np.ndarray     # f32 [B]; 1 = real row, 0 = padding row
+    fields: np.ndarray | None = None  # i32 [B, L] libffm field per slot
+                                      # (0 on padding slots; vals==0 there)
 
     @property
     def batch_size(self) -> int:
@@ -54,7 +57,8 @@ def rowblock_to_batches(
     rng: np.random.Generator | None = None,
     drop_remainder: bool = False,
 ) -> Iterator[Batch]:
-    """Pad a CSR RowBlock into fixed [B, L] batches."""
+    """Pad a CSR RowBlock into fixed [B, L] batches (with the block's
+    libffm fields, when it has them, in the same slots)."""
     n = blk.num_rows
     if n == 0:
         return
@@ -71,6 +75,7 @@ def rowblock_to_batches(
         L0 > 0
         and L0 <= max_nnz
         and bool((np.diff(blk.indptr) == L0).all())
+        and blk.fields is None
     )
     if uniform:
         ids_all = hashed.reshape(n, L0)
@@ -84,6 +89,10 @@ def rowblock_to_batches(
         vals = np.zeros((batch_size, max_nnz), np.float32)
         labels = np.zeros(batch_size, np.float32)
         mask = np.zeros(batch_size, np.float32)
+        flds = (
+            np.zeros((batch_size, max_nnz), np.int32)
+            if blk.fields is not None else None
+        )
         # gather positions: row r contributes indptr[r] .. indptr[r]+lens[r]
         if uniform:
             ids[:b, :L0] = ids_all[rows]
@@ -100,13 +109,16 @@ def rowblock_to_batches(
             src = blk.indptr[rows][row_of] + within
             ids[row_of, within] = hashed[src]
             vals[row_of, within] = blk.values[src]
+            if flds is not None:
+                flds[row_of, within] = blk.fields[src]
         labels[:b] = (blk.labels[rows] > 0).astype(np.float32)
         mask[:b] = 1.0
-        yield Batch(ids, vals, labels, mask)
+        yield Batch(ids, vals, labels, mask, fields=flds)
 
 
 class BatchIter:
-    """Stream batches from libsvm/binary files.
+    """Stream batches from libsvm or libffm text, or from binary CSR parts
+    (``data_format`` libsvm | libffm | csr).
 
     Reference: BatchIter + ChunkIter + dmlc::InputSplit. ``part_index`` /
     ``num_parts`` select a disjoint byte-range shard of every file, which
@@ -211,5 +223,12 @@ class BatchIter:
                     path, self.chunk_bytes, part, self.num_parts
                 ):
                     yield parse_libsvm(chunk)
+            elif self.data_format == "libffm":
+                for chunk in iter_file_chunks(
+                    path, self.chunk_bytes, part, self.num_parts
+                ):
+                    yield parse_libffm(chunk)
+            elif self.data_format == "csr":
+                yield load_csr_shard(path, part, self.num_parts)
             else:
                 raise ValueError(f"unknown data_format {self.data_format!r}")

@@ -1,10 +1,15 @@
 """libsvm text parsing into CSR arrays.
 
-Copy of ``difacto_tpu/data/libsvm.py``'s NumPy engine (reference:
-dmlc-core ``libsvm_parser.h`` :: LibSVMParser and ``dmlc/data.h`` ::
-RowBlock). Output is a plain CSR quadruple (labels, indptr, indices
-(uint64 raw ids), values) which the batch iterator hashes and pads into
-static shapes. The native C++ parser and libffm wait (ROADMAP A17, A18).
+Copy of ``difacto_tpu/data/libsvm.py`` (reference: dmlc-core
+``libsvm_parser.h`` :: LibSVMParser and ``dmlc/data.h`` :: RowBlock).
+Output is a plain CSR quadruple (labels, indptr, indices (uint64 raw
+ids), values), with a field per feature for libffm, which the batch
+iterator hashes and pads into static shapes.
+
+Two libsvm engines, as in the JAX package: the multithreaded C++ parser
+(data/_native.py, built on first use) and a vectorized NumPy engine, which
+gives the same arrays and runs where the native one cannot be built.
+libffm has the NumPy engine alone.
 """
 
 from __future__ import annotations
@@ -17,12 +22,14 @@ import numpy as np
 
 @dataclass
 class RowBlock:
-    """Host CSR block (reference: dmlc::RowBlock<feaid_t>)."""
+    """Host CSR block (reference: dmlc::RowBlock<feaid_t>; the optional
+    ``fields`` array mirrors dmlc's RowBlock::field for libffm data)."""
 
     labels: np.ndarray   # f32 [n]  (raw labels as in file; 0/1 or -1/+1)
     indptr: np.ndarray   # i64 [n+1]
     indices: np.ndarray  # u64 [nnz] raw feature ids
     values: np.ndarray   # f32 [nnz]
+    fields: np.ndarray | None = None  # i32 [nnz] libffm field per feature
 
     @property
     def num_rows(self) -> int:
@@ -67,7 +74,7 @@ def _empty_block() -> RowBlock:
     )
 
 
-def parse_libsvm(data: bytes) -> RowBlock:
+def parse_libsvm_numpy(data: bytes) -> RowBlock:
     """Vectorized libsvm parse of one chunk. Supports 'label i:v i:v ...' lines; ignores
     blank lines and '#' comments. Bare indices ('i' without ':v') mean
     value 1.0, matching the dmlc parser and the C++ engine (dmlc-core
@@ -92,6 +99,52 @@ def parse_libsvm(data: bytes) -> RowBlock:
     nnz = np.bincount(line_of, minlength=n_lines).astype(np.int64)
     indptr = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int64)
     return RowBlock(labels, indptr, indices, values)
+
+
+def parse_libffm(data: bytes) -> RowBlock:
+    """Vectorized libffm parse: 'label f:i:v f:i:v ...' lines (the libffm
+    tool's format; dmlc-core reads it as RowBlock::field). 'f:i' without
+    the value means value 1.0. Returns a RowBlock with ``fields`` set."""
+    tok = _tokenize(data)
+    if tok is None:
+        blk = _empty_block()
+        blk.fields = np.zeros(0, np.int32)
+        return blk
+    n_lines, label_tok, feat, line_of = tok
+    try:
+        labels = label_tok.astype(np.float32)
+        if feat.size == 0:
+            fields = np.zeros(0, np.int64)
+            indices = np.zeros(0, np.uint64)
+            values = np.zeros(0, np.float32)
+        else:
+            p1 = np.char.partition(feat, b":")        # f | ':' | 'i:v'
+            if not bool((p1[:, 1] == b":").all()):
+                raise ValueError("feature token without ':' (need field:idx[:val])")
+            fields = p1[:, 0].astype(np.int64)
+            p2 = np.char.partition(p1[:, 2], b":")    # i | ':' | v
+            indices = p2[:, 0].astype(np.uint64)
+            values = np.where(p2[:, 1] == b":", p2[:, 2], b"1").astype(np.float32)
+    except ValueError as e:
+        raise ValueError(f"malformed libffm input: {e}") from None
+    if len(fields) and (fields.min() < 0):
+        raise ValueError("malformed libffm input: negative field id")
+    nnz = np.bincount(line_of, minlength=n_lines).astype(np.int64)
+    indptr = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int64)
+    return RowBlock(labels, indptr, indices, values, fields.astype(np.int32))
+
+
+def parse_libsvm(data: bytes) -> RowBlock:
+    """Parse one chunk with the native engine where it is built (on the
+    first call), else with the NumPy engine; data/_native.py counts
+    which one ran."""
+    from . import _native
+
+    if _native.available():
+        _native.count("parse_native")
+        return _native.parse_libsvm(data)
+    _native.count("parse_numpy")
+    return parse_libsvm_numpy(data)
 
 
 def iter_file_chunks(

@@ -8,9 +8,10 @@ prep thread pool. The dedup shrinks the unique-lane count to the batch's
 actual unique count, rounded up a bucket ladder, and every downstream
 sparse cost (the pull, the segment sum, the apply) scales with it.
 
+Past ``_LUT_MAX_ROWS`` table rows a batch of at least 4096 slots goes to
+the native radix localizer (data/_native.py), as in the JAX package.
 Left out here, with the code that needs them: the hot/cold split (ROADMAP
-A13), the sharded per-owner schedules (A9) and the native localizer
-(A17). ``build_sorted_slots`` builds no Pallas schedule (SegMeta,
+A13) and the sharded per-owner schedules (A9). ``build_sorted_slots`` builds no Pallas schedule (SegMeta,
 PairMeta): those are Mosaic addressing artefacts the Hopper kernels do
 not need.
 """
@@ -36,6 +37,9 @@ _TLS = threading.local()
 # the inverse falls back to a searchsorted over the batch's own sorted
 # uniques (memory O(batch), slower)
 _LUT_MAX_ROWS = 1 << 24
+# ... and past the cap a batch of at least this many slots takes the
+# native radix localizer, whose memory is O(batch) at any table size
+_NATIVE_MIN_SLOTS = 4096
 
 
 def _lut_for(num_rows: int) -> np.ndarray:
@@ -46,6 +50,28 @@ def _lut_for(num_rows: int) -> np.ndarray:
     if lut is None:
         lut = d[num_rows] = np.empty(num_rows + 1, np.int32)
     return lut
+
+
+def validate_fields(fields: np.ndarray | None, num_fields: int) -> None:
+    """Host-side libffm field-range check (the loss clips field ids into
+    range, so an out-of-range id — num_fields set too small, or a
+    malformed file — would otherwise train a silently wrong model). Runs
+    here, where fields are still host numpy: the learner places batches
+    on the device before the store sees them."""
+    if num_fields <= 0:
+        return
+    if fields is None:
+        raise ValueError(
+            "num_fields > 0 but this batch carries no field ids "
+            "(use data_format=libffm)"
+        )
+    if isinstance(fields, np.ndarray) and fields.size:
+        fmax = int(fields.max())
+        if fmax >= num_fields:
+            raise ValueError(
+                f"libffm field id {fmax} out of range: num_fields="
+                f"{num_fields} (fields must be in [0, num_fields))"
+            )
 
 
 # unique-lane bucket ladder: actual unique count is padded up to one of
@@ -85,6 +111,8 @@ class PreppedBatch:
     inv: np.ndarray      # i32 [B*L] row-major slot -> unique lane
     valid: np.ndarray    # bool [Ub]
     sorted_slots: SortedSlots | None = None
+    fields: np.ndarray | None = None  # i32 [B, L] libffm fields (loss=ffm)
+    fields_checked: bool = False  # range-validated at prep time (host)
 
     @property
     def num_examples(self) -> int:
@@ -103,16 +131,42 @@ def _localize_ids(ids: np.ndarray, num_rows: int):
     """Dedup one batch's padded ids (PAD_ID=-1 -> sentinel num_rows,
     which sorts last). Returns (uids, inv, counts, has_sentinel, n_real).
 
-    numpy's int32 ``np.sort`` is a radix sort while ``np.unique``'s
-    argsort-based inverse is much slower, so the inverse is rebuilt from a
-    direct id->lane lookup table instead. The table is ``np.empty`` (no
-    zeroing; only touched pages materialize)."""
+    Past ``_LUT_MAX_ROWS`` rows a batch of ``_NATIVE_MIN_SLOTS`` or more
+    goes to the native radix localizer when it is built (data/_native.py
+    counts the engine: ``localize_native``, or ``localize_searchsorted``
+    for the NumPy engine past the cap); every other batch, and that one
+    without the native library, to :func:`_localize_numpy`. Both give the
+    same arrays."""
     flat = ids.reshape(-1)
     if flat.dtype != np.int32:
         flat = flat.astype(np.int32)
     if len(flat) == 0:
         return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                 np.zeros(0, np.int64), False, 0)
+    if num_rows > _LUT_MAX_ROWS and len(flat) >= _NATIVE_MIN_SLOTS:
+        from . import _native
+
+        if _native.available():
+            _native.count("localize_native")
+            uids, inv, counts = _native.localize(flat, num_rows)
+        else:
+            _native.count("localize_searchsorted")
+            uids, inv, counts = _localize_numpy(flat, num_rows)
+    else:
+        uids, inv, counts = _localize_numpy(flat, num_rows)
+    has_sentinel = bool(len(uids)) and uids[-1] == num_rows
+    n_real = len(uids) - int(has_sentinel)
+    return uids, inv, counts, has_sentinel, n_real
+
+
+def _localize_numpy(flat: np.ndarray, num_rows: int):
+    """The NumPy engine of :func:`_localize_ids` on a non-empty i32 [n]:
+    (uids, inv, counts). numpy's int32 ``np.sort`` is a radix sort while
+    ``np.unique``'s argsort-based inverse is much slower, so the inverse
+    is rebuilt from a direct id->lane lookup table instead. The table is
+    ``np.empty`` (no zeroing; only touched pages materialize); past
+    ``_LUT_MAX_ROWS`` rows the inverse is a searchsorted over the
+    batch's sorted uniques instead."""
     keys = np.where(flat < 0, np.int32(num_rows), flat)
     sk = np.sort(keys)  # radix for int32
     first = np.empty(len(sk), bool)
@@ -127,9 +181,7 @@ def _localize_ids(ids: np.ndarray, num_rows: int):
         inv = lut[keys]
     else:
         inv = np.searchsorted(uids, keys).astype(np.int32)
-    has_sentinel = bool(len(uids)) and uids[-1] == num_rows
-    n_real = len(uids) - int(has_sentinel)
-    return uids, inv, counts, has_sentinel, n_real
+    return uids, inv, counts
 
 
 def _pack_localized(uids, inv, counts, has_sentinel, n_real, num_rows, ub):
@@ -158,13 +210,16 @@ def _pack_localized(uids, inv, counts, has_sentinel, n_real, num_rows, ub):
 
 def prep_batch(
     batch: Batch, num_rows: int, buckets=DEFAULT_BUCKETS,
-    min_ub: int | None = None,
+    min_ub: int | None = None, num_fields: int = 0,
 ) -> PreppedBatch:
     """Localization of one padded batch (reference: Localizer::Compact —
     sort, dedup, rewrite indices, count).
 
     ``min_ub`` floors the unique bucket (config ``unique_size``); a rare
-    larger batch still gets the next bucket up."""
+    larger batch still gets the next bucket up. ``num_fields`` > 0
+    validates explicit libffm field ids here, the last point where they
+    are still numpy; the batch's fields travel with it either way."""
+    validate_fields(batch.fields, num_fields)
     uids, inv, counts, has_sentinel, n_real = _localize_ids(
         batch.ids, num_rows
     )
@@ -184,6 +239,8 @@ def prep_batch(
         ucounts=c_out,
         inv=inv.reshape(-1),
         valid=valid,
+        fields=batch.fields,
+        fields_checked=num_fields > 0,
     )
 
 

@@ -1,12 +1,13 @@
 """Synthetic Criteo-like CTR data.
 
-Copy of ``difacto_tpu/data/synthetic.py`` without its libffm fields. The
-reference ships no data generator (its tests draw random sparse rows in
-``tests/cpp/utils.h``); tests and smoke runs need data that is made from a
-seed, without the real Criteo sets. Rows have a fixed number of
-categorical fields, per-field vocabularies with Zipf-distributed
-popularity, and labels drawn from a ground-truth FM model so that learners
-have signal to fit (AUC well above 0.5 is reachable).
+Copy of ``difacto_tpu/data/synthetic.py``. The reference ships no data
+generator (its tests draw random sparse rows in ``tests/cpp/utils.h``);
+tests and smoke runs need data that is made from a seed, without the real
+Criteo sets. Rows have a fixed number of categorical fields, per-field
+vocabularies with Zipf-distributed popularity, and labels drawn from a
+ground-truth FM model so that learners have signal to fit (AUC well above
+0.5 is reachable). With ``with_fields`` the rows carry libffm field ids,
+and ``shuffle_slots`` puts them in another order than the slots.
 """
 
 from __future__ import annotations
@@ -26,12 +27,17 @@ def make_ctr_data(
     truth_seed: int = 12345,
     w_scale: float = 0.2,
     v_scale: float = 0.35,
+    with_fields: bool = False,
+    shuffle_slots: bool = False,
 ) -> RowBlock:
     """Generate a RowBlock of one-hot categorical rows with FM-model labels.
 
     ``seed`` drives row sampling; ``truth_seed`` drives the ground-truth
     model, so train/validation splits generated with different ``seed``
-    share the same label distribution.
+    share the same label distribution. ``with_fields`` attaches the libffm
+    per-feature field array; ``shuffle_slots`` permutes each row's slot
+    order so the field id is NOT the slot position (exercises explicit
+    ``field:idx:val`` handling).
     """
     rng = np.random.default_rng(seed)
     truth_rng = np.random.default_rng(truth_seed)
@@ -55,9 +61,19 @@ def make_ctr_data(
     logits = lin + fm - np.median(lin + fm)
     p = 1.0 / (1.0 + np.exp(-logits))
     labels = (rng.random(num_rows) < p).astype(np.float32)
+    fields = np.broadcast_to(
+        np.arange(num_fields, dtype=np.int32), (num_rows, num_fields)
+    )
+    if shuffle_slots:
+        perm = rng.random((num_rows, num_fields)).argsort(axis=1)
+        ids = np.take_along_axis(ids, perm, axis=1)
+        fields = np.take_along_axis(fields, perm, axis=1)
     indptr = np.arange(num_rows + 1, dtype=np.int64) * num_fields
     values = np.ones(num_rows * num_fields, np.float32)
-    return RowBlock(labels, indptr, ids.reshape(-1), values)
+    return RowBlock(
+        labels, indptr, ids.reshape(-1), values,
+        fields=fields.reshape(-1).astype(np.int32) if with_fields else None,
+    )
 
 
 def write_libsvm(blk: RowBlock, path: str) -> None:
@@ -70,3 +86,15 @@ def write_libsvm(blk: RowBlock, path: str) -> None:
             )
             f.write(f"{int(blk.labels[r])} {feats}\n")
 
+
+def write_libffm(blk: RowBlock, path: str) -> None:
+    """Serialize a RowBlock with fields to libffm text: label f:i:v ..."""
+    assert blk.fields is not None, "write_libffm needs RowBlock.fields"
+    with open(path, "w") as f:
+        for r in range(blk.num_rows):
+            lo, hi = blk.indptr[r], blk.indptr[r + 1]
+            feats = " ".join(
+                f"{int(blk.fields[j])}:{int(blk.indices[j])}:{blk.values[j]:g}"
+                for j in range(lo, hi)
+            )
+            f.write(f"{int(blk.labels[r])} {feats}\n")

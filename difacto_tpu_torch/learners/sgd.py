@@ -146,9 +146,12 @@ class SGDLearner:
         # FFM's sorted backward gathers its per-slot payload by the sort
         # permutation (SortedSlots.slot_sorted)
         with_slots = self.cfg.learner.loss == "ffm"
+        # explicit libffm fields are range-checked here, on the host; the
+        # batch carries them to the device, and a cached batch keeps them
+        nf = self.cfg.model.num_fields if self.cfg.expects_fields() else 0
 
         def prep(b):
-            pb = prep_batch(b, num_rows, min_ub=min_ub)
+            pb = prep_batch(b, num_rows, min_ub=min_ub, num_fields=nf)
             if sorted_slots:
                 pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
                                                      with_slots=with_slots)
@@ -192,7 +195,10 @@ class SGDLearner:
         n = 0
         for batch in self._iter(self.cfg.data.data_in, shuffle=False,
                                 localize=False):
-            self.state = self.store.count_step(self.state, batch.ids)
+            args = self.store.shard_batch(batch.ids, batch.vals,
+                                          batch.labels, batch.mask,
+                                          batch.fields)
+            self.state = self.store.count_step(self.state, args[0])
             n += 1
         log.info("count pass done (%d batches)", n)
 

@@ -24,8 +24,9 @@ Both take the host-prepped batch (data/prep.py) and run the hand-written
 kernels when the state lies on the card, their plain versions when it
 lies on the CPU. ``loss=ffm`` runs every path with rows of 1 + F*k
 floats (``Config.effective_model_param``) and the FFM math of
-learners/step.py (JAX ``store.py:227-230``). The sharded store waits
-(ROADMAP A9).
+learners/step.py (JAX ``store.py:227-230``); with ``num_fields`` > 0
+(libffm) every path reads the batch's explicit fields, validated on the
+host. The sharded store waits (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.prep import PreppedBatch, build_sorted_slots
+from ..data.prep import PreppedBatch, build_sorted_slots, validate_fields
 from ..learners.step import (StepMetrics, worker_forward, worker_grads,
                              worker_grads_sorted)
 from ..ops.localize import Localized
@@ -45,6 +46,28 @@ from ..updaters.updater import (FMState, FMUpdater, LEAVES, PackedFMState,
                                 pack_state, unpack_state)
 from ..utils.device import resolve_device
 from ..utils.place import place_batch
+
+
+def _require_fields(fields, num_fields: int):
+    """Validate explicit libffm fields: present, and in [0, num_fields)
+    (the loss clips field ids into range, so an out-of-range id —
+    num_fields set too small, or a malformed file — would otherwise train
+    a silently wrong model). One implementation, data/prep.py's, which
+    the prep workers run too; a placed batch that skipped it is checked
+    on a host copy."""
+    if isinstance(fields, torch.Tensor):
+        validate_fields(fields.cpu().numpy(), num_fields)
+    else:
+        validate_fields(fields, num_fields)
+    return fields
+
+
+def _prepped_fields(pb: PreppedBatch, num_fields: int):
+    """Fields of a prepped batch, skipping the O(B*L) range re-check when
+    prep already validated them (the JAX store's one skip rule)."""
+    if pb.fields_checked and pb.fields is not None:
+        return pb.fields
+    return _require_fields(pb.fields, num_fields)
 
 
 def _resolve_layout(cfg: Config) -> str:
@@ -95,10 +118,13 @@ class LocalStore:
                 f"the updater's V_dim {self.param.V_dim} is not the config's "
                 f"factor width {width} (Config.effective_model_param: F*k "
                 "for loss=ffm)")
-        # the loss and its keywords for learners/step.py (fields: A18)
+        # the loss and its keywords for learners/step.py
         self.loss = cfg.learner.loss
-        self.loss_kw = dict(loss=self.loss, num_fields=cfg.model.num_fields,
+        self.num_fields = cfg.model.num_fields
+        self.loss_kw = dict(loss=self.loss, num_fields=self.num_fields,
                             ffm_block=cfg.model.ffm_block_size)
+        # libffm explicit fields: batches carry an i32 [B, L] field array
+        self.expects_fields = cfg.expects_fields()
         s = cfg.shard
         self.pallas = s.kernel == "pallas"
         self.layout = _resolve_layout(cfg)
@@ -151,6 +177,14 @@ class LocalStore:
         return pack_state(placed) if self.layout == "packed" else (
             unpack_state(placed))
 
+    def shard_batch(self, ids, vals, labels, mask, fields=None):
+        """A raw batch's arrays for a step, with its fields validated
+        when the config declares them (JAX ``store.py:379-382``)."""
+        if self.expects_fields:
+            return ids, vals, labels, mask, _require_fields(
+                fields, self.num_fields)
+        return ids, vals, labels, mask
+
     def count_step(self, state, ids):
         """Feature-frequency pass, in place (reference: Store::kFeaCount
         push used for tail filtering before training)."""
@@ -161,7 +195,12 @@ class LocalStore:
         """The batch as tensors on this store's device. Host batches get
         their sorted slots built here when the prep workers did not
         (kept on the batch, so replayed batches reuse them); FFM's also
-        keep the sort permutation."""
+        keep the sort permutation. Explicit fields are checked first
+        (on the host array, when the batch is still there) unless the
+        prep did."""
+        if self.expects_fields:
+            pb.fields = _prepped_fields(pb, self.num_fields)
+            pb.fields_checked = True
         ffm = self.loss == "ffm"
         ss = pb.sorted_slots
         if need_slots and (ss is None or (ffm and ss.slot_sorted is None)):
@@ -171,6 +210,11 @@ class LocalStore:
             pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
                                                  with_slots=ffm)
         return place_batch(pb, self.device)
+
+    def _fields(self, pb: PreppedBatch):
+        """The placed batch's fields for the loss: None unless the config
+        declares them (then FFM's field is the slot position)."""
+        return pb.fields if self.expects_fields else None
 
     def _pull(self, state, pb: PreppedBatch) -> torch.Tensor:
         """Unique rows [U, 1+K] (w | count-gated V) of the batch. Lanes
@@ -204,11 +248,13 @@ class LocalStore:
             grads, _, metrics = worker_grads_sorted(
                 rows_u, loc, pb.vals, pb.labels, pb.mask,
                 (ss.x_sorted, ss.bidx, ss.inv_sorted),
-                slot_s=ss.slot_sorted, **self.loss_kw,
+                slot_s=ss.slot_sorted, fields=self._fields(pb),
+                **self.loss_kw,
             )
         else:
             grads_u, _, metrics = worker_grads(rows_u, loc, pb.vals,
                                                pb.labels, pb.mask,
+                                               fields=self._fields(pb),
                                                **self.loss_kw)
             grads = grads_u.T
         return self._apply(state, pb, grads), metrics
@@ -220,7 +266,8 @@ class LocalStore:
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
         py, metrics = worker_forward(self._pull(state, pb), loc, pb.vals,
-                                     pb.labels, pb.mask, **self.loss_kw)
+                                     pb.labels, pb.mask,
+                                     fields=self._fields(pb), **self.loss_kw)
         return metrics, py
 
     def stats(self, state) -> dict[str, float]:

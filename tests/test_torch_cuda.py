@@ -864,6 +864,67 @@ def test_cuda_planar_only_kernels_refuse_a_packed_state(card):
         sweep_ms.sweep_apply_ms(bad, uids, pay, off, p, block_rows=512)
 
 
+@pytest.mark.parametrize("K", [129, 156, 258, 440, 455, 640])
+@pytest.mark.parametrize("kernel", ["pull", "apply", "sweep_pull",
+                                    "sweep_apply"])
+def test_cuda_rowmajor_kernels_at_wide_k(card, kernel, K):
+    """The widths past one tile, which take the factors in chunks of 128:
+    129 and 258 (a last chunk of 1 and 2 factors, with 1- and 2-float
+    pieces), 156 (libffm Criteo, 39 fields x 4), 440 and 455 (where a
+    whole [1+K] pull tile and a whole [K] apply tile pass the card's
+    227 KB), 640 (an FFM of 40 slot fields x 16). Each row-major kernel
+    launches and is bit-equal to its planar kernel; an apply leaves the
+    rows no lane names as they were."""
+    rng = np.random.default_rng(200 + K)
+    p = port_params(V_dim=K, V_threshold=1)
+    sweep_kernel = kernel.startswith("sweep")
+    n = N2 if sweep_kernel else N
+    s = state_np(K, rng, n=n)
+    tb = pack_state(state_from_numpy(s, card))
+    st = state_from_numpy(s, card)
+    if sweep_kernel:
+        sid, off = (torch.from_numpy(a).to(card)
+                    for a in id_streams(rng, (300, 200)))
+        pay = torch.from_numpy(slot_payload(K, sid.shape[0], rng)).to(card)
+        named = sid[sid < n]
+    else:
+        uids_np, valid = lanes(rng, n, 1000, 999, repeat=kernel == "apply")
+        uids = torch.from_numpy(uids_np).to(card)
+        pay = torch.from_numpy(lane_payload(K, valid, rng)).to(card)
+        named = uids[torch.from_numpy(valid).to(card)]
+    name = {"pull": "pull_rowmajor", "apply": "apply_rowmajor",
+            "sweep_pull": "sweep_pull_rowmajor",
+            "sweep_apply": "sweep_apply_rowmajor"}[kernel]
+    n0 = cuda.LAUNCHES[name]
+    if kernel == "pull":
+        got = pair_sweep.pull_pairs(tb, uids, p)
+        assert torch.equal(got, pair_sweep.pull_pairs(st, uids, p))
+        assert torch.equal(got, pair_sweep.pull_pairs_plain(tb, uids, p))
+    elif kernel == "sweep_pull":
+        got = sweep_ms.sweep_pull_ms(tb, sid, off, p, block_rows=R2)
+        assert torch.equal(got, sweep_ms.sweep_pull_ms(st, sid, off, p,
+                                                       block_rows=R2))
+        assert torch.equal(got, sweep_ms.sweep_pull_ms_plain(
+            tb, sid, off, p, block_rows=R2))
+    else:
+        if kernel == "apply":
+            a = unpack_state(pair_sweep.apply_pairs(tb, uids, pay, p))
+            b = pair_sweep.apply_pairs(st, uids, pay, p)
+        else:
+            a = unpack_state(sweep_ms.sweep_apply_ms(tb, sid, pay, off, p,
+                                                     block_rows=R2))
+            b = sweep_ms.sweep_apply_ms(st, sid, pay, off, p, block_rows=R2)
+        touched = torch.zeros(n, dtype=torch.bool, device=card)
+        touched[named.long()] = True
+        for leaf in LEAVES:
+            x = getattr(a, leaf)
+            assert torch.equal(x, getattr(b, leaf)), leaf
+            orig = torch.from_numpy(s[leaf]).to(card)
+            assert torch.equal(x[..., ~touched], orig[..., ~touched]), leaf
+        assert not torch.equal(a.V, torch.from_numpy(s["V"]).to(card))
+    assert cuda.LAUNCHES[name] == n0 + 1
+
+
 # ---------------------------------------------------------------------------
 # the sweep pull and apply over the row-major table (layout=packed,
 # csrc/rowmajor_sweep.cu)
@@ -1151,3 +1212,34 @@ def test_cuda_ffm_store_steps_match_cpu(card, extra, L, k):
     _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, n))
     _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, n))
     torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
+
+
+def test_cuda_host_native_engines_build_and_run(card):
+    """Where the card is, the native host engines build (g++, into
+    build/host_native/) and run: the parser gives the NumPy engine's
+    arrays, and the prep of a batch past the 2^24-row lookup-table cap
+    takes the native localizer, with NumPy's localization."""
+    from difacto_tpu_torch.data import _native, libsvm, prep
+    from difacto_tpu_torch.data.batch_iter import Batch
+
+    assert _native.available(), _native.build_error()
+    text = b"1 3:0.5 7:2\r\n# c\n\n0 11 5:-1e-2\n1\n"
+    a, b = _native.parse_libsvm(text), libsvm.parse_libsvm_numpy(text)
+    for name in ("labels", "indptr", "indices", "values"):
+        assert np.array_equal(getattr(a, name), getattr(b, name)), name
+    rng = np.random.default_rng(7)
+    N = 1 << 26
+    ids = rng.integers(0, N, (256, 40)).astype(np.int32)
+    ids[rng.random((256, 40)) < 0.1] = -1
+    n0 = _native.RUNS["localize_native"]
+    pb = prep.prep_batch(Batch(ids, np.ones((256, 40), np.float32),
+                               np.ones(256, np.float32),
+                               np.ones(256, np.float32)), N)
+    assert _native.RUNS["localize_native"] == n0 + 1
+    uids, inv, counts = prep._localize_numpy(ids.reshape(-1), N)
+    n_real = uids.shape[0] - 1  # the sentinel N last: there are pads
+    assert uids[-1] == N and pb.uids[n_real] == N
+    assert np.array_equal(pb.uids[:n_real], uids[:n_real])
+    assert np.array_equal(pb.ucounts[:n_real], counts[:n_real])
+    ub = pb.uids.shape[0]
+    assert np.array_equal(pb.inv, np.where(inv >= n_real, ub - 1, inv))

@@ -420,15 +420,11 @@ def test_unknown_key_is_fatal():
 _OUT_OF_SLICE = [
     ("store", "sharded", "A9", ()),
     ("learner", "bcd", "A15", ()),
-    # FFM is in the port by slot position; explicit libffm fields are not
-    ("loss", "ffm", "A18", (("data_format", "libffm"), ("num_fields", "4"))),
     ("hot_rows", "1024", "A13", ()),
     ("kernel", "xla", "A14", ()),
     ("layout", "stacked", "A14", ()),
     ("pred_out", "hdfs://host/pred", "A19", ()),
     ("host_localize", "0", "A16", ()),
-    ("data_format", "libffm", "A18", ()),
-    ("data_format", "csr", "A18", ()),
     ("data_in", "s3://bucket/train", "A19", ()),
     ("model_out", "gs://bucket/model", "A19", ()),
 ]
@@ -457,6 +453,27 @@ def test_kernel_settings_are_accepted(kw, pallas, sorted_grads):
     assert (store.pallas, store.sorted_grads) == (pallas, sorted_grads)
 
 
+@pytest.mark.parametrize(
+    "kw,fmt,expects_fields",
+    [
+        ((("loss", "ffm"), ("data_format", "libffm"), ("num_fields", "4")),
+         "libffm", True),
+        ((("data_format", "libffm"),), "libffm", False),
+        ((("data_format", "csr"),), "csr", False),
+    ],
+    ids=["ffm-libffm-num_fields", "libffm", "csr"],
+)
+def test_data_settings_are_accepted(kw, fmt, expects_fields):
+    """data_format=libffm|csr and num_fields are in the port (they raised
+    before the data formats came); the store reads explicit fields only
+    when the config declares them (loss=ffm with num_fields > 0)."""
+    cfg = Config.from_kwargs([("num_bits", "12"), *kw])
+    store = make_store(FMUpdater(cfg.effective_model_param()), cfg,
+                       device="cpu")
+    assert cfg.data.data_format == fmt
+    assert store.expects_fields == cfg.expects_fields() == expects_fields
+
+
 def test_entry_points_need_a_card_unless_asked_for_cpu(data):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -476,6 +493,7 @@ from difacto_tpu_torch.data.batch_iter import Batch
 from difacto_tpu_torch.data.prep import prep_batch
 from difacto_tpu_torch.parallel.store import make_store
 from difacto_tpu_torch.updaters.updater import FMUpdater
+from difacto_tpu_torch.data import _native, converter, libsvm
 import difacto_tpu_torch.cli, difacto_tpu_torch.learners.sgd
 from difacto_tpu_torch.probes import (bench_slot_accum, bisect_apply,
                                       hw_apply2, hw_packed_pairs,
@@ -489,6 +507,9 @@ b = Batch(rng.integers(0, 1024, (8, 4)).astype(np.int32),
           np.ones(8, np.float32))
 st, m = store.train_step_prepped(store.init_state(0), prep_batch(b, 1024))
 assert float(m.examples) == 8.0
+blk = libsvm.parse_libsvm(b"1 3:1 5:2\\n0 4:1\\n")
+assert blk.num_rows == 2 and sum(_native.RUNS.values()) == 1
+assert libsvm.parse_libffm(b"1 0:3:1\\n").fields.tolist() == [0]
 small = ["batch=64", "nnz=4", "num_bits=10", "k=2", "iters=1"]
 assert hw_apply2.main(small + ["u=512"], device="cpu") == 0
 assert hw_packed_pairs.main(small, device="cpu") == 0
