@@ -22,16 +22,22 @@ Phases, each a hard failure:
    float64 sums, exactly on integers and bit for bit on a second run,
    timed in turns), and time the kernel, the plain version and, where one
    PyTorch call computes the same function, that call;
-3. hold the device train and eval steps of every kernel path (pairs and
+3. hold the device train and eval steps of every table path (pairs and
    the whole-table sweep, each over the planar and over the row-major
-   table, with the sorted and the scatter backward) against the CPU
-   plain path on a small batch, from one state;
-4. drive the flagship through ``SGDLearner`` six times (``MAIN_PATHS``):
+   table, with the sorted and the scatter backward; ``kernel=xla`` over
+   the stacked, planar and row-major tables with either backward; the
+   hot/cold split at a small table; device localize, ``host_localize=0``,
+   on ``xla`` and on the sweeps, and with a ``unique_size`` that drops
+   ids) against the CPU plain path on a small batch, from one state, and
+   the hot/cold split against the stacked table on the card;
+4. drive the flagship through ``SGDLearner`` eight times (``MAIN_PATHS``):
    on the pair kernels (``kernel=auto`` with ``layout=planar`` and with
-   ``layout=packed``) and on the whole-table sweep (``kernel=pallas``
+   ``layout=packed``), on the whole-table sweep (``kernel=pallas``
    over planar leaves and over the row-major table, which is what its
    default layout resolves to, each with the scatter and with the sorted
-   backward): an epoch that
+   backward), on ``kernel=xla`` (the stacked table, B3) and on
+   ``host_localize=0 kernel=pallas`` (the row-major sweeps over ids
+   localized on the card): an epoch that
    streams from a libsvm file and caches the batches on the card, then a
    timed epoch that replays them, a traced replay and a validation pass,
    with every launch counter reset just before each drive and read just
@@ -66,7 +72,11 @@ row, k = 4, K = 156, ``examples/ffm.conf``'s updater settings) on
 train + ``task=predict`` on the libffm files; P3 P1 on
 ``examples/northstar.conf``'s config-4 table (2^26 rows), whose prep must
 take the native radix localizer, timed against NumPy's searchsorted on
-one batch (host CPU times). The kernel checks of the flagship's width run
+one batch (host CPU times); P4 ``examples/northstar.conf`` with its
+config-4 settings (``num_bits=26 hot_rows=-1 cache_compact=1``) on
+northstar-shaped csr parts (39 fields of 60,000 values), beside the same
+keys with ``hot_rows=0 kernel=xla`` and with ``kernel=auto``: every batch
+of the split run split, B3 on every step. The kernel checks of the flagship's width run
 again at K = 156 on a libffm batch and at K = 640 (FFM, 40 slots of
 k = 16, 2^16 rows: the row-major kernels past one shared-memory tile),
 with the train and eval steps at K = 640 against the CPU. The native
@@ -105,6 +115,15 @@ SWEEP_SORTED_KERNELS = ("sweep_pull", "segsum_sorted", "sweep_apply")
 SWEEP_ROWMAJOR_KERNELS = ("sweep_pull_rowmajor", "sweep_apply_rowmajor")
 SWEEP_ROWMAJOR_SORTED_KERNELS = ("sweep_pull_rowmajor", "segsum_sorted",
                                  "sweep_apply_rowmajor")
+# kernel=xla: gathers and scatter-adds of tensor ops around B3
+XLA_KERNELS = ("segsum_sorted",)
+PULL_KERNELS = ("pull_pairs", "pull_rowmajor", "sweep_pull",
+                "sweep_pull_rowmajor")
+# the kernels whose launches on the paths of the XLA table, device localize
+# and P4 the kernels line also gives
+NEW_PATH_KERNELS = ("segsum_sorted", "sweep_pull", "sweep_apply",
+                    "sweep_pull_rowmajor", "sweep_apply_rowmajor",
+                    "pull_rowmajor", "apply_rowmajor")
 UPDATER_CASES = ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
                  (K, "sgd", "adagrad"), (0, "ftrl", "adagrad"))
 # BASELINE config 5 (examples/ffm.conf, scripts/hw_ffm_sorted.py:37-49):
@@ -1527,15 +1546,31 @@ STEP_PATHS = ((), (("layout", "planar"),), (("layout", "packed"),),
                ("segsum", "sorted")),
               (("kernel", "pallas"), ("layout", "packed")),
               (("kernel", "pallas"), ("layout", "packed"),
-               ("segsum", "sorted")))
+               ("segsum", "sorted")),
+              # the XLA path: each layout with either backward
+              *((("kernel", "xla"), ("layout", lay), ("segsum", seg))
+                for lay in ("stacked", "planar", "packed")
+                for seg in ("sorted", "scatter")),
+              # the hot/cold split at a small table
+              (("hot_rows", "2048"),),
+              (("hot_rows", "2048"), ("segsum", "scatter")),
+              # device localize on xla and on the sweeps, and an overflow
+              (("host_localize", "0"),),
+              (("host_localize", "0"), ("kernel", "pallas")),
+              (("host_localize", "0"), ("kernel", "pallas"),
+               ("layout", "planar")),
+              (("host_localize", "0"), ("unique_size", "2048")))
 
 
 # FFM's step paths: the pairs path on either layout and backward, the
-# sweep on either layout
+# sweep on either layout, the XLA path on each layout with either backward
 FFM_STEP_PATHS = ((), (("layout", "planar"),), (("segsum", "scatter"),),
                   (("kernel", "pallas"),),
                   (("kernel", "pallas"), ("layout", "planar"),
-                   ("segsum", "sorted")))
+                   ("segsum", "sorted")),
+                  *((("kernel", "xla"), ("layout", lay), ("segsum", seg))
+                    for lay in ("stacked", "planar", "packed")
+                    for seg in ("sorted", "scatter")))
 
 
 def check_step_against_cpu(dev, nnz: int = 16, model: tuple = (("V_dim",
@@ -1546,15 +1581,26 @@ def check_step_against_cpu(dev, nnz: int = 16, model: tuple = (("V_dim",
     from one state (atol 2e-5, rtol 1e-5: sums differ in order between
     the kernels and index_add_). ``model`` is the loss's settings: the FM
     with K = 8, FFM at config 5's width or at K = 640, or FFM with
-    explicit libffm fields (each row's slots a shuffle of the fields)."""
+    explicit libffm fields (each row's slots a shuffle of the fields).
+    A path with ``hot_rows`` splits the table by a remap of the batches'
+    counts (the state carried in canonical rows, compared through the
+    lut); one with ``host_localize=0`` steps on raw batches, localized on
+    each device, and must count the same dropped ids (the rows of an
+    overflowing batch's last lane, where its dropped ids alias, are held
+    finite: they sum the dropped slots in the card's atomic order)."""
     import torch
 
     from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data import remap
     from difacto_tpu_torch.data.batch_iter import Batch
     from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.ops.localize import localize
     from difacto_tpu_torch.parallel.store import LocalStore
     from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.checkpoint import (state_from_numpy,
+                                                    state_to_numpy)
 
+    n = 1 << 14
     for extra in paths:
         cfg = Config.from_kwargs([("batch_size", "512"), ("num_bits", "14"),
                                   ("max_nnz_per_row", str(nnz)), *model,
@@ -1564,36 +1610,204 @@ def check_step_against_cpu(dev, nnz: int = 16, model: tuple = (("V_dim",
         upd = FMUpdater(cfg.effective_model_param())
         gpu = LocalStore(upd, cfg, device=dev)
         cpu = LocalStore(upd, cfg, device="cpu")
-        sg = gpu.init_state(5)
-        sc = cpu.place_state(clone_state(sg))
         rng = np.random.default_rng(5)
         nf = cfg.model.num_fields if cfg.expects_fields() else 0
+        batches = []
         for s in range(4):
-            ids = rng.integers(0, 1 << 14, (512, nnz)).astype(np.int32)
+            ids = rng.integers(0, n, (512, nnz)).astype(np.int32)
             ids[rng.random((512, nnz)) < 0.1] = -1
             vals = np.where(ids < 0, 0, rng.normal(size=(512, nnz))).astype(
                 np.float32)
             fields = (rng.random((512, nnz)).argsort(axis=1) % nf).astype(
                 np.int32) if nf else None
-            b = Batch(ids, vals, (rng.random(512) > 0.5).astype(np.float32),
-                      np.ones(512, np.float32), fields)
-            sg, mg = gpu.train_step_prepped(sg, prep_batch(b, 1 << 14,
-                                                           num_fields=nf))
-            sc, mc = cpu.train_step_prepped(sc, prep_batch(b, 1 << 14,
-                                                           num_fields=nf))
+            batches.append(Batch(ids, vals,
+                                 (rng.random(512) > 0.5).astype(np.float32),
+                                 np.ones(512, np.float32), fields))
+        lut = None
+        if gpu.hot_rows:
+            lut = remap.build_remap(remap.count_sample(iter(batches), n, 4),
+                                    gpu.hot_rows)
+            gpu.set_remap(lut)
+            cpu.set_remap(lut)
+        sg = gpu.init_state(5)
+        sc = cpu.place_state(state_from_numpy(state_to_numpy(sg, lut)))
+        raw = not cfg.data.host_localize
+        dropped = []
+
+        def prep(b):
+            return prep_batch(b, n, num_fields=nf, remap=lut,
+                              hot_rows=gpu.hot_rows)
+
+        for b in batches:
+            if raw:
+                sg, mg = gpu.train_step(sg, b.ids, b.vals, b.labels, b.mask,
+                                        b.fields)
+                sc, mc = cpu.train_step(sc, b.ids, b.vals, b.labels, b.mask,
+                                        b.fields)
+                dropped.append((float(mg.dropped_ids),
+                                float(mc.dropped_ids)))
+            else:
+                sg, mg = gpu.train_step_prepped(sg, prep(b))
+                sc, mc = cpu.train_step_prepped(sc, prep(b))
+        if any(g != c for g, c in dropped):
+            raise AssertionError(f"device localize {extra}: dropped ids "
+                                 f"{dropped} (card, CPU)")
+        # an overflowing batch's dropped ids alias its last lane, whose row
+        # sums thousands of slots in the card's atomic order: held finite
+        rest = np.ones(n, bool)
+        for b in batches if raw else ():
+            loc = localize(torch.from_numpy(b.ids), n, gpu.unique_size)
+            if float(loc.overflow):
+                rest[int(loc.uids[-1])] = False
+        got, ref = state_to_numpy(sg, lut), state_to_numpy(sc, lut)
         for name in ("w", "z", "n", "V", "nV", "cnt"):
+            if not np.isfinite(got[name]).all():
+                raise AssertionError(f"device step {extra}: {name} is not "
+                                     "finite")
             torch.testing.assert_close(
-                getattr(sg, name).cpu(), getattr(sc, name), atol=2e-5,
-                rtol=1e-5, msg=f"device step vs CPU {extra}: {name}")
-        _, pyg = gpu.eval_step_prepped(sg, prep_batch(b, 1 << 14,
-                                                      num_fields=nf))
-        _, pyc = cpu.eval_step_prepped(sc, prep_batch(b, 1 << 14,
-                                                      num_fields=nf))
+                torch.from_numpy(got[name][..., rest]),
+                torch.from_numpy(ref[name][..., rest]),
+                atol=2e-5, rtol=1e-5, msg=f"device step vs CPU {extra}: "
+                f"{name}")
+        if raw:
+            _, pyg = gpu.eval_step(sg, b.ids, b.vals, b.labels, b.mask,
+                                   b.fields)
+            _, pyc = cpu.eval_step(sc, b.ids, b.vals, b.labels, b.mask,
+                                   b.fields)
+        else:
+            _, pyg = gpu.eval_step_prepped(sg, prep(b))
+            _, pyc = cpu.eval_step_prepped(sc, prep(b))
         torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
         log(f"device train/eval steps {dict(model)} "
             f"{dict(extra) or 'kernel=auto'} match "
             f"the CPU plain path (4 steps, max |dw| "
-            f"{float((sg.w.cpu() - sc.w).abs().max()):g})")
+            f"{float(np.abs(got['w'] - ref['w']).max()):g}"
+            + (f", dropped ids {dropped}" if raw else "") + ")")
+
+
+def split_step_bits(stacked, split, lut, host, b) -> None:
+    """One train step of the stacked and the split table from one
+    canonical state, the split fed the stacked step's per-key sums mapped
+    to its lanes (canonical id -> remapped id -> lane): the pulled rows and
+    the updated canonical state must hold the same bits. The split is a
+    layout; only the per-key sums' association may differ in training."""
+    import torch
+
+    from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.data.remap import invert_remap
+    from difacto_tpu_torch.learners.step import worker_grads_sorted
+    from difacto_tpu_torch.ops.localize import Localized
+    from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+
+    n, H = stacked.num_rows, split.hot_rows
+    sa, sb = stacked.place_state(host), split.place_state(host)
+    pa = stacked._placed(prep_batch(b, n), need_slots=True)
+    pb = split._placed(prep_batch(b, n, remap=lut, hot_rows=H),
+                       need_slots=False)
+    la = Localized(pa.uids, pa.inv, pa.ucounts, pa.valid)
+    lb = Localized(pb.uids, pb.inv, pb.ucounts, pb.valid)
+    halves = (pb.uids_hot, pb.uids_cold)
+    rows_a, raw_a = stacked._pull(sa, la)
+    rows_b, raw_b = split._pull(sb, lb, halves)
+    ss = pa.sorted_slots
+    grads_a, _, _ = worker_grads_sorted(rows_a, la, pa.vals, pa.labels,
+                                        pa.mask, (ss.x_sorted, ss.bidx,
+                                                  ss.inv_sorted))
+    inv_lut = torch.as_tensor(invert_remap(lut), device=pa.uids.device)
+    canon = inv_lut[pb.uids.clamp(max=n - 1).long()]
+    pos = torch.searchsorted(pa.uids, canon).clamp(max=pa.uids.shape[0] - 1)
+    vb = pb.valid
+    if not (torch.equal(pa.uids[pos][vb], canon[vb])
+            and torch.equal(pa.ucounts[pos][vb], pb.ucounts[vb])
+            and torch.equal(rows_a[pos][vb].view(torch.int32),
+                            rows_b[vb].view(torch.int32))):
+        raise AssertionError("the split's lanes do not pull the stacked "
+                             "table's ids, counts and rows bit for bit")
+    grads_b = torch.where(vb[None, :], grads_a[:, pos], 0.0)
+    sa = stacked._apply(sa, la, grads_a, raw_a)
+    sb = split._apply(sb, lb, grads_b, raw_b, halves)
+    a, c = state_to_numpy(sa), state_to_numpy(sb, lut)
+    for name in ("w", "z", "n", "V", "nV", "cnt"):
+        if not np.array_equal(a[name].view(np.int32), c[name].view(np.int32)):
+            raise AssertionError(f"one step: the split's canonical {name} "
+                                 "differs from the stacked table's "
+                                 "(tolerance: bit-equal)")
+
+
+def check_hotcold_against_stacked(dev) -> None:
+    """Phase 3: the hot/cold split against the stacked table on the card,
+    from one carried state (canonical rows in, through the lut), Zipf ids.
+    One step with the same per-key sums: the same bits
+    (:func:`split_step_bits`). Four training steps on the sorted backward
+    (B3, which repeats its bits): the same canonical state and margins
+    within rtol 1e-4 / atol 1e-5, the JAX package's own tolerance for
+    this comparison (tests/test_hotcold.py:149-153): B3 sums a hot key's
+    slots over other tile edges when the lanes are renumbered, and FTRL's
+    accumulators of hot keys run to 1e5-1e6; the stacked table against
+    the CPU's summation order likewise. Logs the largest differences."""
+    import torch
+
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data import remap
+    from difacto_tpu_torch.data.batch_iter import Batch
+    from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.probes import common
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.checkpoint import (state_from_numpy,
+                                                    state_to_numpy)
+
+    bits, H = 16, 4096
+    n = 1 << bits
+    rng = np.random.default_rng(21)
+    batches = []
+    for _ in range(5):
+        ids = common.zipf_ids(rng, 2048, NNZ, bits)
+        batches.append(Batch(ids, np.where(ids < 0, 0.0, 1.0).astype(
+            np.float32), (rng.random(2048) > 0.5).astype(np.float32),
+            np.ones(2048, np.float32)))
+    lut = remap.build_remap(remap.count_sample(iter(batches), n, 5), H)
+
+    def worst(a, b):
+        return {name: float(np.abs(a[name] - b[name]).max())
+                for name in ("w", "z", "n", "V", "nV", "cnt")}
+
+    base = [("batch_size", "2048"), ("num_bits", str(bits)),
+            ("max_nnz_per_row", str(NNZ)), ("V_dim", str(K)),
+            ("V_threshold", "1"), ("segsum", "sorted")]
+    cfgs = [Config.from_kwargs(base + [("kernel", "xla")]),
+            Config.from_kwargs(base + [("hot_rows", str(H))])]
+    upd = FMUpdater(cfgs[0].model)
+    stacked, split = (LocalStore(FMUpdater(c.model), c, device=dev)
+                      for c in cfgs)
+    exact = LocalStore(upd, cfgs[0], device="cpu")
+    split.set_remap(lut)
+    host = state_from_numpy(state_to_numpy(random_state(upd, n, dev, 22)))
+    split_step_bits(stacked, split, lut, host, batches[0])
+    sa, sb, sc = (store.place_state(host) for store in (stacked, split, exact))
+    for b in batches[:4]:
+        sa, _ = stacked.train_step_prepped(sa, prep_batch(b, n))
+        sc, _ = exact.train_step_prepped(sc, prep_batch(b, n))
+        sb, _ = split.train_step_prepped(sb, prep_batch(
+            b, n, remap=lut, hot_rows=H))
+    a, c, e = (state_to_numpy(sa), state_to_numpy(sb, lut),
+               state_to_numpy(sc))
+    for got, ref, what in ((c, a, "hot/cold against stacked"),
+                           (a, e, "stacked against the CPU"),
+                           (c, e, "hot/cold against the CPU")):
+        for name in ("w", "z", "n", "V", "nV", "cnt"):
+            torch.testing.assert_close(
+                torch.from_numpy(got[name]), torch.from_numpy(ref[name]),
+                atol=1e-5, rtol=1e-4, msg=f"{what}: {name}, largest "
+                f"differences {worst(got, ref)}")
+    _, p1 = stacked.eval_step_prepped(sa, prep_batch(batches[4], n))
+    _, p2 = split.eval_step_prepped(sb, prep_batch(
+        batches[4], n, remap=lut, hot_rows=H))
+    torch.testing.assert_close(p2, p1, atol=1e-5, rtol=1e-4)
+    log(f"hot/cold (H = {H} of 2^{bits}) = stacked on the card: one step "
+        f"with the same per-key sums bit for bit; 4 steps (sorted): largest "
+        f"differences {worst(c, a)}; stacked against the CPU {worst(a, e)}; "
+        f"hot/cold against the CPU {worst(c, e)}")
 
 
 def device_profile(prof, wall_s: float, steps: int) -> dict:
@@ -1666,6 +1880,11 @@ MAIN_PATHS = (
     ((("kernel", "pallas"),), SWEEP_ROWMAJOR_KERNELS),
     ((*_PALLAS, ("layout", "planar")), SWEEP_SORTED_KERNELS),
     ((*_PALLAS, ("layout", "packed")), SWEEP_ROWMAJOR_SORTED_KERNELS),
+    # the XLA path on the stacked table (layout=auto), B3 by segsum=auto
+    ((("kernel", "xla"),), XLA_KERNELS),
+    # device localize on the sweeps over the row-major table, with the
+    # scatter backward (the raw-batch step's)
+    ((("host_localize", "0"), ("kernel", "pallas")), SWEEP_ROWMAJOR_KERNELS),
 )
 # FFM as kernel=auto resolves it (the row-major table, the sorted
 # backward), and over planar leaves
@@ -1673,11 +1892,15 @@ FFM_PATHS = (((), ROWMAJOR_KERNELS), ((("layout", "planar"),), PAIRS_KERNELS))
 
 
 def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
-                    model: dict = FLAGSHIP, note: dict | None = None):
+                    model: dict = FLAGSHIP, note: dict | None = None,
+                    inspect=None):
     """Phase 4: SGDLearner at ``model``'s full width on the kernel path
-    that ``extra`` selects, which must launch each kernel of ``path`` (its
-    pull first) once per step and no other kernel. ``note`` joins the
-    record. Returns (launch counts of the run, timing record)."""
+    that ``extra`` selects, which must launch each kernel of ``path`` once
+    per step (the pull, its first kernel when it has one, also on the
+    validation batch) and no other kernel. ``note`` joins the record, and
+    so does ``inspect(learner)``'s dict, after the drive. The learner's
+    construction is timed apart (``init_s``: with ``hot_rows``, the count
+    sample and the remap). Returns (launch counts of the run, record)."""
     import torch
 
     from difacto_tpu_torch.config import Config
@@ -1689,7 +1912,10 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
         *model["kw"], ("cache_batches", "1"), ("cache_on_device", "1"),
         ("report_interval", "0"), *extra,
     ])
+    t0 = time.perf_counter()
     learner = SGDLearner(cfg)  # the card is the default device
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
     cuda.reset_launches()
     t0 = time.perf_counter()
     first = learner.train_epoch(0)  # streams the file, caches on the card
@@ -1714,7 +1940,9 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
     rec = {
         "model": model["name"],
         "path": {"kernel": "auto", **dict(extra)},
+        "kernel": learner.store.kernel,
         "layout": learner.store.layout,
+        "init_s": t_init,
         "epoch0_stream_s": t_stream,
         "replay_ms_per_step": t_replay / steps * 1e3,
         "replay_examples_per_s": batch * steps / t_replay,
@@ -1723,6 +1951,7 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
         "launches": launches,
         "profile": device_profile(prof, t_prof, steps),
         **(note or {}),
+        **(inspect(learner) if inspect else {}),
     }
     log("main path: " + json.dumps(rec))
     for v in (first.logloss, timed.logloss, va.logloss):
@@ -1730,13 +1959,15 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
             raise AssertionError(f"non-finite logloss on the main path: {rec}")
     if first.num_examples != steps * batch or va.num_examples != batch:
         raise AssertionError(f"main path saw the wrong example count: {rec}")
-    for name in LEAVES:
-        if not bool(torch.isfinite(getattr(learner.state, name)).all()):
-            raise AssertionError(f"non-finite state leaf {name}")
+    for name, t in vars(learner.state).items():  # the state's tensors
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite state {name}")
     # three train epochs of `steps` steps, then one validation batch that
-    # pulls; no launch of another path's kernels
+    # pulls (the XLA path's pull is no kernel); no launch of another
+    # path's kernels
     want = {name: 3 * steps if name in path else 0 for name in launches}
-    want[path[0]] += 1  # the pull of the validation batch
+    if path[0] in PULL_KERNELS:
+        want[path[0]] += 1
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want} "
                              "(one per step and kernel)")
@@ -1927,6 +2158,106 @@ def drive_formats(dev, tmp: str, flagship_files: tuple, k156: dict,
         f"{json.dumps(runs3)}")
 
 
+NORTHSTAR_CONF = "examples/northstar.conf"  # BASELINE rows 3-4
+# the generator's shape (examples/northstar_data.py:33-52): 39 fields of
+# 60,000 Zipf-popular values a field, labels of a ground-truth FM
+NORTHSTAR_FIELDS, NORTHSTAR_VOCAB = 39, 60_000
+
+
+def write_northstar_parts(tmp: str) -> tuple[str, str]:
+    """P4's data by the port's data/synthetic.py::make_ctr_data as csr
+    parts (the keys examples/northstar_data.py writes): MAIN_BATCHES
+    batches of the config's 16,384 rows to train, one to validate."""
+    from difacto_tpu_torch.data.synthetic import make_ctr_data
+
+    t0 = time.perf_counter()
+    out = []
+    for name, rows, seed in (("train", MAIN_BATCHES * BATCH, 1000),
+                             ("val", BATCH, 9000)):
+        blk = make_ctr_data(rows, num_fields=NORTHSTAR_FIELDS,
+                            vocab_per_field=NORTHSTAR_VOCAB, seed=seed)
+        path = os.path.join(tmp, f"northstar_{name}.part00000.npz")
+        np.savez(path, labels=blk.labels, indptr=blk.indptr,
+                 indices=blk.indices, values=blk.values)
+        out.append(os.path.join(tmp, f"northstar_{name}.part*.npz"))
+    log(f"P4 northstar-shaped csr parts written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out[0], out[1]
+
+
+def split_record(learner) -> dict:
+    """P4's split: H, and each cached batch's share of its unique ids in
+    the hot bucket; fails unless every batch, train and validation, was
+    split."""
+    items = [pb for _, batches in learner._batch_cache.values()
+             for pb in batches]
+    shares = []
+    for pb in items:
+        if pb.uids_hot is None:
+            raise AssertionError("a P4 batch was not split")
+        ch = pb.uids_hot.shape[0]
+        shares.append(float(pb.valid[:ch].sum()) / float(pb.valid.sum()))
+    if len(items) != MAIN_BATCHES + 1:
+        raise AssertionError(f"P4 cached {len(items)} batches, expected "
+                             f"{MAIN_BATCHES + 1}")
+    return {"hot_rows": learner.store.hot_rows,
+            "hot_share_of_uniques": shares}
+
+
+# P4's runs: the config as written (hot_rows=-1: the split), the stacked
+# table alone, and the port's kernel=auto (pairs on the row-major table)
+P4_RUNS = (("p4_hot", (), XLA_KERNELS),
+           ("p4_stacked", (("hot_rows", "0"), ("kernel", "xla")), XLA_KERNELS),
+           ("p4_auto", (("hot_rows", "0"),), ROWMAJOR_KERNELS))
+
+
+def drive_config4(dev, tmp: str) -> dict:
+    """P4: examples/northstar.conf at its config-4 settings
+    (``num_bits=26 hot_rows=-1 cache_compact=1``), only its data paths,
+    ``model_out`` and ``max_num_epochs`` overridden (``drive_main_path``
+    trains 3 epochs and saves nothing), on northstar-shaped data; beside
+    it the same keys with ``hot_rows=0 kernel=xla`` and with the port's
+    ``kernel=auto``. Every batch of the split run must be split and every
+    step launch B3. Returns {run: launch counts}."""
+    from difacto_tpu_torch.data import remap
+    from difacto_tpu_torch.data.batch_iter import BatchIter
+
+    files = write_northstar_parts(tmp)
+    model = {"name": "northstar_2^26", "batch": BATCH,
+             "nnz": NORTHSTAR_FIELDS, "seed": 1000,
+             "kw": conf_kw(NORTHSTAR_CONF) + (
+                 ("num_bits", str(BIG_BITS)), ("hot_rows", "-1"),
+                 ("cache_compact", "1"))}
+    out, recs = {}, {}
+    for name, extra, path in P4_RUNS:
+        out[name], recs[name] = drive_main_path(
+            dev, *files, extra, path, dict(model, name=name),
+            inspect=split_record if name == "p4_hot" else None)
+    summary = {name: {
+        "kernel": r["kernel"], "layout": r["layout"],
+        "epoch0_s": r["init_s"] + r["epoch0_stream_s"], "init_s": r["init_s"],
+        "replay_ms_per_step": r["replay_ms_per_step"],
+        "replay_examples_per_s": r["replay_examples_per_s"],
+        "busy_ms": r["profile"].get("device_busy_ms_per_step"),
+        "idle_share": r["profile"].get("device_idle_share"),
+        "val_exact_auc": r["val_exact_auc"]} for name, r in recs.items()}
+    shares = recs["p4_hot"]["hot_share_of_uniques"]
+    H = recs["p4_hot"]["hot_rows"]
+    # the split's set-up on the host: the count sample and the remap
+    t0 = time.perf_counter()
+    cnt = remap.count_sample(iter(BatchIter(files[0], BATCH, NORTHSTAR_FIELDS,
+                                            BIG_BITS, data_format="csr")),
+                             1 << BIG_BITS, 16)
+    t1 = time.perf_counter()
+    remap.build_remap(cnt, H)
+    t2 = time.perf_counter()
+    summary["p4_hot"].update(
+        hot_rows=H, hot_share_train=shares[:-1], hot_share_val=shares[-1],
+        count_sample_s=t1 - t0, build_remap_s=t2 - t1)
+    log("P4 config 4 (2^26 rows): " + json.dumps(summary))
+    return out
+
+
 def drive_cli(tmp: str) -> None:
     """Phase 5: on each table path, CLI train with validation and
     model_out, then task=predict on the checkpoint; the scores must match
@@ -2036,6 +2367,7 @@ def main() -> int:
                         "k640_checked": sorted(k640)}))
         return 0
     check_step_against_cpu(dev)
+    check_hotcold_against_stacked(dev)
     check_step_against_cpu(dev, FFM_NNZ, (("V_dim", str(FFM_K)),
                                           ("loss", "ffm")), FFM_STEP_PATHS)
     check_step_against_cpu(dev, LIBFFM_FIELDS, (
@@ -2044,10 +2376,11 @@ def main() -> int:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         files = flagship_files = write_main_data(tmp, FLAGSHIP)
-        recs = {}
+        recs, by_path = {}, {}
         for extra, path in MAIN_PATHS:
-            got, recs[extra] = drive_main_path(dev, *files, extra, path)
-            launches.update({name: got[name] for name in path})
+            by_path[extra], recs[extra] = drive_main_path(dev, *files, extra,
+                                                          path)
+            launches.update({name: by_path[extra][name] for name in path})
         # the sweep trains the same model over either table layout. With
         # the sorted backward every kernel repeats its bits, so the metrics
         # are the same floats; the scatter backward's index_add_ adds
@@ -2078,6 +2411,10 @@ def main() -> int:
                                      f"planar leaves disagree on {key}: {a} "
                                      f"against {b}")
         drive_formats(dev, tmp, flagship_files, k156, libffm_loss_ms)
+        # the new paths' launches, for the kernels line
+        new_paths = {"xla": by_path[MAIN_PATHS[-2][0]],
+                     "device_localize": by_path[MAIN_PATHS[-1][0]],
+                     **drive_config4(dev, tmp)}
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -2094,7 +2431,12 @@ def main() -> int:
         **{k: v for k, v in kernels[name].items() if k in EXTRA_KEYS},
         **{k: v for width in (k96, k156, k640)
            for k, v in width.get(name, {}).items()
-           if k in K96_KEYS + K156_KEYS + K640_KEYS}}
+           if k in K96_KEYS + K156_KEYS + K640_KEYS},
+        # B3, the sweeps (B4, B5) and the row-major kernels: their launches
+        # on the paths of the XLA table, device localize and P4
+        **({"new_path_launches": {run: got[name]
+                                  for run, got in new_paths.items()}}
+           if name in NEW_PATH_KERNELS else {})}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
         + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS]
     log(json.dumps({"kernels": rows}))

@@ -6,7 +6,10 @@ dispatched to the SGD learner, on the card:
 
     python -m difacto_tpu_torch [config.conf] [key=val ...]
 
-``task=predict`` scores ``data_in`` with the checkpoint ``model_in``.
+``task=predict`` scores ``data_in`` with the checkpoint ``model_in``, on
+any table path: with ``hot_rows`` the learner builds its remap from
+``data_in`` and places the canonical checkpoint through it; with
+``host_localize=0`` the batches are localized on the device.
 """
 
 from __future__ import annotations

@@ -4,10 +4,10 @@ Copy of ``difacto_tpu/config.py`` (the port imports nothing of the JAX
 package): the same dataclasses and the same keys, so a config written for
 the JAX package parses here unchanged and an unknown key stays fatal.
 
-The port carries one slice of the JAX package so far (ROADMAP.md, queue
-A). :meth:`Config.check` makes every setting outside that slice
-raise ``NotImplementedError`` naming the ROADMAP item that will bring it,
-so a config never silently trains something other than what it asks for.
+The port carries most of the JAX package so far (ROADMAP.md, queue A).
+:meth:`Config.check` makes every setting outside it raise
+``NotImplementedError`` naming the ROADMAP item that will bring it, so a
+config never silently trains something other than what it asks for.
 """
 
 from __future__ import annotations
@@ -70,7 +70,8 @@ class DataParam(ParamBase):
     num_parts_per_file: int = 1    # split each file into N parts (InputSplit)
     max_nnz_per_row: int = 64      # pad/truncate each example to this nnz
     num_bits: int = 22             # hashed feature space = 2**num_bits rows
-    host_localize: bool = True     # dedup ids in the prep threads (port: 1)
+    host_localize: bool = True     # dedup ids in the prep threads; 0 =
+                                   # dedup on the device (ops/localize.py)
     prep_workers: int = 0          # threads for batch dedup/sort prep;
                                    # 0 = auto (cpu_count - 2, capped at 4)
     batch_workers: int = 2         # threads for hashing + [B,L] padding
@@ -168,22 +169,30 @@ class ShardParam(ParamBase):
     num_shards: int = 0            # store=sharded only
     capacity_factor: float = 2.0   # store=sharded only
     unique_size: int = 0           # floor of the unique-lane bucket
-    kernel: str = "auto"           # auto | pairs = the unique-row table
-                                   # kernels (ops/pair_sweep.py); pallas =
-                                   # the whole-table sweep (ops/sweep.py)
+    kernel: str = "auto"           # pairs = the unique-row table kernels
+                                   # (ops/pair_sweep.py); pallas = the
+                                   # whole-table sweep (ops/sweep.py); xla =
+                                   # gathers and scatter-adds of tensor ops;
+                                   # auto = xla with hot_rows,
+                                   # host_localize=0 or layout=stacked,
+                                   # else pairs
     layout: str = "auto"           # planar (w/z/n/cnt [N], V/nV [K, N]) |
-                                   # packed (one row-major [N, 4+2K] table;
-                                   # kernel=auto|pairs only) | auto (see
+                                   # packed (one row-major [N, 4+2K] table)
+                                   # | stacked (one [4+2K, N] table;
+                                   # kernel=xla only) | auto (see
                                    # parallel/store.py::_resolve_layout)
     block_rows: int = 1024         # table block of the sweep kernels
                                    # (kernel=pallas); must divide the rows
     segsum: str = "auto"           # sorted = the segment-sum kernel over the
                                    # host-sorted slot stream; scatter =
-                                   # index_add_; auto = sorted for pairs,
-                                   # scatter for pallas
+                                   # index_add_; auto = sorted for pairs
+                                   # and xla, scatter for pallas
     interpret: bool = False        # Pallas interpret mode; no meaning here
-    hot_rows: int = 0              # hot/cold table split (not in the port)
-    hot_count_batches: int = 16    # hot_rows only
+    hot_rows: int = 0              # hot/cold table split: the hottest
+                                   # hot_rows rows (by a count sample) in a
+                                   # table of their own; -1 = auto-size
+                                   # (data/remap.py); kernel=xla, stacked
+    hot_count_batches: int = 16    # batches of the hot_rows count sample
 
 
 # loss=ffm activation cap in bytes: the JAX package's constant, kept so
@@ -200,15 +209,6 @@ def _slice_violations(cfg: "Config") -> list[str]:
         out.append("store=sharded (ROADMAP A9, ShardedStore)")
     if lr.learner == "bcd":
         out.append("learner=bcd (ROADMAP A15, BCD learner)")
-    if s.hot_rows != 0:
-        out.append("hot_rows != 0 (ROADMAP A13, hot/cold split)")
-    if s.kernel == "xla":
-        out.append("kernel=xla (ROADMAP A14, the XLA gather/scatter path "
-                   "and its layouts)")
-    if s.layout == "stacked":
-        out.append("layout=stacked (ROADMAP A14, the XLA path's layout)")
-    if not d.host_localize:
-        out.append("host_localize=0 (ROADMAP A16, device localize)")
     for key in ("data_in", "data_val", "model_in", "model_out", "pred_out"):
         uri = getattr(d if key.startswith("data") else lr, key)
         if "://" in uri and not uri.startswith("file://"):
@@ -236,7 +236,26 @@ class Config:
 
     def check(self) -> None:
         """Cross-param consistency, as the JAX package checks it, then the
-        port's slice guard."""
+        port's own refusal of ``kernel=pairs host_localize=0`` and its
+        slice guard."""
+        if self.shard.hot_rows and self.learner.learner != "sgd":
+            raise ValueError(
+                "hot_rows (frequency-split table) is an SGD/LocalStore "
+                "feature; BCD keeps its own block-tiled layout"
+            )
+        if self.shard.hot_rows and not self.data.host_localize:
+            raise ValueError(
+                "hot_rows needs host_localize=1 (the remap and the "
+                "hot/cold bucket split are host-side prep work)"
+            )
+        if self.shard.kernel == "pairs" and not self.data.host_localize:
+            # the JAX store trains such a config on its XLA ops, not on
+            # the pair kernels it names (ROADMAP D)
+            raise ValueError(
+                "kernel=pairs needs host_localize=1 (the pair kernels read "
+                "host-prepped batches); use kernel=xla or kernel=pallas "
+                "with host_localize=0"
+            )
         if self.shard.segsum not in ("auto", "sorted", "scatter"):
             raise ValueError(
                 f"segsum must be auto|sorted|scatter, got {self.shard.segsum!r}"

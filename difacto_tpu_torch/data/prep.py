@@ -10,8 +10,11 @@ sparse cost (the pull, the segment sum, the apply) scales with it.
 
 Past ``_LUT_MAX_ROWS`` table rows a batch of at least 4096 slots goes to
 the native radix localizer (data/_native.py), as in the JAX package.
-Left out here, with the code that needs them: the hot/cold split (ROADMAP
-A13) and the sharded per-owner schedules (A9). ``build_sorted_slots`` builds no Pallas schedule (SegMeta,
+``prep_batch(remap=, hot_rows=)`` relabels the ids by the frequency
+remap (data/remap.py) before the dedup and packs the uniques into a hot
+and a cold bucket (the hot/cold split, ``HotColdFMState``). Left out
+here, with the code that needs them: the sharded per-owner schedules
+(A9). ``build_sorted_slots`` builds no Pallas schedule (SegMeta,
 PairMeta): those are Mosaic addressing artefacts the Hopper kernels do
 not need.
 """
@@ -113,6 +116,11 @@ class PreppedBatch:
     sorted_slots: SortedSlots | None = None
     fields: np.ndarray | None = None  # i32 [B, L] libffm fields (loss=ffm)
     fields_checked: bool = False  # range-validated at prep time (host)
+    # hot/cold split (prep_batch with a remap): ``uids`` is a hot bucket
+    # (remapped ids < hot_rows, pad sentinel hot_rows) followed by a cold
+    # bucket (pad sentinel num_rows); these are copies of its two parts
+    uids_hot: np.ndarray | None = None   # i32 [Ch]
+    uids_cold: np.ndarray | None = None  # i32 [Cc] global remapped ids
 
     @property
     def num_examples(self) -> int:
@@ -208,9 +216,46 @@ def _pack_localized(uids, inv, counts, has_sentinel, n_real, num_rows, ub):
     return u_out, c_out, inv, valid, dropped
 
 
+# cold-bucket granularity of the hot/cold split (the JAX package's: its
+# big-table scatter paid for every cold lane, pads included, so the cold
+# bucket rounds finely and the slop of the total ladder lands in the hot
+# bucket)
+_COLD_GRAN = 2048
+
+
+def _pack_localized_split(uids, inv, counts, n_real, num_rows, hot_rows,
+                          buckets, min_ub):
+    """Split-pack one batch's sorted (remapped) uniques into [hot | cold]
+    buckets. Returns (uids, counts, inv, valid, ch). The sentinel entry
+    (position n_real) needs no case of its own: shifted like the cold
+    entries it lands on the first cold pad, an invalid lane because the
+    cold bucket always holds more lanes than cold ids."""
+    n_hot = int(np.searchsorted(uids[:n_real], hot_rows, side="left"))
+    n_cold = n_real - n_hot
+    cc = max(-(-(n_cold + 1) // _COLD_GRAN) * _COLD_GRAN, _COLD_GRAN)
+    floor = (min_ub + 127) // 128 * 128 if min_ub else 0
+    ub = max(bucket_for(n_hot + cc, buckets), floor)
+    ch = ub - cc
+    u_out = np.full(ub, num_rows, np.int32)
+    u_out[:n_hot] = uids[:n_hot]
+    u_out[n_hot:ch] = hot_rows  # hot pad: out of range for the hot table
+    u_out[ch:ch + n_cold] = uids[n_hot:n_real]
+    c_out = np.zeros(ub, np.float32)
+    c_out[:n_hot] = counts[:n_hot]
+    c_out[ch:ch + n_cold] = counts[n_hot:n_real]
+    valid = np.zeros(ub, bool)
+    valid[:n_hot] = True
+    valid[ch:ch + n_cold] = True
+    inv = inv.astype(np.int32)
+    # hot lanes stay; cold ones (and the sentinel's) move past the hot pads
+    inv = np.where(inv < n_hot, inv, inv - n_hot + ch)
+    return u_out, c_out, inv, valid, ch
+
+
 def prep_batch(
     batch: Batch, num_rows: int, buckets=DEFAULT_BUCKETS,
     min_ub: int | None = None, num_fields: int = 0,
+    remap: np.ndarray | None = None, hot_rows: int = 0,
 ) -> PreppedBatch:
     """Localization of one padded batch (reference: Localizer::Compact —
     sort, dedup, rewrite indices, count).
@@ -218,11 +263,29 @@ def prep_batch(
     ``min_ub`` floors the unique bucket (config ``unique_size``); a rare
     larger batch still gets the next bucket up. ``num_fields`` > 0
     validates explicit libffm field ids here, the last point where they
-    are still numpy; the batch's fields travel with it either way."""
+    are still numpy; the batch's fields travel with it either way.
+
+    ``remap``/``hot_rows``: the frequency remap (data/remap.py) relabels
+    the ids before the dedup, and the uniques are packed into a hot and a
+    cold bucket (``uids_hot``, ``uids_cold``); the batch's uniques are then
+    unique within each bucket, not across them (a hot pad carries
+    ``hot_rows``, which is also the first cold row)."""
     validate_fields(batch.fields, num_fields)
-    uids, inv, counts, has_sentinel, n_real = _localize_ids(
-        batch.ids, num_rows
-    )
+    ids = batch.ids
+    if remap is not None:
+        from .remap import apply_remap
+
+        assert hot_rows > 0, "remap without hot_rows has no effect"
+        ids = apply_remap(ids, remap)
+    uids, inv, counts, has_sentinel, n_real = _localize_ids(ids, num_rows)
+    if remap is not None:
+        u_out, c_out, inv, valid, ch = _pack_localized_split(
+            uids, inv, counts, n_real, num_rows, hot_rows, buckets, min_ub)
+        return PreppedBatch(
+            vals=batch.vals, labels=batch.labels, mask=batch.mask,
+            uids=u_out, ucounts=c_out, inv=inv.reshape(-1), valid=valid,
+            fields=batch.fields, fields_checked=num_fields > 0,
+            uids_hot=u_out[:ch].copy(), uids_cold=u_out[ch:].copy())
     # the bucket must leave a junk lane for sentinel slots when present
     need = max(n_real + int(has_sentinel), 1)
     floor = (min_ub + 127) // 128 * 128 if min_ub else 0
@@ -249,7 +312,9 @@ def build_sorted_slots(inv: np.ndarray, vals: np.ndarray,
     """SortedSlots for one prepped batch (``inv`` [B*L], ``vals`` [B, L]):
     a stable argsort of ``inv`` — host work the reference also did on
     worker CPUs — run in the prep workers, overlapped with device steps.
-    ``with_slots`` also keeps the permutation (``slot_sorted``, FFM)."""
+    ``with_slots`` also keeps the permutation (``slot_sorted``, FFM). It
+    reads the lanes only, never the ids, so a split batch (whose ids
+    repeat across the buckets) sorts as any other."""
     L = vals.shape[1]
     perm = np.argsort(inv, kind="stable")
     inv_s = pad_sorted_stream(inv[perm].astype(np.int32, copy=False))

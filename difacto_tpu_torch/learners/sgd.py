@@ -6,7 +6,11 @@ job queue is program order, and the bounded-staleness pipeline is
 host-side prefetch overlapping device steps (staleness 0). Host threads
 parse the data, localize and sort each batch (data/prep.py) and copy it
 to the device one step ahead (utils/place.py); the main thread runs the
-store's train and eval steps.
+store's train and eval steps. With ``host_localize=0`` the raw batches
+go to the device and the store localizes them there. With ``hot_rows``
+a count sample of the first ``hot_count_batches`` batches builds the
+frequency remap (data/remap.py) before any state exists; prep relabels
+every batch by it, and checkpoints are saved in canonical rows.
 
 Per-epoch flow mirrors RunScheduler/RunEpoch: optional feature-count pass
 (tail_feature_filter), train pass over data_in, validation pass over
@@ -24,7 +28,8 @@ import numpy as np
 
 from ..config import Config
 from ..data.batch_iter import BatchIter
-from ..data.prep import build_sorted_slots, prep_batch
+from ..data.prep import build_sorted_slots, prep_batch, validate_fields
+from ..data.remap import apply_remap, build_remap, count_sample
 from ..ops.metrics import exact_auc
 from ..parallel.store import make_store
 from ..updaters.updater import FMUpdater
@@ -92,6 +97,12 @@ class SGDLearner:
         self._batch_cache: dict[str, tuple[bool, list]] = {}
         self._epoch = 0
         self._resume_step = 0  # batches already consumed in self._epoch
+        self._host_localize = bool(cfg.data.host_localize)
+        # hot/cold split: the remap exists before any state is made or
+        # model_in is placed (the store permutes canonical rows by it)
+        self._hot_remap = None
+        if self.store.hot_rows:
+            self._build_remap()
         if cfg.learner.model_in:
             self.state, meta = checkpoint.load_for_store(
                 cfg.learner.model_in, self.store
@@ -105,13 +116,27 @@ class SGDLearner:
         else:
             self.state = self.store.init_state(cfg.data.seed)
 
+    def _build_remap(self) -> None:
+        """The per-run frequency remap from a count sample of the training
+        data's first ``hot_count_batches`` batches (JAX ``sgd.py:93-118``)."""
+        H, N = self.store.hot_rows, self.store.num_rows
+        cnt = count_sample(
+            self._iter(self.cfg.data.data_in, shuffle=False, localize=False),
+            N, self.cfg.shard.hot_count_batches)
+        self._hot_remap = build_remap(cnt, H)
+        self.store.set_remap(self._hot_remap)
+        head = cnt[self._hot_remap < H].sum()
+        log.info("hot remap built: head %d of %d rows (%.1f%% of sampled "
+                 "slots)", H, N, 100.0 * head / max(cnt.sum(), 1))
+
     # -- data ---------------------------------------------------------------
 
     def _iter(self, uri: str, shuffle: bool, localize: bool = True,
               epoch: int = 0, sorted_slots: bool = False):
         """Batches of ``uri``: raw host Batches when ``localize`` is
-        false (the count pass), else prepped batches on the device, with
-        their sorted slots when ``sorted_slots`` (the train pass)."""
+        false (the count pass), else batches on the device: prepped, with
+        their sorted slots when ``sorted_slots`` (the train pass), or raw
+        with ``host_localize=0`` (the store localizes them)."""
         d = self.cfg.data
         # the cache key covers everything that changes batch content or
         # order; the raw count-pass stream is never cached (it runs once)
@@ -141,30 +166,10 @@ class SGDLearner:
         ))
         if not localize:
             return ThreadedIter(src, depth=4)
-        num_rows = self.store.num_rows
-        min_ub = self.cfg.shard.unique_size or None
-        # FFM's sorted backward gathers its per-slot payload by the sort
-        # permutation (SortedSlots.slot_sorted)
-        with_slots = self.cfg.learner.loss == "ffm"
-        # explicit libffm fields are range-checked here, on the host; the
-        # batch carries them to the device, and a cached batch keeps them
-        nf = self.cfg.model.num_fields if self.cfg.expects_fields() else 0
-
-        def prep(b):
-            pb = prep_batch(b, num_rows, min_ub=min_ub, num_fields=nf)
-            if sorted_slots:
-                pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
-                                                     with_slots=with_slots)
-            return pb
-
-        # prep_workers=0 -> auto: leave cores for the parse thread, the
-        # batchify pool and the main thread
-        pw = d.prep_workers or min(4, max(1, (os.cpu_count() or 4) - 2))
-        if pw > 1:
-            out = MappedPrefetchIter(ThreadedIter(src, depth=4), prep,
-                                     workers=pw)
+        if self._host_localize:
+            out = self._prep_iter(src, sorted_slots)
         else:
-            out = ThreadedIter(map(prep, src), depth=4)
+            out = ThreadedIter(map(self._check_raw, src), depth=4)
         if cache_key is None:
             return self._place_iter(out)
         # fill the cache lazily so epoch 0 still streams; complete at
@@ -182,6 +187,44 @@ class SGDLearner:
 
         return caching() if place_first else self._place_iter(caching())
 
+    def _check_raw(self, b):
+        """A raw batch's libffm fields, range-checked on the host before
+        placement (the store checks host arrays only)."""
+        if self.cfg.expects_fields():
+            validate_fields(b.fields, self.cfg.model.num_fields)
+        return b
+
+    def _prep_iter(self, src, sorted_slots: bool):
+        """Prepped host batches of a raw batch stream, from a pool of prep
+        workers."""
+        d = self.cfg.data
+        num_rows = self.store.num_rows
+        min_ub = self.cfg.shard.unique_size or None
+        # FFM's sorted backward gathers its per-slot payload by the sort
+        # permutation (SortedSlots.slot_sorted)
+        with_slots = self.cfg.learner.loss == "ffm"
+        # explicit libffm fields are range-checked here, on the host; the
+        # batch carries them to the device, and a cached batch keeps them
+        nf = self.cfg.model.num_fields if self.cfg.expects_fields() else 0
+        # the hot/cold split: relabel by the remap, split the buckets
+        remap, hot = self._hot_remap, self.store.hot_rows
+
+        def prep(b):
+            pb = prep_batch(b, num_rows, min_ub=min_ub, num_fields=nf,
+                            remap=remap, hot_rows=hot)
+            if sorted_slots:
+                pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
+                                                     with_slots=with_slots)
+            return pb
+
+        # prep_workers=0 -> auto: leave cores for the parse thread, the
+        # batchify pool and the main thread
+        pw = d.prep_workers or min(4, max(1, (os.cpu_count() or 4) - 2))
+        if pw > 1:
+            return MappedPrefetchIter(ThreadedIter(src, depth=4), prep,
+                                      workers=pw)
+        return ThreadedIter(map(prep, src), depth=4)
+
     def _place_iter(self, it):
         """Copy batches to the device one step ahead of consumption."""
         return ThreadedIter((place_batch(b, self.device) for b in it),
@@ -195,7 +238,12 @@ class SGDLearner:
         n = 0
         for batch in self._iter(self.cfg.data.data_in, shuffle=False,
                                 localize=False):
-            args = self.store.shard_batch(batch.ids, batch.vals,
+            ids = batch.ids
+            if self._hot_remap is not None:
+                # the split state is addressed in remapped rows; the raw
+                # count stream is relabeled as prep relabels
+                ids = apply_remap(ids, self._hot_remap)
+            args = self.store.shard_batch(ids, batch.vals,
                                           batch.labels, batch.mask,
                                           batch.fields)
             self.state = self.store.count_step(self.state, args[0])
@@ -217,8 +265,7 @@ class SGDLearner:
             if step < skip:
                 step += 1
                 continue
-            self.state, metrics = self.store.train_step_prepped(self.state,
-                                                                batch)
+            self.state, metrics = self._train_step(batch)
             acc = metrics if acc is None else merge_metrics(acc, metrics)
             step += 1
             if self.reporter.interval > 0 and step % self.reporter.interval == 0:
@@ -227,14 +274,31 @@ class SGDLearner:
                 self.reporter.maybe_report(step, prog, prefix=f"epoch {epoch} ")
             si = cfg.learner.save_interval_steps
             if cfg.learner.model_out and si > 0 and step % si == 0:
-                checkpoint.save(cfg.learner.model_out, self.state,
-                                {"epoch": epoch, "step": step})
+                self._save({"epoch": epoch, "step": step})
         if acc is not None:
             self._fold(prog, acc)
         st = self.store.stats(self.state)
         prog.nnz_w = float(st["nnz_w"])
         prog.nnz_V = float(st["nnz_V"])
         return prog
+
+    def _train_step(self, batch):
+        if self._host_localize:
+            return self.store.train_step_prepped(self.state, batch)
+        return self.store.train_step(self.state, batch.ids, batch.vals,
+                                     batch.labels, batch.mask, batch.fields)
+
+    def _eval_step(self, batch):
+        if self._host_localize:
+            return self.store.eval_step_prepped(self.state, batch)
+        return self.store.eval_step(self.state, batch.ids, batch.vals,
+                                    batch.labels, batch.mask, batch.fields)
+
+    def _save(self, meta: dict) -> str:
+        """Checkpoint the state in canonical rows (a hot/cold state by the
+        run's remap)."""
+        return checkpoint.save(self.cfg.learner.model_out, self.state, meta,
+                               remap_lut=self.store.hot_lut)
 
     def eval_pass(self, uri: str) -> Progress:
         prog = Progress()
@@ -246,7 +310,7 @@ class SGDLearner:
         cap = self.cfg.learner.exact_auc_cap
         res = _Reservoir(cap, self.cfg.data.seed) if cap > 0 else None
         for batch in self._iter(uri, shuffle=False):
-            metrics, py = self.store.eval_step_prepped(self.state, batch)
+            metrics, py = self._eval_step(batch)
             acc = metrics if acc is None else merge_metrics(acc, metrics)
             if res is not None:
                 keep = _host(batch.mask) > 0
@@ -313,8 +377,7 @@ class SGDLearner:
                 (epoch + 1) % cfg.learner.save_interval_epochs == 0
                 or epoch + 1 == cfg.learner.max_num_epochs
             ):
-                path = checkpoint.save(cfg.learner.model_out, self.state,
-                                       {"epoch": epoch + 1, "step": 0})
+                path = self._save({"epoch": epoch + 1, "step": 0})
                 log.info("saved model to %s", path)
         return last
 
@@ -323,7 +386,7 @@ class SGDLearner:
         (reference: the validation/pred flow with model_in + no training)."""
         pys, ys = [], []
         for batch in self._iter(uri, shuffle=False):
-            _, py = self.store.eval_step_prepped(self.state, batch)
+            _, py = self._eval_step(batch)
             keep = _host(batch.mask) > 0
             pys.append(_host(py)[keep])
             ys.append(_host(batch.labels)[keep])

@@ -6,27 +6,41 @@ process). A train step is
 
     pull -> [B, L] forward -> backward -> per-key sums -> apply, in place,
 
-and an eval step is pull -> forward. The config picks the table kernels
-and the per-key aggregation, as the JAX store does
-(``store.py:243-249``, ``:626-689``):
+and an eval step is pull -> forward. The config picks the table path and
+the per-key aggregation, as the JAX store does (``store.py:113-150,
+243-249, 626-689``):
 
-* ``kernel=auto|pairs``: pull and apply of the batch's unique rows
+* ``kernel=pairs``: pull and apply of the batch's unique rows
   (ops/pair_sweep.py, B1, B2), over planar leaves (``layout=planar``) or
   over the row-major table (``layout=packed``, csrc/rowmajor_pairs.cu);
 * ``kernel=pallas``: the whole-table sweep (ops/sweep.py, B4, B5), over
   either layout too (``layout=packed``: csrc/rowmajor_sweep.cu);
+* ``kernel=xla``: gathers and masked scatter-adds of PyTorch tensor ops
+  (updaters/updater.py, as the JAX package's are XLA ops), over the
+  stacked table (``layout=stacked``, one gather serving the pull and the
+  update), its hot/cold split (``hot_rows``), or planar or row-major
+  leaves;
+* ``kernel=auto``: ``xla`` with ``hot_rows`` or ``host_localize=0`` (as
+  the JAX store resolves it) or ``layout=stacked``, else ``pairs``
+  (measured on the H100; the JAX package's v5e rule "xla past 2^23
+  rows" is not copied);
 * ``segsum=sorted``: the sorted-slot backward and the segment-sum kernel
   (learners/step.py::worker_grads_sorted, B3); ``segsum=scatter``: the
   ``index_add_`` backward (worker_grads); ``segsum=auto``: sorted for
-  pairs, scatter for pallas.
+  pairs and xla, scatter for pallas.
 
-Both take the host-prepped batch (data/prep.py) and run the hand-written
+The host-prepped steps (``train_step_prepped``, ``eval_step_prepped``)
+take a batch localized by data/prep.py; ``train_step`` and ``eval_step``
+take raw ids and localize them on the device (``host_localize=0``,
+ops/localize.py), with the scatter backward, as the JAX store's do.
+``kernel=pairs`` with ``host_localize=0`` is refused (the JAX store
+trains it on its XLA ops; ROADMAP D). Every path runs the hand-written
 kernels when the state lies on the card, their plain versions when it
 lies on the CPU. ``loss=ffm`` runs every path with rows of 1 + F*k
 floats (``Config.effective_model_param``) and the FFM math of
-learners/step.py (JAX ``store.py:227-230``); with ``num_fields`` > 0
-(libffm) every path reads the batch's explicit fields, validated on the
-host. The sharded store waits (ROADMAP A9).
+learners/step.py; with ``num_fields`` > 0 (libffm) every path reads the
+batch's explicit fields, validated on the host. The sharded store waits
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -38,11 +52,12 @@ from ..config import Config
 from ..data.prep import PreppedBatch, build_sorted_slots, validate_fields
 from ..learners.step import (StepMetrics, worker_forward, worker_grads,
                              worker_grads_sorted)
-from ..ops.localize import Localized
+from ..ops.localize import Localized, localize
 from ..ops.pair_sweep import apply_pairs, pull_pairs
 from ..ops.sweep import sweep_apply, sweep_pull
 from ..ops.sweep_ms import apply_payload
-from ..updaters.updater import (FMState, FMUpdater, LEAVES, PackedFMState,
+from ..updaters.updater import (FMState, FMUpdater, HotColdFMState, LEAVES,
+                                PackedFMState, StackedFMState, leaf_planes,
                                 pack_state, unpack_state)
 from ..utils.device import resolve_device
 from ..utils.place import place_batch
@@ -70,31 +85,70 @@ def _prepped_fields(pb: PreppedBatch, num_fields: int):
     return _require_fields(pb.fields, num_fields)
 
 
-def _resolve_layout(cfg: Config) -> str:
+
+
+def _kernel_kind(cfg: Config) -> str:
+    """pairs | pallas | xla. ``auto`` is ``xla`` with ``hot_rows`` (the
+    split is a design of the XLA path) or ``host_localize=0`` (the pair
+    kernels read host-prepped batches), as in the JAX store
+    (``store.py:130-147``), and with ``layout=stacked``, the one path that
+    takes that table (the JAX store's own CPU resolution); ``pairs``
+    otherwise: the JAX store's "xla past 2^23 rows" is a v5e measurement,
+    and on the H100 both paths are measured at 2^26 (PERF.md). ``pairs``
+    with ``host_localize=0`` raises where the JAX store silently trains on
+    its XLA ops (``Config.check``)."""
+    kind = cfg.shard.kernel
+    if kind == "auto":
+        if (cfg.shard.hot_rows != 0 or not cfg.data.host_localize
+                or cfg.shard.layout == "stacked"):
+            return "xla"
+        return "pairs"
+    if kind not in ("xla", "pallas", "pairs"):
+        raise ValueError(f"unknown kernel {kind!r}")
+    return kind
+
+
+def _resolve_layout(cfg: Config, kind: str) -> str:
     """planar = one array per leaf with V [K, N]; packed = one row-major
     [N, 4+2K] table, which the kernels of csrc/rowmajor_pairs.cu and
     csrc/rowmajor_sweep.cu read and write in a fifth of the 32-byte
-    sectors. Both table paths take both layouts. The JAX store refuses
-    packed with its table kernels because XLA pads a 36-wide minor
-    dimension to 128 lanes: a TPU mechanism that does not exist here.
-    ``stacked`` is refused by the config (ROADMAP A14).
+    sectors; stacked = one [4+2K, N] table, the XLA path's (one gather
+    and one scatter-add a step). The pairs and sweep paths take planar
+    and packed; the JAX store refuses packed with its table kernels
+    because XLA pads a 36-wide minor dimension to 128 lanes, a TPU
+    mechanism that does not exist here. ``stacked`` needs ``kernel=xla``,
+    as in the JAX store.
 
-    ``auto`` follows what was measured on an H100 (PERF.md, section 6)
-    and moves nobody onto a kernel that is slower. With factors
-    (V_dim > 0) every row-major kernel, pairs and sweep, is faster than
-    its planar counterpart for every updater pair, with the L2 warm and
-    cold, at K = 16 and at FFM's K = F*k = 96 alike: packed. Without factors the row-major sweep kernels and the pair
-    apply are faster too, but the pair pull reads w out of a table four
-    times the size of the planar w and is slower with the L2 cold: packed
-    on ``kernel=pallas``, planar on the pairs path."""
+    ``auto`` on ``kernel=xla`` is stacked, as in the JAX store. On the
+    kernel paths it follows what was measured on an H100 (PERF.md,
+    section 6) and moves nobody onto a kernel that is slower. With
+    factors (V_dim > 0) every row-major kernel, pairs and sweep, is faster
+    than its planar counterpart for every updater pair, with the L2 warm
+    and cold, at K = 16 and at FFM's K = F*k = 96 alike: packed. Without
+    factors the row-major sweep kernels and the pair apply are faster
+    too, but the pair pull reads w out of a table four times the size of
+    the planar w and is slower with the L2 cold: packed on
+    ``kernel=pallas``, planar on the pairs path."""
     lay = cfg.shard.layout
     if lay == "auto":
-        packed = cfg.model.V_dim > 0 or cfg.shard.kernel == "pallas"
+        if kind == "xla":
+            return "stacked"
+        packed = cfg.model.V_dim > 0 or kind == "pallas"
         return "packed" if packed else "planar"
     if lay not in ("packed", "planar", "stacked"):
         raise ValueError(f"layout must be auto|packed|planar|stacked, "
                          f"got {lay!r}")
+    if lay == "stacked" and kind != "xla":
+        raise ValueError(f"layout={lay} is incompatible with kernel="
+                         f"{cfg.shard.kernel!r} (the table kernels read "
+                         "planar or row-major tables)")
     return lay
+
+
+def _as_tensor(x, device, dtype=None):
+    if isinstance(x, torch.Tensor):
+        return x.to(device, dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 class LocalStore:
@@ -103,8 +157,9 @@ class LocalStore:
     ``device`` defaults to the card; without one it raises unless the
     caller asks for ``"cpu"`` (utils/device.py). The state's tensors are
     updated IN PLACE by every train step: the step returns the same
-    state object it was given (an FMState, or with ``layout=packed`` a
-    PackedFMState)."""
+    state object it was given (an FMState, a PackedFMState with
+    ``layout=packed``, a StackedFMState with ``layout=stacked``, a
+    HotColdFMState with ``hot_rows``)."""
 
     def __init__(self, updater: FMUpdater, cfg: Config, device=None):
         self.updater = updater
@@ -126,23 +181,64 @@ class LocalStore:
         # libffm explicit fields: batches carry an i32 [B, L] field array
         self.expects_fields = cfg.expects_fields()
         s = cfg.shard
-        self.pallas = s.kernel == "pallas"
-        self.layout = _resolve_layout(cfg)
+        self.kernel = _kernel_kind(cfg)
+        self.pallas = self.kernel == "pallas"
+        self.xla = self.kernel == "xla"
+        self.layout = _resolve_layout(cfg, self.kernel)
         self.block_rows = min(s.block_rows, self.num_rows)
-        # segsum=auto: the sorted backward on pairs, scatter on pallas
+        # the unique-lane count of a device-localized batch
+        self.unique_size = s.unique_size or (
+            cfg.data.batch_size * cfg.data.max_nnz_per_row)
+        # segsum=auto: the sorted backward on pairs and xla, scatter on
+        # pallas (the JAX store's choice on its accelerator)
         self.sorted_grads = s.segsum == "sorted" or (
             s.segsum == "auto" and not self.pallas)
+        # hot/cold split (HotColdFMState + data/remap.py); -1 auto-sizes
+        self.hot_rows = s.hot_rows
+        if self.hot_rows:
+            if not self.xla:
+                raise ValueError("hot_rows needs kernel=xla (the table "
+                                 "kernels address a single table)")
+            if self.layout != "stacked":
+                raise ValueError("hot_rows needs layout=stacked (or auto)")
+            if self.hot_rows == -1:
+                from ..data.remap import auto_hot_rows
+
+                self.hot_rows = auto_hot_rows(self.num_rows, self.param.V_dim)
+            if not 0 < self.hot_rows < self.num_rows:
+                raise ValueError(f"hot_rows {self.hot_rows} out of range for "
+                                 f"a {self.num_rows}-row table")
+        self.hot_lut = None  # set by set_remap before any state is placed
 
     def init_state(self, seed: int = 0):
-        init = (self.updater.init_state_packed if self.layout == "packed"
-                else self.updater.init_state)
-        return init(self.num_rows, seed, self.device)
+        u, n, dev = self.updater, self.num_rows, self.device
+        if self.hot_rows:
+            return u.init_state_hotcold(n, self.hot_rows, seed, dev)
+        init = {"packed": u.init_state_packed,
+                "stacked": u.init_state_stacked}.get(self.layout, u.init_state)
+        return init(n, seed, dev)
+
+    def set_remap(self, lut: np.ndarray) -> None:
+        """Install the frequency remap (data/remap.py::build_remap). Prep
+        must apply the same lut to every batch (the learner threads it
+        into prep_batch); the store needs it to place canonical state and
+        the checkpoint to save it."""
+        if not self.hot_rows:
+            raise ValueError("set_remap on a store without hot_rows")
+        if lut.shape != (self.num_rows,):
+            raise ValueError(f"remap lut of shape {lut.shape}, expected "
+                             f"({self.num_rows},)")
+        self.hot_lut = lut
 
     def place_state(self, host_state):
-        """Move a host state of either layout onto this store's device,
-        in this store's layout. A single-file checkpoint from a padded
-        sharded run carries more rows than the hash space; the extra rows
-        must be zero and are cut off."""
+        """Move a state of any layout with the six leaves (a checkpoint's
+        FMState, a PackedFMState or a StackedFMState, anywhere) onto this
+        store's device, in this store's layout. A single-file checkpoint
+        from a padded sharded run carries more rows than the hash space;
+        the extra rows must be zero and are cut off. The stacked and
+        hot/cold tables are written one [N] plane at a time (no planar
+        copy beside the table on the device); a hot/cold store permutes
+        each canonical plane into remapped rows by its lut."""
         n_in = host_state.num_rows
         if n_in > self.num_rows:
             if bool((host_state.w[self.num_rows:] != 0).any()):
@@ -161,21 +257,54 @@ class LocalStore:
         if host_state.k != k:
             raise ValueError(f"checkpoint has V_dim {host_state.k} but this "
                              f"store expects {k} (F*k for loss=ffm)")
+        if self.layout == "stacked":
+            return self._place_planes(host_state)
+        N = self.num_rows
         packed_in = isinstance(host_state, PackedFMState)
         if packed_in:
-            tbl = host_state.tbl[: self.num_rows]
-            placed = PackedFMState(
-                tbl=tbl.to(self.device, torch.float32).contiguous())
+            placed = PackedFMState(tbl=host_state.tbl[:N].to(
+                self.device, torch.float32).contiguous())
         else:
-            leaves = {}
-            for name in LEAVES:
-                t = getattr(host_state, name)[..., : self.num_rows]
-                leaves[name] = t.to(self.device, torch.float32).contiguous()
-            placed = FMState(**leaves)
+            placed = FMState(**{
+                name: getattr(host_state, name)[..., :N].to(
+                    self.device, torch.float32).contiguous()
+                for name in LEAVES})
         if packed_in == (self.layout == "packed"):
             return placed
         return pack_state(placed) if self.layout == "packed" else (
             unpack_state(placed))
+
+    def _place_planes(self, host_state):
+        """place_state for the stacked and hot/cold tables, plane by
+        plane (JAX ``store.py:313-373``), through the leaf views of
+        :class:`StackedFMState`."""
+        N, k, dev = self.num_rows, self.param.V_dim, self.device
+        H = self.hot_rows
+        if H and self.hot_lut is None:
+            raise ValueError(
+                "a hot_rows store cannot place a checkpoint before "
+                "set_remap() — the learner installs the frequency remap "
+                "first")
+        tables = [StackedFMState(tbl=torch.zeros(
+            (4 + 2 * k, n), dtype=torch.float32, device=dev))
+            for n in ((H, N - H) if H else (N,))]
+        if H:
+            lut = torch.as_tensor(self.hot_lut, device=dev).long()
+            buf = torch.empty(N, dtype=torch.float32, device=dev)
+        for name in LEAVES:
+            src = leaf_planes(getattr(host_state, name))
+            dst = [leaf_planes(getattr(t, name)) for t in tables]
+            for j in range(src.shape[0]):
+                plane = src[j, :N].to(dev, torch.float32)
+                if H:
+                    buf.index_copy_(0, lut, plane)  # canonical -> remapped
+                    dst[0][j].copy_(buf[:H])
+                    dst[1][j].copy_(buf[H:])
+                else:
+                    dst[0][j].copy_(plane)
+        if H:
+            return HotColdFMState(hot=tables[0].tbl, cold=tables[1].tbl)
+        return tables[0]
 
     def shard_batch(self, ids, vals, labels, mask, fields=None):
         """A raw batch's arrays for a step, with its fields validated
@@ -187,9 +316,9 @@ class LocalStore:
 
     def count_step(self, state, ids):
         """Feature-frequency pass, in place (reference: Store::kFeaCount
-        push used for tail filtering before training)."""
-        ids = torch.as_tensor(np.asarray(ids), device=self.device)
-        return self.updater.add_counts(state, ids)
+        push used for tail filtering before training). A hot/cold state
+        takes remapped ids (the learner relabels them as prep does)."""
+        return self.updater.add_counts(state, _as_tensor(ids, self.device))
 
     def _placed(self, pb: PreppedBatch, need_slots: bool) -> PreppedBatch:
         """The batch as tensors on this store's device. Host batches get
@@ -198,6 +327,10 @@ class LocalStore:
         keep the sort permutation. Explicit fields are checked first
         (on the host array, when the batch is still there) unless the
         prep did."""
+        if self.hot_rows and pb.uids_hot is None:
+            raise ValueError(
+                "hot_rows store got an unsplit PreppedBatch — prep must "
+                "run with (remap, hot_rows) (the learner threads them)")
         if self.expects_fields:
             pb.fields = _prepped_fields(pb, self.num_fields)
             pb.fields_checked = True
@@ -211,53 +344,79 @@ class LocalStore:
                                                  with_slots=ffm)
         return place_batch(pb, self.device)
 
-    def _fields(self, pb: PreppedBatch):
-        """The placed batch's fields for the loss: None unless the config
+    def _fields(self, fields):
+        """The batch's fields for the loss: None unless the config
         declares them (then FFM's field is the slot position)."""
-        return pb.fields if self.expects_fields else None
+        return fields if self.expects_fields else None
 
-    def _pull(self, state, pb: PreppedBatch) -> torch.Tensor:
-        """Unique rows [U, 1+K] (w | count-gated V) of the batch. Lanes
-        past the batch's real unique count are zero (the valid mask)."""
+    def _pull(self, state, loc: Localized, split=None):
+        """Unique rows [U, 1+K] (w | count-gated V) of the batch, lanes
+        past its real unique count zero (the valid mask), and on the XLA
+        path's stacked tables the raw [D, U] gather the update reuses
+        (else None). ``split``: the hot and cold buckets of a split
+        batch."""
+        valid = loc.valid
         if self.pallas:
-            return sweep_pull(state, pb.uids, pb.valid, self.param,
-                              block_rows=self.block_rows)
-        rows_p = pull_pairs(state, pb.uids, self.param)
-        return torch.where(pb.valid[:, None], rows_p.T, 0.0)
+            return sweep_pull(state, loc.uids, valid, self.param,
+                              block_rows=self.block_rows), None
+        if self.xla:
+            if split is not None:
+                raw = self.updater.pull_raw_split(state, *split)
+            elif isinstance(state, StackedFMState):
+                raw = self.updater.pull_raw(state, loc.uids, valid)
+            else:
+                return self.updater.pull(state, loc.uids, valid), None
+            return self.updater.rows_view(raw, valid), raw
+        rows_p = pull_pairs(state, loc.uids, self.param)
+        return torch.where(valid[:, None], rows_p.T, 0.0), None
 
-    def _apply(self, state, pb: PreppedBatch, grads: torch.Tensor):
+    def _apply(self, state, loc: Localized, grads: torch.Tensor, raw,
+               split=None):
         """The in-place table update from planar per-key gradients
         [1+K, U]."""
         if self.pallas:
-            return sweep_apply(state, pb.uids, grads, pb.ucounts, pb.valid,
+            return sweep_apply(state, loc.uids, grads, loc.counts, loc.valid,
                                self.param, block_rows=self.block_rows)
-        return apply_pairs(state, pb.uids,
-                           apply_payload(grads, pb.ucounts, pb.valid),
+        if self.xla:
+            # zero the lanes no slot visits, as the JAX store does before
+            # its update: its masks multiply, and 0 x Inf commits a NaN
+            grads_u = torch.where(loc.valid[:, None], grads.T, 0.0)
+            if split is not None:
+                return self.updater.update_split(
+                    state, *split, grads_u, loc.counts, loc.valid, raw)
+            return self.updater.update(state, loc.uids, grads_u, loc.counts,
+                                       loc.valid, rows=raw)
+        return apply_pairs(state, loc.uids,
+                           apply_payload(grads, loc.counts, loc.valid),
                            self.param)
+
+    def _split(self, pb: PreppedBatch):
+        return (pb.uids_hot, pb.uids_cold) if self.hot_rows else None
 
     def train_step_prepped(self, state, pb: PreppedBatch):
         """pull -> forward -> backward -> per-key sums -> apply. The apply
         updates ``state`` in place (it replaces the TPU step's donated
-        buffers). Returns (state, StepMetrics)."""
+        buffers); on the XLA path one gather serves the pull and the
+        update. Returns (state, StepMetrics)."""
         pb = self._placed(pb, need_slots=self.sorted_grads)
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
-        rows_u = self._pull(state, pb)
+        split = self._split(pb)
+        rows_u, raw = self._pull(state, loc, split)
+        fields = self._fields(pb.fields)
         if self.sorted_grads:
             ss = pb.sorted_slots
             grads, _, metrics = worker_grads_sorted(
                 rows_u, loc, pb.vals, pb.labels, pb.mask,
                 (ss.x_sorted, ss.bidx, ss.inv_sorted),
-                slot_s=ss.slot_sorted, fields=self._fields(pb),
-                **self.loss_kw,
+                slot_s=ss.slot_sorted, fields=fields, **self.loss_kw,
             )
         else:
             grads_u, _, metrics = worker_grads(rows_u, loc, pb.vals,
                                                pb.labels, pb.mask,
-                                               fields=self._fields(pb),
-                                               **self.loss_kw)
+                                               fields=fields, **self.loss_kw)
             grads = grads_u.T
-        return self._apply(state, pb, grads), metrics
+        return self._apply(state, loc, grads, raw, split), metrics
 
     def eval_step_prepped(self, state,
                           pb: PreppedBatch) -> tuple[StepMetrics, torch.Tensor]:
@@ -265,10 +424,64 @@ class LocalStore:
         pb = self._placed(pb, need_slots=False)
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
-        py, metrics = worker_forward(self._pull(state, pb), loc, pb.vals,
-                                     pb.labels, pb.mask,
-                                     fields=self._fields(pb), **self.loss_kw)
+        rows_u, _ = self._pull(state, loc, self._split(pb))
+        py, metrics = worker_forward(rows_u, loc, pb.vals, pb.labels,
+                                     pb.mask, fields=self._fields(pb.fields),
+                                     **self.loss_kw)
         return metrics, py
+
+    # -- device-localized path (host_localize=0): raw ids, localized on the
+    # device (ops/localize.py), the scatter backward (JAX store.py:403-458)
+
+    def _raw(self, ids, vals, labels, mask, fields):
+        if self.kernel == "pairs":
+            raise ValueError("kernel=pairs needs host-prepped batches (the "
+                             "JAX store would train this step on its XLA "
+                             "ops)")
+        if self.hot_rows:
+            raise ValueError(
+                "hot_rows needs host-prepped batches (host_localize=1): "
+                "the hot/cold bucket split and the frequency remap are "
+                "host-side prep work")
+        if self.expects_fields:
+            if fields is None:
+                raise ValueError("num_fields > 0 but this batch carries no "
+                                 "field ids (use data_format=libffm)")
+            if not isinstance(fields, torch.Tensor):
+                validate_fields(np.asarray(fields), self.num_fields)
+            fields = _as_tensor(fields, self.device)
+        else:
+            fields = None
+        ids = _as_tensor(ids, self.device, torch.int32)
+        loc = localize(ids, self.num_rows, self.unique_size)
+        return (loc, _as_tensor(vals, self.device, torch.float32),
+                _as_tensor(labels, self.device, torch.float32),
+                _as_tensor(mask, self.device, torch.float32), fields)
+
+    def train_step(self, state, ids, vals, labels, mask, fields=None):
+        """A train step on a raw batch (``ids`` i32 [B, L], PAD_ID -1),
+        localized on the device into ``unique_size`` lanes; distinct ids
+        past them are dropped and counted in ``dropped_ids``. Host
+        arrays or tensors on any device. Returns (state, StepMetrics)."""
+        loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
+                                                    fields)
+        rows_u, raw = self._pull(state, loc)
+        grads_u, _, metrics = worker_grads(rows_u, loc, vals, labels, mask,
+                                           fields=fields, **self.loss_kw)
+        state = self._apply(state, loc, grads_u.T, raw)
+        return state, metrics._replace(
+            dropped_ids=metrics.dropped_ids + loc.overflow)
+
+    def eval_step(self, state, ids, vals, labels, mask,
+                  fields=None) -> tuple[StepMetrics, torch.Tensor]:
+        """An eval step on a raw batch. Returns (metrics, py [B])."""
+        loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
+                                                    fields)
+        rows_u, _ = self._pull(state, loc)
+        py, metrics = worker_forward(rows_u, loc, vals, labels, mask,
+                                     fields=fields, **self.loss_kw)
+        return metrics._replace(
+            dropped_ids=metrics.dropped_ids + loc.overflow), py
 
     def stats(self, state) -> dict[str, float]:
         return self.updater.stats(state)

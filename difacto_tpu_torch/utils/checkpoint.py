@@ -6,9 +6,11 @@ Port of the single-process half of ``difacto_tpu/utils/checkpoint.py``
 cnt`` plus ``prefix.meta.json`` with ``format_version`` 1, the leaf
 ``shapes`` and the ``epoch``/``step`` cursor for resume. Either package
 loads the other's checkpoints. The table's layout is a property of a run,
-not of a checkpoint: a row-major ``PackedFMState`` is unpacked to the
-planar leaves on save, and a store packs what it loads when its layout is
-packed, so a model trained in one layout loads into the other. The
+not of a checkpoint: every layout is saved as the planar leaves, fetched
+one ``[N]`` plane at a time (a planar copy of a 2^26-row table beside it
+would be another 9.7 GB on the card), and a hot/cold state un-permuted
+into canonical hash rows by the run's remap lut, so a model trained in
+one layout loads into any other, and into the JAX package. The
 per-process sharded layout waits for the sharded store (ROADMAP A9).
 
 :func:`state_from_numpy` and :func:`state_to_numpy` carry a state between
@@ -23,42 +25,87 @@ import os
 import numpy as np
 import torch
 
-from ..updaters.updater import LEAVES, FMState, PackedFMState
+from ..updaters.updater import (LEAVES, FMState, HotColdFMState,
+                                PackedFMState, StackedFMState, leaf_planes)
 
 FORMAT_VERSION = 1
 
 
-def state_from_numpy(arrays, device="cpu", layout: str = "planar"):
+def state_from_numpy(arrays, device="cpu", layout: str = "planar",
+                     remap: tuple | None = None):
     """A state on ``device`` from NumPy arrays, which are copied.
     ``layout="planar"``: the six planar leaves (a dict, or any object
     with the leaf attributes — a JAX FMState after ``jax.device_get``)
     give an FMState. ``layout="packed"``: the row-major table ``tbl
-    [N, 4+2K]`` (a dict, an object with ``tbl`` — a JAX PackedFMState —
-    or the array itself) gives a PackedFMState."""
+    [N, 4+2K]``, ``layout="stacked"``: the stacked table ``tbl
+    [4+2K, N]`` (a dict, an object with ``tbl`` — a JAX PackedFMState or
+    StackedFMState — or the array itself) give a PackedFMState or a
+    StackedFMState. ``remap=(lut, hot_rows)``: the planar leaves, in
+    canonical hash rows, give the HotColdFMState of a run with that remap
+    (data/remap.py): canonical row h goes to remapped row ``lut[h]``."""
     def tensor(a):
         return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
     get = arrays.__getitem__ if isinstance(arrays, dict) else (
         lambda k: getattr(arrays, k))
-    if layout == "packed":
+    if remap is not None:
+        lut, H = remap
+        leaves = {k: np.asarray(get(k), np.float32) for k in LEAVES}
+        tbl = np.concatenate([leaves["w"][None], leaves["z"][None],
+                              leaves["n"][None], leaves["cnt"][None],
+                              leaves["V"], leaves["nV"]])
+        out = np.empty_like(tbl)
+        out[:, lut] = tbl
+        return HotColdFMState(hot=tensor(out[:, :H]), cold=tensor(out[:, H:]))
+    if layout in ("packed", "stacked"):
         tbl = arrays if isinstance(arrays, np.ndarray) else get("tbl")
-        return PackedFMState(tbl=tensor(tbl))
+        cls = PackedFMState if layout == "packed" else StackedFMState
+        return cls(tbl=tensor(tbl))
     if layout != "planar":
-        raise ValueError(f"layout must be planar|packed, got {layout!r}")
+        raise ValueError(f"layout must be planar|packed|stacked, got "
+                         f"{layout!r}")
     return FMState(**{k: tensor(get(k)) for k in LEAVES})
 
 
-def state_to_numpy(state) -> dict[str, np.ndarray]:
-    """The planar leaves of ``state`` (either layout) as contiguous host
-    NumPy arrays: the interchange form."""
-    return {k: np.ascontiguousarray(getattr(state, k).detach().cpu().numpy())
-            for k in LEAVES}
+def state_to_numpy(state, remap_lut: np.ndarray | None = None
+                   ) -> dict[str, np.ndarray]:
+    """The planar leaves of ``state`` (any layout) as contiguous host
+    NumPy arrays: the interchange form. Fetched one ``[N]`` plane at a
+    time; a HotColdFMState is reassembled and un-permuted into canonical
+    hash rows by ``remap_lut`` (the run's data/remap.py lut), without
+    which it raises."""
+    split = isinstance(state, HotColdFMState)
+    if split and remap_lut is None:
+        raise ValueError("saving a hot/cold split state needs the run's "
+                         "remap lut (pass remap_lut=store.hot_lut)")
+    if split:
+        # canonical row h lives at remapped row lut[h]
+        lut = torch.as_tensor(remap_lut, device=state.device).long()
+        parts = (StackedFMState(tbl=state.hot), StackedFMState(tbl=state.cold))
+
+    def plane(name, j):
+        if split:
+            return torch.cat([leaf_planes(getattr(p, name))[j]
+                              for p in parts]).index_select(0, lut)
+        return leaf_planes(getattr(state, name))[j]
+
+    out = {}
+    for name in LEAVES:
+        factors = name in ("V", "nV")
+        arr = np.empty((state.k if factors else 1, state.num_rows),
+                       np.float32)
+        for j in range(arr.shape[0]):
+            arr[j] = plane(name, j).detach().cpu().numpy()
+        out[name] = arr if factors else arr[0]
+    return out
 
 
-def save(path_prefix: str, state, meta: dict | None = None) -> str:
-    """Write ``state`` (either layout) as planar leaves."""
+def save(path_prefix: str, state, meta: dict | None = None,
+         remap_lut: np.ndarray | None = None) -> str:
+    """Write ``state`` (any layout) as planar leaves in canonical hash
+    rows (``remap_lut``: a hot/cold state's lut, which it needs)."""
     os.makedirs(os.path.dirname(path_prefix) or ".", exist_ok=True)
-    host = state_to_numpy(state)
+    host = state_to_numpy(state, remap_lut)
     full_meta = {"format_version": FORMAT_VERSION, **(meta or {})}
     full_meta["shapes"] = {k: list(v.shape) for k, v in host.items()}
     npz = path_prefix + ".npz"
@@ -91,6 +138,7 @@ def load(path_prefix: str) -> tuple[FMState, dict]:
 
 def load_for_store(path_prefix: str, store):
     """Load a checkpoint and place it on ``store``'s device in
-    ``store``'s layout. Returns (state, meta)."""
+    ``store``'s layout (a hot/cold store permutes it by its remap).
+    Returns (state, meta)."""
     host_state, meta = load(path_prefix)
     return store.place_state(host_state), meta

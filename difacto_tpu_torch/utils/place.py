@@ -2,7 +2,10 @@
 
 Port of ``difacto_tpu/utils/place.py``. The learner calls it in a
 prefetch thread, one batch ahead of the step that consumes it, so the
-host-to-device copy of batch t+1 overlaps the kernels of batch t.
+host-to-device copy of batch t+1 overlaps the kernels of batch t. It
+places prepped batches (their sorted slots and, for the hot/cold split,
+both buckets) and, with ``host_localize=0``, raw batches, which the store
+localizes on the device.
 """
 
 from __future__ import annotations

@@ -1243,3 +1243,252 @@ def test_cuda_host_native_engines_build_and_run(card):
     assert np.array_equal(pb.ucounts[:n_real], counts[:n_real])
     ub = pb.uids.shape[0]
     assert np.array_equal(pb.inv, np.where(inv >= n_real, ub - 1, inv))
+
+
+# the XLA table path (kernel=xla: B3 the one kernel), the hot/cold split and
+# device localize (host_localize=0) on the card
+XLA_STEP_PATHS = [
+    (("kernel", "xla"),),
+    (("kernel", "xla"), ("segsum", "scatter")),
+    (("kernel", "xla"), ("layout", "planar")),
+    (("kernel", "xla"), ("layout", "packed"), ("segsum", "scatter")),
+    (("hot_rows", "2048"),),
+    (("hot_rows", "2048"), ("segsum", "scatter")),
+    (("host_localize", "0"),),
+    (("host_localize", "0"), ("kernel", "pallas")),
+    (("host_localize", "0"), ("unique_size", "600")),
+]
+
+
+def xla_stores(card, extra, n_bits=14):
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+
+    cfg = Config.from_kwargs([
+        ("batch_size", "256"), ("num_bits", str(n_bits)),
+        ("max_nnz_per_row", "12"), ("V_dim", "4"), ("lr_eta", "0.1"),
+        ("l1", "0.1"), ("V_lr_eta", "0.05"), ("V_threshold", "1"), *extra])
+    upd = FMUpdater(cfg.model)
+    return (LocalStore(upd, cfg, device=card),
+            LocalStore(upd, cfg, device="cpu"))
+
+
+def zipf_batches(n_bits, count, seed, B=256, L=12):
+    from difacto_tpu_torch.data.batch_iter import Batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        ids = (rng.zipf(1.2, (B, L)) % (1 << n_bits)).astype(np.int32)
+        ids[rng.random((B, L)) < 0.1] = -1
+        vals = np.where(ids < 0, 0, rng.normal(size=(B, L))).astype(
+            np.float32)
+        out.append(Batch(ids, vals, (rng.random(B) > 0.5).astype(np.float32),
+                         np.ones(B, np.float32)))
+    return out
+
+
+def run_steps(store, st, batches, lut=None):
+    """Train steps on ``batches`` (host-prepped, split by ``lut``, or raw
+    when the store localizes on the device); then an eval of the last.
+    Returns (state, summed dropped ids, eval margins)."""
+    from difacto_tpu_torch.data.prep import prep_batch
+
+    n = store.num_rows
+    dropped = 0.0
+
+    def prep(b):
+        return prep_batch(b, n, remap=lut, hot_rows=store.hot_rows)
+
+    for b in batches:
+        if store.cfg.data.host_localize:
+            st, m = store.train_step_prepped(st, prep(b))
+        else:
+            st, m = store.train_step(st, b.ids, b.vals, b.labels, b.mask)
+        dropped += float(m.dropped_ids)
+    if store.cfg.data.host_localize:
+        _, py = store.eval_step_prepped(st, prep(batches[-1]))
+    else:
+        b = batches[-1]
+        _, py = store.eval_step(st, b.ids, b.vals, b.labels, b.mask)
+    return st, dropped, py
+
+
+@pytest.mark.parametrize("extra", XLA_STEP_PATHS)
+def test_cuda_xla_store_steps_match_cpu(card, extra):
+    """Four train steps and an eval on the card against the CPU from one
+    state (canonical rows through the lut for the split): leaves atol
+    2e-5 rtol 1e-5 (sums in another order; the rows where dropped ids
+    alias, finite), margins likewise; B3 launched on every sorted step;
+    the dropped-id counts equal."""
+    from difacto_tpu_torch.data import remap
+    from difacto_tpu_torch.ops.localize import localize
+    from difacto_tpu_torch.utils.checkpoint import (state_from_numpy,
+                                                    state_to_numpy)
+
+    gpu, cpu = xla_stores(card, extra)
+    batches = zipf_batches(14, 4, 40)
+    lut = None
+    if gpu.hot_rows:
+        lut = remap.build_remap(remap.count_sample(iter(batches), 1 << 14,
+                                                   4), gpu.hot_rows)
+        gpu.set_remap(lut)
+        cpu.set_remap(lut)
+    s0 = state_np(4, np.random.default_rng(41), n=1 << 14)
+    sg = gpu.place_state(state_from_numpy(s0))
+    sc = cpu.place_state(state_from_numpy(s0))
+    n0 = cuda.LAUNCHES["segsum_sorted"]
+    sg, dg, pyg = run_steps(gpu, sg, batches, lut)
+    sc, dc, pyc = run_steps(cpu, sc, batches, lut)
+    torch.cuda.synchronize()
+    sorted_steps = gpu.sorted_grads and gpu.cfg.data.host_localize
+    assert cuda.LAUNCHES["segsum_sorted"] - n0 == (4 if sorted_steps else 0)
+    assert dg == dc and (dg > 0) == ("unique_size" in dict(extra))
+    # an overflowing batch's dropped ids alias its last lane, whose row
+    # sums them in the card's atomic order: held finite
+    rest = np.ones(1 << 14, bool)
+    for b in batches if not gpu.cfg.data.host_localize else ():
+        loc = localize(torch.from_numpy(b.ids), 1 << 14, gpu.unique_size)
+        if float(loc.overflow):
+            rest[int(loc.uids[-1])] = False
+    a, b = state_to_numpy(sg, lut), state_to_numpy(sc, lut)
+    for name in LEAVES:
+        assert np.isfinite(a[name]).all(), name
+        np.testing.assert_allclose(a[name][..., rest], b[name][..., rest],
+                                   atol=2e-5, rtol=1e-5, err_msg=name)
+    torch.testing.assert_close(pyg.cpu(), pyc, atol=2e-5, rtol=1e-5)
+
+
+def split_step_bits(stacked, split, lut, host, b) -> None:
+    """One train step of the stacked and the split table from one
+    canonical state, the split fed the stacked step's per-key sums mapped
+    to its lanes (canonical id -> remapped id -> lane): the pulled rows
+    and the updated canonical state hold the same bits (chip_smoke.py
+    keeps its own copy)."""
+    from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.data.remap import invert_remap
+    from difacto_tpu_torch.learners.step import worker_grads_sorted
+    from difacto_tpu_torch.ops.localize import Localized
+    from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+
+    n, H = stacked.num_rows, split.hot_rows
+    sa, sb = stacked.place_state(host), split.place_state(host)
+    pa = stacked._placed(prep_batch(b, n), need_slots=True)
+    pb = split._placed(prep_batch(b, n, remap=lut, hot_rows=H),
+                       need_slots=False)
+    la = Localized(pa.uids, pa.inv, pa.ucounts, pa.valid)
+    lb = Localized(pb.uids, pb.inv, pb.ucounts, pb.valid)
+    halves = (pb.uids_hot, pb.uids_cold)
+    rows_a, raw_a = stacked._pull(sa, la)
+    rows_b, raw_b = split._pull(sb, lb, halves)
+    ss = pa.sorted_slots
+    grads_a, _, _ = worker_grads_sorted(rows_a, la, pa.vals, pa.labels,
+                                        pa.mask, (ss.x_sorted, ss.bidx,
+                                                  ss.inv_sorted))
+    inv_lut = torch.as_tensor(invert_remap(lut), device=pa.uids.device)
+    canon = inv_lut[pb.uids.clamp(max=n - 1).long()]
+    pos = torch.searchsorted(pa.uids, canon).clamp(max=pa.uids.shape[0] - 1)
+    vb = pb.valid
+    assert torch.equal(pa.uids[pos][vb], canon[vb])
+    assert torch.equal(pa.ucounts[pos][vb], pb.ucounts[vb])
+    assert torch.equal(rows_a[pos][vb].view(torch.int32),
+                       rows_b[vb].view(torch.int32))
+    grads_b = torch.where(vb[None, :], grads_a[:, pos], 0.0)
+    sa = stacked._apply(sa, la, grads_a, raw_a)
+    sb = split._apply(sb, lb, grads_b, raw_b, halves)
+    a, c = state_to_numpy(sa), state_to_numpy(sb, lut)
+    for name in LEAVES:
+        assert np.array_equal(a[name].view(np.int32),
+                              c[name].view(np.int32)), name
+
+
+def test_cuda_hotcold_matches_stacked(card):
+    """The split and the stacked table on the card, from one canonical
+    state: one step fed the same per-key sums gives the same bits; four
+    training steps on the sorted backward (B3 repeats its bits) the same
+    canonical state and margins within rtol 1e-4 / atol 1e-5, the JAX
+    package's tolerance for this comparison (tests/test_hotcold.py:
+    149-153: B3 sums a key's slots over other tile edges when the lanes
+    are renumbered)."""
+    from difacto_tpu_torch.data import remap
+    from difacto_tpu_torch.utils.checkpoint import (state_from_numpy,
+                                                    state_to_numpy)
+
+    hot, _ = xla_stores(card, (("hot_rows", "2048"),))
+    flat, _ = xla_stores(card, (("kernel", "xla"),))
+    batches = zipf_batches(14, 4, 42)
+    lut = remap.build_remap(remap.count_sample(iter(batches), 1 << 14, 4),
+                            2048)
+    hot.set_remap(lut)
+    s0 = state_np(4, np.random.default_rng(43), n=1 << 14)
+    split_step_bits(flat, hot, lut, state_from_numpy(s0), batches[0])
+    sh, _, pyh = run_steps(hot, hot.place_state(state_from_numpy(s0)),
+                           batches, lut)
+    sf, _, pyf = run_steps(flat, flat.place_state(state_from_numpy(s0)),
+                           batches)
+    a, b = state_to_numpy(sh, lut), state_to_numpy(sf)
+    for name in LEAVES:
+        np.testing.assert_allclose(a[name], b[name], atol=1e-5, rtol=1e-4,
+                                   err_msg=name)
+    torch.testing.assert_close(pyh, pyf, atol=1e-5, rtol=1e-4)
+
+
+def test_cuda_localize_matches_host_prep(card):
+    """Device localize on the card: the CPU's five arrays exactly, and
+    host prep's uids, counts and inverse."""
+    from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.ops.localize import localize
+
+    for b, U in ((zipf_batches(14, 1, 44)[0], 256 * 12),
+                 (zipf_batches(14, 1, 45)[0], 700)):
+        ids = torch.from_numpy(b.ids)
+        got, ref = localize(ids.to(card), 1 << 14, U), localize(ids,
+                                                                 1 << 14, U)
+        for x, y in zip(got, ref):
+            assert torch.equal(x.cpu(), y)
+    b = zipf_batches(14, 1, 44)[0]
+    pb = prep_batch(b, 1 << 14)
+    loc = localize(torch.from_numpy(b.ids).to(card), 1 << 14, b.ids.size)
+    n = int(loc.valid.sum())
+    assert n == int(pb.valid.sum())
+    assert np.array_equal(loc.uids.cpu().numpy()[:n], pb.uids[:n])
+    assert np.array_equal(loc.counts.cpu().numpy()[:n], pb.ucounts[:n])
+    real = b.ids.reshape(-1) >= 0
+    assert np.array_equal(loc.inv.cpu().numpy()[real], pb.inv[real])
+
+
+@pytest.mark.parametrize("layout", ["stacked", "planar", "packed"])
+def test_cuda_pad_lanes_meet_inf_and_leave_the_table(card, layout):
+    """B3's sums on the lanes no id fills, poisoned to Inf on the card,
+    reach the XLA update: no NaN anywhere, and the rows the pad lanes
+    clamp to (0, N-1), holding -0.0, keep their bits."""
+    from difacto_tpu_torch.data.prep import prep_batch
+    from difacto_tpu_torch.learners.step import worker_grads_sorted
+    from difacto_tpu_torch.ops.localize import Localized
+    from difacto_tpu_torch.utils.checkpoint import (state_from_numpy,
+                                                    state_to_numpy)
+
+    store, _ = xla_stores(card, (("kernel", "xla"), ("layout", layout)))
+    n = store.num_rows
+    s0 = state_np(4, np.random.default_rng(46), n=n)
+    for name in ("w", "z", "V", "nV"):
+        s0[name][..., [0, n - 1]] = -0.0
+    st = store.place_state(state_from_numpy(s0))
+    b = zipf_batches(14, 1, 47)[0]
+    b.ids[(b.ids == 0) | (b.ids == n - 1)] = 5
+    pb = store._placed(prep_batch(b, n), need_slots=True)
+    loc = Localized(pb.uids, pb.inv, pb.ucounts, pb.valid)
+    rows_u, raw = store._pull(st, loc)
+    ss = pb.sorted_slots
+    grads, _, _ = worker_grads_sorted(rows_u, loc, pb.vals, pb.labels,
+                                      pb.mask, (ss.x_sorted, ss.bidx,
+                                                ss.inv_sorted))
+    grads = torch.where(pb.valid[None, :], grads, float("inf"))
+    st = store._apply(st, loc, grads, raw)
+    got = state_to_numpy(st)
+    for name in LEAVES:
+        assert np.isfinite(got[name]).all(), name
+        for row in (0, n - 1):
+            assert np.array_equal(got[name][..., row].view(np.int32),
+                                  s0[name][..., row].view(np.int32)), name

@@ -244,13 +244,19 @@ _PALLAS_PACKED = [("num_bits", "12"), ("kernel", "pallas"),
 
 @pytest.mark.parametrize("layout", ["packed", "stacked"])
 def test_stacked_raises_and_the_jax_store_refuses_packed_with_sweeps(layout):
-    """What still raises with the sweep kernels: ``stacked``, which is
-    outside the port whatever the kernel, and ``packed`` in the JAX store
-    (XLA's lane padding on the TPU). The port's store takes ``packed``:
-    the next test."""
+    """What raises with the sweep kernels: ``stacked`` in both packages'
+    stores (the XLA path's table; the JAX store's ValueError), and
+    ``packed`` in the JAX store (XLA's lane padding on the TPU). The
+    port's store takes ``packed``: the next test."""
     if layout == "stacked":
-        with pytest.raises(NotImplementedError, match="A14"):
-            Config.from_kwargs([("kernel", "pallas"), ("layout", layout)])
+        kw = _PALLAS_PACKED[:2] + [("layout", layout)]
+        cfg, jcfg = Config.from_kwargs(kw), JConfig.from_kwargs(kw)
+        with pytest.raises(ValueError, match="incompatible with kernel="
+                           "'pallas'"):
+            make_store(FMUpdater(cfg.model), cfg, device="cpu")
+        with pytest.raises(ValueError, match="incompatible with kernel="
+                           "'pallas'"):
+            JLocalStore(JFMUpdater(jcfg.model), jcfg, interpret=True)
         return
     jcfg = JConfig.from_kwargs(_PALLAS_PACKED)
     with pytest.raises(ValueError, match="incompatible with kernel='pallas'"):
@@ -430,11 +436,31 @@ _OUT_OF_SLICE = [
 ]
 
 
+# the cases of ROADMAP items the port has brought since: (kernel, layout)
+# each resolves to, as the JAX store resolves it
+_PORTED = {"A13": ("xla", "stacked"), "A14": ("xla", "stacked"),
+           "A16": ("xla", "stacked")}
+
+
 @pytest.mark.parametrize("key,val,item,extra", _OUT_OF_SLICE,
                          ids=[f"{k}-{v}-{i}" for k, v, i, _ in _OUT_OF_SLICE])
 def test_out_of_slice_setting_raises(key, val, item, extra):
-    with pytest.raises(NotImplementedError, match=item):
-        Config.from_kwargs([(key, val), *extra])
+    """A setting outside the port raises, naming its ROADMAP item; one of
+    an item ported since (A13 hot/cold, A14 the XLA path, A16 device
+    localize) is accepted and resolves as the JAX store resolves it."""
+    kw = [("num_bits", "12"), (key, val), *extra]
+    if item not in _PORTED:
+        with pytest.raises(NotImplementedError, match=item):
+            Config.from_kwargs(kw)
+        return
+    cfg, jcfg = Config.from_kwargs(kw), JConfig.from_kwargs(kw)
+    store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+    jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg)
+    assert (store.kernel, store.layout) == _PORTED[item]
+    assert not (jstore.pairs or jstore.pallas)  # the JAX store's xla
+    assert jstore.layout == store.layout
+    assert store.hot_rows == jstore.hot_rows
+    assert store.sorted_grads
 
 
 @pytest.mark.parametrize(
@@ -507,6 +533,19 @@ b = Batch(rng.integers(0, 1024, (8, 4)).astype(np.int32),
           np.ones(8, np.float32))
 st, m = store.train_step_prepped(store.init_state(0), prep_batch(b, 1024))
 assert float(m.examples) == 8.0
+from difacto_tpu_torch.data import remap
+kw = [("batch_size", "8"), ("num_bits", "10"), ("max_nnz_per_row", "4"),
+      ("V_dim", "2")]
+cfg = Config.from_kwargs(kw + [("hot_rows", "64")])
+hot = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+lut = remap.build_remap(remap.count_sample(iter([b]), 1024, 1), 64)
+hot.set_remap(lut)
+st, m = hot.train_step_prepped(hot.init_state(0), prep_batch(
+    b, 1024, remap=lut, hot_rows=64))
+cfg = Config.from_kwargs(kw + [("host_localize", "0")])
+dev = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+st, m = dev.train_step(dev.init_state(0), b.ids, b.vals, b.labels, b.mask)
+assert float(m.examples) == 8.0 and float(m.dropped_ids) == 0.0
 blk = libsvm.parse_libsvm(b"1 3:1 5:2\\n0 4:1\\n")
 assert blk.num_rows == 2 and sum(_native.RUNS.values()) == 1
 assert libsvm.parse_libffm(b"1 0:3:1\\n").fields.tolist() == [0]
