@@ -82,6 +82,25 @@ k = 16, 2^16 rows: the row-major kernels past one shared-memory tile),
 with the train and eval steps at K = 640 against the CPU. The native
 host engines must build (g++).
 
+Three phases drive the rest of the JAX package's one-card surface. P5
+``examples/bcd_linear.conf`` as written (the BCD learner: num_bits=22,
+batch 8192, V_dim=0, l1=1, l2=0.1, 5 epochs, 256 blocks) on 2^20
+northstar-shaped rows in csr parts (``data_format=csr``, the data paths,
+``model_out`` and ``bcd_tile_dir`` set): the disk tile store must hold
+every triplet, the block step on the card match the CPU's on three blocks
+from one state, the run learn (train logloss falls, validation AUC above
+0.6, nonzero w), a 2^14-row run match the CPU's w, and CLI train plus
+``task=predict`` on its checkpoint launch B1 at K = 0 and nothing else,
+with the CPU's scores; a sweep of the blocks timed and traced. P6 the
+flagship's CLI train and ``task=predict`` on ``kernel=auto`` with every
+URI on ``memory://`` (libsvm text in two byte-range parts, gzip
+validation text, the checkpoint, the scores), equal bit for bit to the
+same run on local files, and a BCD tile build from ``memory://`` csr parts
+equal byte for byte to the local one. P7 ``DIFACTO_PROFILE``: the
+flagship's first train epoch through ``SGDLearner`` writes one
+``torch.profiler`` trace naming the kernels it launched, the second none;
+then ``dump_model`` and ``table_stats`` on P5's and P1's checkpoints.
+
 It prints the card's name and power limit, one JSON line listing the
 kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
 needs a card: without one (or without the rest of the repository) it
@@ -119,11 +138,11 @@ SWEEP_ROWMAJOR_SORTED_KERNELS = ("sweep_pull_rowmajor", "segsum_sorted",
 XLA_KERNELS = ("segsum_sorted",)
 PULL_KERNELS = ("pull_pairs", "pull_rowmajor", "sweep_pull",
                 "sweep_pull_rowmajor")
-# the kernels whose launches on the paths of the XLA table, device localize
-# and P4 the kernels line also gives
-NEW_PATH_KERNELS = ("segsum_sorted", "sweep_pull", "sweep_apply",
-                    "sweep_pull_rowmajor", "sweep_apply_rowmajor",
-                    "pull_rowmajor", "apply_rowmajor")
+# the kernels whose launches on the paths of the XLA table, device
+# localize, P4, P5's predict, P6 and P7 the kernels line also gives
+NEW_PATH_KERNELS = ("pull_pairs", "segsum_sorted", "sweep_pull",
+                    "sweep_apply", "sweep_pull_rowmajor",
+                    "sweep_apply_rowmajor", "pull_rowmajor", "apply_rowmajor")
 UPDATER_CASES = ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
                  (K, "sgd", "adagrad"), (0, "ftrl", "adagrad"))
 # BASELINE config 5 (examples/ffm.conf, scripts/hw_ffm_sorted.py:37-49):
@@ -2258,6 +2277,403 @@ def drive_config4(dev, tmp: str) -> dict:
     return out
 
 
+BCD_CONF = "examples/bcd_linear.conf"  # the BCD learner's example config
+# P5's depth: 2^20 training rows in four csr parts of 2^18 (the converter's
+# default part), 2^16 validation rows; the card-against-CPU run on 2^14
+BCD_PARTS, BCD_PART_ROWS = 4, 1 << 18
+BCD_VAL_ROWS, BCD_SMALL_ROWS = 1 << 16, 1 << 14
+# the CUDA function names of ROWMAJOR_KERNELS in a torch.profiler trace
+TRACE_NAMES = {"pull_rowmajor": "rowmajor_pull_kernel",
+               "segsum_sorted": "segsum_tiles_kernel",
+               "apply_rowmajor": "rowmajor_apply_kernel"}
+
+
+def write_bcd_parts(tmp: str) -> tuple[dict, int]:
+    """P5's data by the port's make_ctr_data in the northstar generator's
+    shape (39 fields of 60,000 values, FM-truth labels; a seed a part, as
+    examples/northstar_data.py writes them) as csr parts: {name: glob}
+    and the training parts' triplet count."""
+    from difacto_tpu_torch.data.synthetic import make_ctr_data
+
+    t0 = time.perf_counter()
+    out, nnz = {}, 0
+    for name, parts, rows, seed in (
+            ("train", BCD_PARTS, BCD_PART_ROWS, 2000),
+            ("val", 1, BCD_VAL_ROWS, 9100),
+            ("small", 1, BCD_SMALL_ROWS, 2999)):
+        for p in range(parts):
+            blk = make_ctr_data(rows, num_fields=NORTHSTAR_FIELDS,
+                                vocab_per_field=NORTHSTAR_VOCAB, seed=seed + p)
+            np.savez(os.path.join(tmp, f"bcd_{name}.part{p:05d}.npz"),
+                     labels=blk.labels, indptr=blk.indptr,
+                     indices=blk.indices, values=blk.values)
+            nnz += len(blk.indices) if name == "train" else 0
+        out[name] = os.path.join(tmp, f"bcd_{name}.part*.npz")
+    log(f"P5 csr parts written in {time.perf_counter() - t0:.1f} s "
+        f"({BCD_PARTS * BCD_PART_ROWS} train rows, {nnz} triplets)")
+    return out, nnz
+
+
+def bcd_argv(data_in: str) -> list[str]:
+    """examples/bcd_linear.conf as written, its data path replaced by csr
+    parts (``data_format=csr``) and no ``model_out`` (each run sets it)."""
+    from difacto_tpu_torch.utils import arg_parser
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BCD_CONF)
+    return [f"{k}={v}" for k, v in arg_parser.read_file(path)
+            if k not in ("data_in", "model_out")] + [
+        f"data_in={data_in}", "data_format=csr"]
+
+
+def check_bcd_step(learner) -> dict:
+    """The block step on the card against the CPU's on three blocks from
+    one random (py, w): within rtol 1e-4 / atol 1e-5 (index_add_ adds
+    atomically on the card; the CPU's float32 step stands within 0.19 of
+    that bound of a float64 one at this size). Returns the largest
+    differences."""
+    import torch
+
+    from difacto_tpu_torch.learners.bcd import block_step
+
+    rng = np.random.default_rng(31)
+    py0 = rng.normal(size=learner.py.shape[0]).astype(np.float32)
+    w0 = (rng.normal(size=learner.num_rows) * 0.1).astype(np.float32)
+    R, p = learner.rows_per_block, learner.cfg.model
+    yy, mr = learner.yy.cpu(), learner.mr.cpu()
+    worst = {"py": 0.0, "w": 0.0}
+    for blk in (0, learner.num_blocks // 2, learner.num_blocks - 1):
+        learner.py.copy_(torch.from_numpy(py0))
+        learner.w.copy_(torch.from_numpy(w0))
+        rows, cols, vals = learner.block_tensors(blk)
+        learner.step(blk, rows, cols, vals)
+        py, w = torch.from_numpy(py0.copy()), torch.from_numpy(
+            w0[blk * R:(blk + 1) * R].copy())
+        block_step(py, yy, mr, w, rows.cpu(), cols.cpu(), vals.cpu(), p.l1,
+                   p.l2)
+        for name, got, ref in (("py", learner.py, py),
+                               ("w", learner.w[blk * R:(blk + 1) * R], w)):
+            torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-5,
+                                       msg=f"BCD block {blk}: {name}")
+            worst[name] = max(worst[name],
+                              float((got.cpu() - ref).abs().max()))
+    return worst
+
+
+def drive_bcd(tmp: str) -> dict:
+    """P5: examples/bcd_linear.conf (num_bits=22, batch 8192, 40 slots,
+    V_dim=0, l1=1, l2=0.1, 5 epochs, 256 blocks) on 2^20 northstar-shaped
+    rows, only ``data_in`` (csr parts), ``data_val``, ``model_out`` and
+    ``bcd_tile_dir`` set: the tile store must hold every triplet, the block
+    step match the CPU's, the run learn (train logloss falls, validation
+    AUC above 0.6, nonzero w), a 2^14-row run match the CPU's w, and the
+    CLI's train and task=predict (B1 at K = 0, nothing else; the CPU's
+    scores). Returns {"launches": predict's, "model", "val"}."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.learners.bcd import BCDLearner
+    from difacto_tpu_torch.models.losses import stable_logloss
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.utils import arg_parser
+
+    t0 = time.perf_counter()
+    files, nnz = write_bcd_parts(tmp)
+    data_s = time.perf_counter() - t0
+    tiles = os.path.join(tmp, "bcd_tiles")
+    model = os.path.join(tmp, "model_bcd")
+
+    def config(*extra):
+        return Config.from_kwargs(arg_parser.parse(
+            bcd_argv(files["train"]) + list(extra)))
+
+    cfg = config(f"data_val={files['val']}", f"model_out={model}",
+                 f"bcd_tile_dir={tiles}")
+    t0 = time.perf_counter()
+    learner = BCDLearner(cfg)  # the card; the tile build
+    tile_s = time.perf_counter() - t0
+    held = int(np.load(os.path.join(tiles, "extents.npy")).sum())
+    if held != nnz or learner.n != BCD_PARTS * BCD_PART_ROWS:
+        raise AssertionError(f"the tile store holds {held} triplets of "
+                             f"{learner.n} rows; the parts hold {nnz}")
+    learner.reset()
+    step_err = check_bcd_step(learner)
+    epochs, clock = [], [0.0]
+
+    def record(epoch, va):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        loss = stable_logloss(-learner.yy * learner.py) * learner.mr
+        epochs.append({"epoch": epoch, "s": now - clock[0],
+                       "train_logloss": float(loss.sum()) / learner.n,
+                       "val_logloss": va.logloss,
+                       "val_exact_auc": va.exact_auc, "nnz_w": va.nnz_w})
+        clock[0] = now
+
+    learner.epoch_callbacks.append(record)
+    cuda.reset_launches()
+    clock[0] = time.perf_counter()
+    learner.run()
+    if any(cuda.LAUNCHES.values()):
+        raise AssertionError(f"the BCD step launched a table kernel: "
+                             f"{cuda.LAUNCHES}")
+    # one sweep timed, one traced (the epoch's block steps, no metrics)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner.sweep()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner.sweep()
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    blocks = learner.num_blocks
+    rec = {"rows": learner.n, "triplets": nnz, "blocks": blocks,
+           "tile_nnz": learner.tiles.tile_nnz,
+           "data_write_s": data_s, "tile_build_s": tile_s,
+           "block_step_vs_cpu_max_abs": step_err, "epochs": epochs,
+           "sweep_s": sweep_s, "block_step_ms": sweep_s / blocks * 1e3,
+           "profile": device_profile(prof, t_prof, blocks)}
+    del learner
+    shutil.rmtree(tiles)
+    first, last = epochs[0], epochs[-1]
+    if not (len(epochs) == 5 and last["train_logloss"] < first["train_logloss"]
+            and last["val_exact_auc"] > 0.6 and last["nnz_w"] > 0):
+        raise AssertionError(f"P5 did not learn: {json.dumps(rec)}")
+    # a 2^14-row run, one epoch, on the card and on the CPU
+    small = {}
+    for where in (None, "cpu"):
+        lrn = BCDLearner(config(f"data_in={files['small']}",
+                                "max_num_epochs=1"), device=where)
+        lrn.run()
+        small[where] = lrn.w.cpu()
+        del lrn
+    torch.testing.assert_close(small[None], small["cpu"], rtol=2e-4,
+                               atol=2e-5, msg="P5 2^14 rows: w after one "
+                               "epoch, card against CPU")
+    rec["small_w_max_abs_vs_cpu"] = float((small[None] - small["cpu"]).abs()
+                                          .max())
+    # the CLI: train as the config is written, then task=predict on its
+    # checkpoint (the SGD eval path: pairs over planar leaves at K = 0)
+    cli_model = os.path.join(tmp, "model_bcd_cli")
+    t0 = time.perf_counter()
+    if cli.main(bcd_argv(files["train"]) + [f"model_out={cli_model}",
+                                            f"bcd_tile_dir={tiles}"]) != 0:
+        raise AssertionError("CLI learner=bcd train failed")
+    rec["cli_train_s"] = time.perf_counter() - t0
+    shutil.rmtree(tiles)
+    preds = {}
+    for where in (None, "cpu"):
+        out = os.path.join(tmp, f"pred_bcd_{where}.txt")
+        cuda.reset_launches()
+        if cli.main(bcd_argv(files["val"]) + [
+                "task=predict", f"model_in={cli_model}",
+                f"pred_out={out}"], device=where) != 0:
+            raise AssertionError("CLI task=predict on the BCD model failed")
+        if where is None:
+            launches = dict(cuda.LAUNCHES)
+        preds[where] = np.loadtxt(out)
+    batches = BCD_VAL_ROWS // 8192
+    if launches["pull_pairs"] != batches or sum(launches.values()) != batches:
+        raise AssertionError(f"predict on the BCD model launched {launches}, "
+                             f"expected pull_pairs {batches} times alone")
+    if not (preds[None].shape == (BCD_VAL_ROWS,)
+            and np.isfinite(preds[None]).all()):
+        raise AssertionError("CLI predict on the BCD model: wrong scores")
+    np.testing.assert_allclose(preds[None], preds["cpu"], rtol=2e-5,
+                               atol=1e-5)
+    rec["predict_launches"] = launches
+    log("P5 BCD (examples/bcd_linear.conf): " + json.dumps(rec))
+    return {"launches": launches, "model": model, "val": files["val"]}
+
+
+def drive_remote(tmp: str, flagship_files: tuple, bcd_val: str) -> dict:
+    """P6: the flagship's CLI train (2 epochs) and task=predict on
+    kernel=auto (row-major pairs, B3) with every URI on memory://: data_in
+    libsvm text read in two byte-range parts, data_val gzip text,
+    model_out, model_in and pred_out; the same run on local files must
+    give the same checkpoint and scores bit for bit. And a BCD tile build
+    from memory:// csr parts equal to the local build, byte for byte.
+    Returns the remote run's launch counts."""
+    import filecmp
+    import gzip
+
+    import fsspec
+    import torch
+
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data.batch_iter import BatchIter
+    from difacto_tpu_torch.data.io import expand_uri, open_uri
+    from difacto_tpu_torch.data.tile_store import build_tiles
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.utils import arg_parser, checkpoint
+
+    mem = fsspec.filesystem("memory")
+    train, val = flagship_files
+    val_gz = val + ".gz"
+    with open(val, "rb") as f, open(val_gz, "wb") as g:
+        g.write(gzip.compress(f.read()))
+    for src, dst in ((train, "/p6/flagship.svm"),
+                     (val_gz, "/p6/flagship_val.svm.gz")):
+        with open(src, "rb") as f, mem.open(dst, "wb") as g:
+            g.write(f.read())
+    shape = [f"{k}={v}" for k, v in FLAGSHIP["kw"]] + [
+        f"num_bits={NUM_BITS}", "num_parts_per_file=2", "report_interval=0"]
+    roots = {"local": (train, val_gz, os.path.join(tmp, "model_p6"),
+                       os.path.join(tmp, "pred_p6.txt")),
+             "remote": ("memory://p6/flagship.svm",
+                        "memory://p6/flagship_val.svm.gz",
+                        "memory://p6/model", "memory://p6/pred.txt")}
+    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
+                        + SWEEP_ROWMAJOR_KERNELS)
+    rec, got = {}, {}
+    for where, (tr, va, model, pred) in roots.items():
+        lrn = SGDLearner(Config.from_kwargs(arg_parser.parse(
+            [f"data_in={tr}", *shape])))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lrn.train_epoch(0)
+        torch.cuda.synchronize()
+        rec[f"{where}_epoch0_stream_s"] = time.perf_counter() - t0
+        del lrn
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main([f"data_in={tr}", f"data_val={va}", *shape,
+                     "max_num_epochs=2", f"model_out={model}"]) != 0:
+            raise AssertionError(f"P6 CLI train ({where}) failed")
+        rec[f"{where}_cli_train_s"] = time.perf_counter() - t0
+        if cli.main([f"data_in={va}", *shape, "task=predict",
+                     f"model_in={model}", f"pred_out={pred}"]) != 0:
+            raise AssertionError(f"P6 CLI predict ({where}) failed")
+        launches = dict(cuda.LAUNCHES)
+        if (min(launches[k] for k in ROWMAJOR_KERNELS) == 0
+                or any(launches[k] for k in table_kernels
+                       - set(ROWMAJOR_KERNELS))):
+            raise AssertionError(f"P6 ({where}) went through the wrong "
+                                 f"kernels: {launches}")
+        with open_uri(pred) as f:
+            got[where] = (f.read(), checkpoint.load(model)[0])
+        rec[f"{where}_launches"] = launches
+    if got["local"][0] != got["remote"][0] or not got["local"][0]:
+        raise AssertionError("P6: the remote run's scores differ from the "
+                             "local run's")
+    for name in LEAVES:
+        if not torch.equal(getattr(got["local"][1], name),
+                           getattr(got["remote"][1], name)):
+            raise AssertionError(f"P6: the remote checkpoint's {name} "
+                                 "differs from the local one's")
+    # BCD's tile build from csr parts on memory://
+    for path in expand_uri(bcd_val):
+        with open(path, "rb") as f, mem.open(
+                "/p6/bcd/" + os.path.basename(path), "wb") as g:
+            g.write(f.read())
+    names = ("row.i32", "col.i32", "val.f32", "offsets.npy", "extents.npy",
+             "labels.npy", "tiles.json")
+    t_build = {}
+    for where, uri in (("local", bcd_val),
+                       ("remote", "memory://p6/bcd/bcd_val.part*.npz")):
+        t0 = time.perf_counter()
+        build_tiles(lambda uri=uri: BatchIter(uri, 8192, 40, 22,
+                                              data_format="csr"),
+                    os.path.join(tmp, f"p6_tiles_{where}"), 1 << 22,
+                    num_blocks=256, num_shards=1)
+        t_build[where] = time.perf_counter() - t0
+    _, bad, err = filecmp.cmpfiles(os.path.join(tmp, "p6_tiles_local"),
+                                   os.path.join(tmp, "p6_tiles_remote"),
+                                   names, shallow=False)
+    if bad or err:
+        raise AssertionError(f"P6: tiles from memory:// differ: {bad} {err}")
+    rec["bcd_tile_build_s"] = t_build
+    mem.rm("/p6", recursive=True)
+    log("P6 remote IO (memory://, flagship CLI on kernel=auto): "
+        + json.dumps(rec))
+    return rec["remote_launches"]
+
+
+def drive_trace_and_tools(tmp: str, flagship_files: tuple,
+                          bcd_model: str) -> dict:
+    """P7: the flagship through SGDLearner on kernel=auto with
+    DIFACTO_PROFILE set: the first train epoch writes one torch.profiler
+    trace that parses and names the kernels it launched, the second
+    writes none; then dump_model and table_stats on P5's checkpoint and
+    on P1's flagship checkpoint (the dump's rows are those with nonzero w
+    or an active factor, occupancy the share of cnt > 0). Returns the
+    traced run's launch counts."""
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.tools import dump_model, table_stats
+    from difacto_tpu_torch.utils import checkpoint, tracing
+
+    prof_dir = os.path.join(tmp, "trace")
+    tracing.reset()
+    os.environ["DIFACTO_PROFILE"] = prof_dir
+    try:
+        learner = SGDLearner(Config.from_kwargs([
+            ("data_in", flagship_files[0]), ("num_bits", str(NUM_BITS)),
+            *FLAGSHIP["kw"], ("report_interval", "0")]))
+        cuda.reset_launches()
+        timer = tracing.StepTimer()  # waits for the card at each read
+        for epoch in range(2):  # the first region traced, the second not
+            timer.start()
+            learner.train_epoch(epoch)
+            timer.stop()
+        wall = timer.times
+        launches = dict(cuda.LAUNCHES)
+    finally:
+        del os.environ["DIFACTO_PROFILE"]
+    traces = os.listdir(prof_dir)
+    if traces != ["train_epoch_0.pt.trace.json"]:
+        raise AssertionError(f"DIFACTO_PROFILE wrote {traces}, expected one "
+                             "trace of the first region")
+    path = os.path.join(prof_dir, traces[0])
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    missing = [k for k, n in TRACE_NAMES.items()
+               if not any(n in x for x in names)]
+    if missing or any(launches[k] != 2 * MAIN_BATCHES
+                      for k in ROWMAJOR_KERNELS):
+        raise AssertionError(f"the trace lacks {missing}; launches "
+                             f"{launches}")
+    rec = {"traced_epoch_s": wall[0], "untraced_epoch_s": wall[1],
+           "trace_mb": os.path.getsize(path) / 2**20, "launches": launches}
+    for name, prefix in (("p5_bcd", bcd_model),
+                         ("p1_flagship", os.path.join(tmp,
+                                                      "model_criteo_csr"))):
+        out = os.path.join(tmp, f"dump_{name}.txt")
+        t0 = time.perf_counter()
+        with open(out, "w") as f:
+            n = dump_model.dump(prefix, f)
+        t1 = time.perf_counter()
+        stats = table_stats.stats(prefix, shards=8)
+        t2 = time.perf_counter()
+        state, _ = checkpoint.load(prefix)
+        w, V, cnt = (getattr(state, k).numpy() for k in ("w", "V", "cnt"))
+        keep = w != 0
+        if V.shape[0]:
+            keep |= (V != 0).any(axis=0) & (cnt > 0)
+        with open(out) as f:
+            lines = sum(1 for _ in f)
+        if not (n == lines == int(keep.sum()) > 0
+                and stats["occupancy"] == float((cnt > 0).mean())):
+            raise AssertionError(f"tools on {name}: dumped {n} rows ({lines} "
+                                 f"lines) of {int(keep.sum())}; occupancy "
+                                 f"{stats['occupancy']}")
+        rec[name] = {"dump_rows": n, "dump_s": t1 - t0,
+                     "table_stats_s": t2 - t1,
+                     "occupancy": stats["occupancy"]}
+        os.remove(out)
+    log("P7 tracing and tools: " + json.dumps(rec))
+    return launches
+
+
 def drive_cli(tmp: str) -> None:
     """Phase 5: on each table path, CLI train with validation and
     model_out, then task=predict on the checkpoint; the scores must match
@@ -2415,6 +2831,14 @@ def main() -> int:
         new_paths = {"xla": by_path[MAIN_PATHS[-2][0]],
                      "device_localize": by_path[MAIN_PATHS[-1][0]],
                      **drive_config4(dev, tmp)}
+        # P5 BCD (its predict launches B1), P6 remote IO, P7 tracing and
+        # the tools (row-major pairs and B3)
+        bcd = drive_bcd(tmp)
+        new_paths["p5_bcd_predict"] = bcd["launches"]
+        new_paths["p6_remote"] = drive_remote(tmp, flagship_files,
+                                              bcd["val"])
+        new_paths["p7_traced"] = drive_trace_and_tools(tmp, flagship_files,
+                                                       bcd["model"])
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -2432,8 +2856,9 @@ def main() -> int:
         **{k: v for width in (k96, k156, k640)
            for k, v in width.get(name, {}).items()
            if k in K96_KEYS + K156_KEYS + K640_KEYS},
-        # B3, the sweeps (B4, B5) and the row-major kernels: their launches
-        # on the paths of the XLA table, device localize and P4
+        # B1, B3, the sweeps (B4, B5) and the row-major kernels: their
+        # launches on the paths of the XLA table, device localize, P4,
+        # P5's predict, P6 and P7
         **({"new_path_launches": {run: got[name]
                                   for run, got in new_paths.items()}}
            if name in NEW_PATH_KERNELS else {})}

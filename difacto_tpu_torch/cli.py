@@ -2,14 +2,16 @@
 
 Port of ``difacto_tpu/cli.py`` (reference: ``src/difacto.cc`` :: main) —
 a config file of ``key = val`` lines plus CLI ``key=val`` overrides,
-dispatched to the SGD learner, on the card:
+dispatched to a learner (``learner=sgd|bcd``), on the card:
 
     python -m difacto_tpu_torch [config.conf] [key=val ...]
 
-``task=predict`` scores ``data_in`` with the checkpoint ``model_in``, on
-any table path: with ``hot_rows`` the learner builds its remap from
-``data_in`` and places the canonical checkpoint through it; with
-``host_localize=0`` the batches are localized on the device.
+``task=predict`` scores ``data_in`` with the checkpoint ``model_in``
+through the SGD eval path, whatever learner trained it, on any table
+path: with ``hot_rows`` the learner builds its remap from ``data_in`` and
+places the canonical checkpoint through it; with ``host_localize=0`` the
+batches are localized on the device. ``pred_out`` may be a remote URI
+(data/io.py). One process: multi-process prediction waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -43,12 +45,23 @@ def main(argv: list[str] | None = None, device=None) -> int:
     cfg = Config.from_kwargs(arg_parser.parse(argv))
     if not cfg.data.data_in:
         raise SystemExit("data_in is required")
-    from .learners.sgd import SGDLearner
-
     if cfg.learner.task == "predict":
         return run_predict(cfg, device)
-    SGDLearner(cfg, device=device).run()
+    create_learner(cfg, device).run()
     return 0
+
+
+def create_learner(cfg: Config, device=None):
+    """Learner::Create (reference: src/learner.cc factory)."""
+    if cfg.learner.learner == "sgd":
+        from .learners.sgd import SGDLearner
+
+        return SGDLearner(cfg, device=device)
+    if cfg.learner.learner == "bcd":
+        from .learners.bcd import BCDLearner
+
+        return BCDLearner(cfg, device=device)
+    raise ValueError(f"unknown learner {cfg.learner.learner!r}")
 
 
 def run_predict(cfg: Config, device=None) -> int:
@@ -57,17 +70,23 @@ def run_predict(cfg: Config, device=None) -> int:
     for probabilities."""
     import numpy as np
 
+    from .data.io import open_uri
     from .learners.sgd import SGDLearner
     from .ops.metrics import exact_auc, logloss
 
     if not cfg.learner.model_in:
         raise SystemExit("task=predict requires model_in")
+    # scoring always uses the SGD eval path: checkpoints are a shared
+    # format, so BCD-trained linear models score through it too
     cfg.learner.max_num_epochs = 0
+    cfg.learner.learner = "sgd"
     learner = SGDLearner(cfg, device=device)
     py, labels = learner.predict(cfg.data.data_in)
-    if cfg.learner.pred_out:
-        np.savetxt(cfg.learner.pred_out, py, fmt="%.6g")
-        log.info("wrote %d scores to %s", len(py), cfg.learner.pred_out)
+    out = cfg.learner.pred_out
+    if out:
+        with open_uri(out, "wb") as f:
+            np.savetxt(f, py, fmt="%.6g")
+        log.info("wrote %d scores to %s", len(py), out)
     if len(set(np.asarray(labels) > 0)) > 1:
         log.info(
             "predict: #ex %d  logloss %.6f  auc %.6f",

@@ -4,9 +4,9 @@ Copy of ``difacto_tpu/config.py`` (the port imports nothing of the JAX
 package): the same dataclasses and the same keys, so a config written for
 the JAX package parses here unchanged and an unknown key stays fatal.
 
-The port carries most of the JAX package so far (ROADMAP.md, queue A).
-:meth:`Config.check` makes every setting outside it raise
-``NotImplementedError`` naming the ROADMAP item that will bring it, so a
+The port carries all of the JAX package's one-process settings; the one
+setting outside it, ``store=sharded`` (ROADMAP.md A9), makes
+:meth:`Config.check` raise ``NotImplementedError`` naming that item, so a
 config never silently trains something other than what it asks for.
 """
 
@@ -136,7 +136,7 @@ class FMParam(ParamBase):
 class LearnerParam(ParamBase):
     """Trainer driver knobs (reference: SGDLearnerParam)."""
 
-    learner: str = "sgd"           # sgd | bcd (port: sgd)
+    learner: str = "sgd"           # sgd | bcd
     loss: str = "fm"               # fm | logit | ffm
     task: str = "train"            # train | predict (predict needs model_in)
     pred_out: str = ""             # write raw margins here when task=predict
@@ -200,20 +200,12 @@ class ShardParam(ParamBase):
 FFM_ACTIVATION_CAP = 8 << 30
 
 
-# Settings outside the port's slice, each named with the ROADMAP item that
-# brings it; Config.check raises NotImplementedError listing them.
+# The setting outside the port's slice, named with the ROADMAP item that
+# brings it; Config.check raises NotImplementedError naming it.
 def _slice_violations(cfg: "Config") -> list[str]:
-    d, lr, s = cfg.data, cfg.learner, cfg.shard
-    out = []
-    if s.store == "sharded":
-        out.append("store=sharded (ROADMAP A9, ShardedStore)")
-    if lr.learner == "bcd":
-        out.append("learner=bcd (ROADMAP A15, BCD learner)")
-    for key in ("data_in", "data_val", "model_in", "model_out", "pred_out"):
-        uri = getattr(d if key.startswith("data") else lr, key)
-        if "://" in uri and not uri.startswith("file://"):
-            out.append(f"{key}={uri} (ROADMAP A19, remote IO)")
-    return out
+    if cfg.shard.store == "sharded":
+        return ["store=sharded (ROADMAP A9, ShardedStore)"]
+    return []
 
 
 @dataclass

@@ -15,6 +15,7 @@ every batch by it, and checkpoints are saved in canonical rows.
 Per-epoch flow mirrors RunScheduler/RunEpoch: optional feature-count pass
 (tail_feature_filter), train pass over data_in, validation pass over
 data_val (pull + predict only, no push), epoch-end callbacks, model save.
+``DIFACTO_PROFILE`` traces the first train pass (utils/tracing.py).
 Multi-process lockstep waits for the sharded store (ROADMAP A9).
 """
 
@@ -37,6 +38,7 @@ from ..utils import checkpoint
 from ..utils.place import place_batch
 from ..utils.prefetch import MappedPrefetchIter, ThreadedIter
 from ..utils.progress import Progress, Reporter
+from ..utils.tracing import profile_region
 from .step import StepMetrics, merge_metrics
 
 log = logging.getLogger("difacto_tpu_torch")
@@ -260,21 +262,25 @@ class SGDLearner:
         if skip:
             log.info("resuming epoch %d at step %d", epoch, skip)
         # the sorted slots only where the store's backward reads them
-        for batch in self._iter(cfg.data.data_in, shuffle=True, epoch=epoch,
-                                sorted_slots=self.store.sorted_grads):
-            if step < skip:
+        with profile_region(f"train_epoch_{epoch}"):
+            for batch in self._iter(cfg.data.data_in, shuffle=True,
+                                    epoch=epoch,
+                                    sorted_slots=self.store.sorted_grads):
+                if step < skip:
+                    step += 1
+                    continue
+                self.state, metrics = self._train_step(batch)
+                acc = metrics if acc is None else merge_metrics(acc, metrics)
                 step += 1
-                continue
-            self.state, metrics = self._train_step(batch)
-            acc = metrics if acc is None else merge_metrics(acc, metrics)
-            step += 1
-            if self.reporter.interval > 0 and step % self.reporter.interval == 0:
-                self._fold(prog, acc)
-                acc = None
-                self.reporter.maybe_report(step, prog, prefix=f"epoch {epoch} ")
-            si = cfg.learner.save_interval_steps
-            if cfg.learner.model_out and si > 0 and step % si == 0:
-                self._save({"epoch": epoch, "step": step})
+                if (self.reporter.interval > 0
+                        and step % self.reporter.interval == 0):
+                    self._fold(prog, acc)
+                    acc = None
+                    self.reporter.maybe_report(step, prog,
+                                               prefix=f"epoch {epoch} ")
+                si = cfg.learner.save_interval_steps
+                if cfg.learner.model_out and si > 0 and step % si == 0:
+                    self._save({"epoch": epoch, "step": step})
         if acc is not None:
             self._fold(prog, acc)
         st = self.store.stats(self.state)

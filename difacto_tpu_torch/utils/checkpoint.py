@@ -10,8 +10,10 @@ not of a checkpoint: every layout is saved as the planar leaves, fetched
 one ``[N]`` plane at a time (a planar copy of a 2^26-row table beside it
 would be another 9.7 GB on the card), and a hot/cold state un-permuted
 into canonical hash rows by the run's remap lut, so a model trained in
-one layout loads into any other, and into the JAX package. The
-per-process sharded layout waits for the sharded store (ROADMAP A9).
+one layout loads into any other, and into the JAX package. A prefix may
+be a remote URI (``gs://``, ``s3://``, ``memory://``, ...; data/io.py),
+as in the JAX package. The per-process sharded layout waits for the
+sharded store (ROADMAP A9).
 
 :func:`state_from_numpy` and :func:`state_to_numpy` carry a state between
 the two packages as NumPy arrays.
@@ -19,12 +21,14 @@ the two packages as NumPy arrays.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 
 import numpy as np
 import torch
 
+from ..data.io import is_remote, open_uri
 from ..updaters.updater import (LEAVES, FMState, HotColdFMState,
                                 PackedFMState, StackedFMState, leaf_planes)
 
@@ -100,27 +104,49 @@ def state_to_numpy(state, remap_lut: np.ndarray | None = None
     return out
 
 
+# model_out/model_in accept remote URIs like data URIs (the reference wrote
+# models through the same dmlc::Stream layer it read data with): every
+# read and write goes through open_uri, local paths and file:// included
+
+
+def _write_npz(path: str, payload: dict) -> None:
+    with open_uri(path, "wb") as f:
+        np.savez(f, **payload)
+
+
+@contextlib.contextmanager
+def _open_npz(path: str):
+    with open_uri(path, "rb") as f, np.load(f) as zf:
+        yield zf
+
+
+def _write_text(path: str, text: str) -> None:
+    with open_uri(path, "wb") as f:
+        f.write(text.encode())
+
+
 def save(path_prefix: str, state, meta: dict | None = None,
          remap_lut: np.ndarray | None = None) -> str:
     """Write ``state`` (any layout) as planar leaves in canonical hash
     rows (``remap_lut``: a hot/cold state's lut, which it needs)."""
-    os.makedirs(os.path.dirname(path_prefix) or ".", exist_ok=True)
+    if not is_remote(path_prefix):
+        local = path_prefix.removeprefix("file://")
+        os.makedirs(os.path.dirname(local) or ".", exist_ok=True)
     host = state_to_numpy(state, remap_lut)
     full_meta = {"format_version": FORMAT_VERSION, **(meta or {})}
     full_meta["shapes"] = {k: list(v.shape) for k, v in host.items()}
     npz = path_prefix + ".npz"
-    np.savez(npz, **host)
-    with open(path_prefix + ".meta.json", "w") as f:
-        f.write(json.dumps(full_meta, indent=1))
+    _write_npz(npz, host)
+    _write_text(path_prefix + ".meta.json", json.dumps(full_meta, indent=1))
     return npz
 
 
 def _read_meta(path_prefix: str) -> dict:
-    meta_path = path_prefix + ".meta.json"
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            return json.load(f)
-    return {}
+    try:
+        with open_uri(path_prefix + ".meta.json", "rb") as f:
+            return json.loads(f.read().decode())
+    except FileNotFoundError:
+        return {}
 
 
 def load(path_prefix: str) -> tuple[FMState, dict]:
@@ -131,7 +157,7 @@ def load(path_prefix: str) -> tuple[FMState, dict]:
             f"{path_prefix} is a per-process sharded checkpoint: not in the "
             "PyTorch port yet (ROADMAP A9, sharded store)"
         )
-    with np.load(path_prefix + ".npz") as zf:
+    with _open_npz(path_prefix + ".npz") as zf:
         state = state_from_numpy({k: zf[k] for k in LEAVES})
     return state, meta
 

@@ -1492,3 +1492,124 @@ def test_cuda_pad_lanes_meet_inf_and_leave_the_table(card, layout):
         for row in (0, n - 1):
             assert np.array_equal(got[name][..., row].view(np.int32),
                                   s0[name][..., row].view(np.int32)), name
+
+
+def _bcd_files(tmp_path, rows=3000):
+    from difacto_tpu_torch.data.synthetic import make_ctr_data, write_libsvm
+
+    for name, n, seed in (("tr", rows, 51), ("va", 800, 52)):
+        write_libsvm(make_ctr_data(n, num_fields=10, vocab_per_field=200,
+                                   seed=seed, w_scale=0.5, v_scale=0.05),
+                     str(tmp_path / f"{name}.svm"))
+    return [f"data_in={tmp_path / 'tr.svm'}", "batch_size=1024",
+            "num_bits=13", "max_nnz_per_row=12", "V_dim=0", "learner=bcd",
+            "l1=0.05"]
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_cuda_bcd_block_step_and_run_match_cpu(card, tmp_path, S):
+    """The BCD block step on the card against the CPU's from one state
+    (index_add_ adds atomically on the card: rel 1e-5 / abs 1e-6), then
+    a 2-epoch run: w within rtol 2e-4 / atol 2e-5, the JAX package's bound
+    between shard counts, and the same train metrics."""
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.learners.bcd import BCDLearner
+    from difacto_tpu_torch.utils import arg_parser
+
+    argv = _bcd_files(tmp_path) + [f"num_shards={S}", "max_num_epochs=2"]
+    cfg = lambda: Config.from_kwargs(arg_parser.parse(argv))  # noqa: E731
+    gpu, cpu = BCDLearner(cfg()), BCDLearner(cfg(), device="cpu")
+    assert gpu.device.type == "cuda"
+    rng = np.random.default_rng(53)
+    for lrn in (gpu, cpu):
+        lrn.reset()
+    py0 = rng.normal(size=cpu.py.shape[0]).astype(np.float32)
+    w0 = (rng.normal(size=cpu.num_rows) * 0.1).astype(np.float32)
+    for blk in (0, 7, cpu.num_blocks - 1):
+        for lrn in (gpu, cpu):
+            lrn.py.copy_(torch.from_numpy(py0))
+            lrn.w.copy_(torch.from_numpy(w0))
+            lrn.step(blk, *lrn.block_tensors(blk))
+        np.testing.assert_allclose(gpu.py.cpu().numpy(), cpu.py.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(gpu.w.cpu().numpy(), cpu.w.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    pg, pc = gpu.run(), cpu.run()
+    np.testing.assert_allclose(gpu.w.cpu().numpy(), cpu.w.numpy(), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(pg.logloss, pc.logloss, rtol=1e-5)
+    assert abs(pg.exact_auc - pc.exact_auc) <= 1e-4
+
+
+def test_cuda_predict_on_a_bcd_checkpoint_launches_pull_pairs(card, tmp_path):
+    """task=predict on a BCD checkpoint scores through the SGD eval path:
+    at V_dim = 0 kernel=auto is pairs over planar leaves, so B1 (K = 0)
+    and no apply kernel; the scores are the CPU's."""
+    from difacto_tpu_torch import cli
+
+    argv = _bcd_files(tmp_path) + ["max_num_epochs=2"]
+    assert cli.main([*argv, f"model_out={tmp_path / 'm'}"]) == 0
+    pred = [*argv[1:], f"data_in={tmp_path / 'va.svm'}", "task=predict",
+            f"model_in={tmp_path / 'm'}"]
+    cuda.reset_launches()
+    assert cli.main([*pred, f"pred_out={tmp_path / 'g.txt'}"]) == 0
+    launches = dict(cuda.LAUNCHES)
+    assert launches["pull_pairs"] == 1  # 800 rows: one batch
+    assert sum(launches.values()) == 1, launches
+    assert cli.main([*pred, f"pred_out={tmp_path / 'c.txt'}"],
+                    device="cpu") == 0
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "g.txt"),
+                               np.loadtxt(tmp_path / "c.txt"), rtol=2e-5,
+                               atol=1e-5)
+
+
+def test_cuda_memory_uri_round_trip_of_a_card_checkpoint(card, tmp_path):
+    """A model trained on the card, saved to and loaded from memory://,
+    keeps every bit; predictions from it equal the local copy's."""
+    fsspec = pytest.importorskip("fsspec")
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.utils import checkpoint
+
+    argv = _bcd_files(tmp_path)[:-3] + ["V_dim=4", "lr_eta=0.1",
+                                        "max_num_epochs=1"]
+    assert cli.main([*argv, f"model_out={tmp_path / 'm'}"]) == 0
+    assert cli.main([*argv, "model_out=memory://cudabucket/m"]) == 0
+    local, _ = checkpoint.load(str(tmp_path / "m"))
+    remote, meta = checkpoint.load("memory://cudabucket/m")
+    assert meta["epoch"] == 1
+    for name in LEAVES:
+        # the card's index_add_ is atomic only on the XLA path; pairs
+        # repeat their bits
+        assert torch.equal(getattr(local, name), getattr(remote, name)), name
+    outs = []
+    for model, out in ((str(tmp_path / "m"), str(tmp_path / "p.txt")),
+                       ("memory://cudabucket/m", "memory://cudabucket/p.txt")):
+        assert cli.main([*argv, f"data_in={tmp_path / 'va.svm'}",
+                         "task=predict", f"model_in={model}",
+                         f"pred_out={out}"]) == 0
+        with fsspec.open(out, "rb") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1]
+    fsspec.filesystem("memory").rm("/cudabucket", recursive=True)
+
+
+def test_cuda_trace_names_the_kernels(card, tmp_path, monkeypatch):
+    """DIFACTO_PROFILE on the card: one Chrome trace of the first train
+    epoch, naming the row-major pair kernels and B3 it launched."""
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.utils import arg_parser, tracing
+
+    tracing.reset()
+    monkeypatch.setenv("DIFACTO_PROFILE", str(tmp_path / "prof"))
+    argv = _bcd_files(tmp_path)[:-3] + ["V_dim=4", "max_num_epochs=2"]
+    SGDLearner(Config.from_kwargs(arg_parser.parse(argv))).run()
+    files = list((tmp_path / "prof").iterdir())
+    assert [p.name for p in files] == ["train_epoch_0.pt.trace.json"]
+    import json
+
+    names = {e.get("name", "") for e in
+             json.loads(files[0].read_text())["traceEvents"]}
+    for kernel in ("rowmajor_pull_kernel", "segsum_tiles_kernel",
+                   "rowmajor_apply_kernel"):
+        assert any(kernel in n for n in names), kernel

@@ -440,6 +440,8 @@ _OUT_OF_SLICE = [
 # each resolves to, as the JAX store resolves it
 _PORTED = {"A13": ("xla", "stacked"), "A14": ("xla", "stacked"),
            "A16": ("xla", "stacked")}
+# items ported since that configure no store: the BCD learner, remote IO
+_ACCEPTED = ("A15", "A19")
 
 
 @pytest.mark.parametrize("key,val,item,extra", _OUT_OF_SLICE,
@@ -447,8 +449,16 @@ _PORTED = {"A13": ("xla", "stacked"), "A14": ("xla", "stacked"),
 def test_out_of_slice_setting_raises(key, val, item, extra):
     """A setting outside the port raises, naming its ROADMAP item; one of
     an item ported since (A13 hot/cold, A14 the XLA path, A16 device
-    localize) is accepted and resolves as the JAX store resolves it."""
+    localize) is accepted and resolves as the JAX store resolves it; one
+    of A15 (BCD) or A19 (remote IO) is accepted and parses as in the JAX
+    package."""
     kw = [("num_bits", "12"), (key, val), *extra]
+    if item in _ACCEPTED:
+        cfg, jcfg = Config.from_kwargs(kw), JConfig.from_kwargs(kw)
+        sub = "data" if key.startswith("data") else "learner"
+        assert getattr(getattr(cfg, sub), key) == val
+        assert getattr(getattr(jcfg, sub), key) == val
+        return
     if item not in _PORTED:
         with pytest.raises(NotImplementedError, match=item):
             Config.from_kwargs(kw)
@@ -533,7 +543,10 @@ b = Batch(rng.integers(0, 1024, (8, 4)).astype(np.int32),
           np.ones(8, np.float32))
 st, m = store.train_step_prepped(store.init_state(0), prep_batch(b, 1024))
 assert float(m.examples) == 8.0
-from difacto_tpu_torch.data import remap
+from difacto_tpu_torch.data import remap, tile_store
+import difacto_tpu_torch.learners.bcd
+from difacto_tpu_torch.tools import dump_model, table_stats
+from difacto_tpu_torch.utils import tracing
 kw = [("batch_size", "8"), ("num_bits", "10"), ("max_nnz_per_row", "4"),
       ("V_dim", "2")]
 cfg = Config.from_kwargs(kw + [("hot_rows", "64")])
