@@ -101,6 +101,25 @@ flagship's first train epoch through ``SGDLearner`` writes one
 ``torch.profiler`` trace naming the kernels it launched, the second none;
 then ``dump_model`` and ``table_stats`` on P5's and P1's checkpoints.
 
+K1, B2 over the sharded store owner's receive stream (S sorted segments
+of C lanes, ids repeated across them; ``apply_pairs(..., seg_len=C)``,
+``apply_pairs_segs`` on planar leaves and ``apply_rowmajor_segs`` on the
+row-major table), is held in phase 2 at the flagship's width on owner 0's
+stream of a flagship batch over S = 2 and 4 sources (``check_k1_kernels``:
+its plain version at B2's tolerance, exact integer sums, the one-stream
+bits on disjoint segments). P8 drives the sharded store
+(``store=sharded``, ``drive_sharded``): (a) the flagship's CLI train and
+``task=predict`` at S = 1 on kernel=auto, bit for bit against
+``store=local``; (b) S = 2 and S = 3 gloo ranks sharing the card
+(``difacto_tpu_torch.parallel.launch``, each under a timeout; at S = 3
+the flagship batch gains two empty rows so that 3 divides it), each
+taking 8 prepped train steps, an eval and a count step on the flagship's
+global batches on kernel=auto (K1 on the row-major table), layout=planar
+(K1 on planar leaves) and kernel=pallas (B5), the gathered table, the
+metrics and the scores held in rank 0 against LocalStore on the card
+(the JAX package's local-against-sharded tolerance), with the step ms,
+the busy ms, the idle share and the all_to_all's share of the step.
+
 It prints the card's name and power limit, one JSON line listing the
 kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
 needs a card: without one (or without the rest of the repository) it
@@ -139,7 +158,7 @@ XLA_KERNELS = ("segsum_sorted",)
 PULL_KERNELS = ("pull_pairs", "pull_rowmajor", "sweep_pull",
                 "sweep_pull_rowmajor")
 # the kernels whose launches on the paths of the XLA table, device
-# localize, P4, P5's predict, P6 and P7 the kernels line also gives
+# localize, P4, P5's predict, P6, P7 and P8 the kernels line also gives
 NEW_PATH_KERNELS = ("pull_pairs", "segsum_sorted", "sweep_pull",
                     "sweep_apply", "sweep_pull_rowmajor",
                     "sweep_apply_rowmajor", "pull_rowmajor", "apply_rowmajor")
@@ -624,6 +643,175 @@ def check_kernels(dev):
             f"library {rec['library_ms']}")
     return out
 
+
+# K1 (phase 2): B2 over the sharded store owner's receive stream, S sorted
+# segments of C lanes, at the flagship's width, with S = 2 and 4
+K1_KERNELS = ("apply_pairs_segs", "apply_rowmajor_segs")
+K1_SEGMENTS = (2, 4)
+# the CUDA function of each in a torch.profiler trace
+K1_TRACE = {"apply_pairs_segs": "apply_pairs_segs_kernel",
+            "apply_rowmajor_segs": "rowmajor_apply_kernel"}
+
+
+def k1_stream(S: int, seed: int, disjoint: bool = False):
+    """Owner 0's receive stream of a flagship batch prepped over S row
+    groups: S segments of C lanes, C the pairs path's capacity for the
+    batch (its largest bucket fill, W-aligned, up the ladder), segment s
+    the sorted ids source s sends to owner 0 with the local sentinel
+    ``rows_per_shard`` after them. Zipf(1.2) ids repeat across segments;
+    ``disjoint`` keeps in segment s only the ids with id % S == s. Returns
+    (uids i32 [S*C], valid bool, C, rows_per_shard)."""
+    from difacto_tpu_torch.data.prep import prep_batch_sharded
+    from difacto_tpu_torch.parallel.store import (PAIR_WINDOW, _cap_ladder,
+                                                  _round_up)
+
+    num_rows = 1 << NUM_BITS
+    rps = num_rows // S
+    pb = prep_batch_sharded(flagship_batch(seed), num_rows, S)
+    C = _cap_ladder(_round_up(pb.max_fill, PAIR_WINDOW))
+    segs = []
+    for s, u in enumerate(pb.uids.reshape(S, pb.ub)):
+        ids = u[u < rps]
+        if disjoint:
+            ids = ids[ids % S == s]
+        seg = np.full(C, rps, np.int32)
+        seg[:len(ids)] = ids
+        segs.append(seg)
+    uids = np.concatenate(segs)
+    return uids, uids < rps, C, rps
+
+
+def check_k1_kernels(dev) -> dict:
+    """Phase 2, K1 on both layouts at the flagship's width (K = 16,
+    FTRL/AdaGrad) on owner 0's stream of S = 2 and 4 segments: against
+    the plain version (a stable sort, then the one-stream plain apply) at
+    B2's tolerance (rtol 1e-5, atol 1e-6: the plain division runs as a
+    multiply by the reciprocal on the card), the two layouts bit for bit;
+    an integer payload through SGD with unit rates on a zero table exact
+    against the float64 sums; segments of disjoint ids bit for bit against
+    the one-stream kernels on the same lanes merged into one sorted
+    stream. Timed (CUDA events, torch.profiler warm and L2-flushed) with
+    the plain version and the byte bound. Returns the kernels' records
+    (at S = 2, the P8 run's) without launches."""
+    import torch
+
+    from difacto_tpu_torch.config import FMParam
+    from difacto_tpu_torch.ops import pair_sweep
+    from difacto_tpu_torch.probes import common
+    from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
+                                                    unpack_state)
+
+    p = FMParam()
+    p.V_dim = K
+    upd = FMUpdater(p)
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    out, worst = {}, dict.fromkeys(K1_KERNELS, 0.0)
+    for S in K1_SEGMENTS:
+        uids_np, valid_np, C, rps = k1_stream(S, 50 + S)
+        uids = torch.from_numpy(uids_np).to(dev)
+        valid = torch.from_numpy(valid_np).to(dev)
+        U, n_lanes = uids.shape[0], int(valid.sum())
+        st = random_state(upd, rps, dev, seed=20 + S)
+        vf = valid.float()
+        pay = torch.cat([torch.randn((1 + K, U), generator=g, device=dev) * vf,
+                         torch.randint(1, 4, (1, U), generator=g,
+                                       device=dev) * vf, vf[None]])
+
+        def run(layout, state=None, payload=pay, q=p, ids=uids, seg=C):
+            base = clone_state(st if state is None else state)
+            if layout == "packed":
+                return unpack_state(pair_sweep.apply_pairs(
+                    pack_state(base), ids, payload, q, seg_len=seg))
+            return pair_sweep.apply_pairs(base, ids, payload, q, seg_len=seg)
+
+        ref = pair_sweep.apply_pairs_segs_plain(clone_state(st), uids, pay, p,
+                                                C)
+        got = {lay: run(lay) for lay in ("planar", "packed")}
+        for lay, name in zip(("planar", "packed"), K1_KERNELS):
+            for leaf in LEAVES:
+                x, y = getattr(got[lay], leaf), getattr(ref, leaf)
+                worst[name] = max(worst[name], float((x - y).abs().max()))
+                torch.testing.assert_close(
+                    x, y, rtol=1e-5, atol=1e-6,
+                    msg=f"{name} S={S} against its plain version: {leaf}")
+        same_bits(got["packed"], got["planar"], f"apply_rowmajor_segs S={S}",
+                  "apply_pairs_segs")
+        # integers in [1, 8], SGD with unit rates on a zero table: w, V and
+        # cnt are minus (or plus) the sums, exact in float32
+        q = FMParam()
+        q.V_dim, q.w_updater, q.V_updater, q.V_threshold = K, "sgd", "sgd", 0
+        q.lr_eta, q.l2, q.V_lr_eta, q.V_l2 = 1.0, 0.0, 1.0, 0.0
+        zero = FMUpdater(q).init_state(rps, 0, dev)
+        zero.V.zero_()
+        ipay = torch.randint(1, 9, (3 + K, U), generator=g,
+                             device=dev).float() * vf
+        exp = torch.zeros((3 + K, rps), dtype=torch.float64, device=dev)
+        exp.index_add_(1, uids[valid].long(), ipay[:, valid].double())
+        for lay, name in zip(("planar", "packed"), K1_KERNELS):
+            a = run(lay, zero, ipay, q)
+            if not (torch.equal(a.w, (-exp[0]).float())
+                    and torch.equal(a.V, (-exp[1:1 + K]).float())
+                    and torch.equal(a.cnt, exp[1 + K].float())):
+                raise AssertionError(f"{name} S={S} differs from the float64 "
+                                     "sums of an integer payload (tolerance: "
+                                     "exact)")
+        del zero, ipay, exp
+        # disjoint segments: the one-stream kernels' bits
+        d_np, dv_np, _, _ = k1_stream(S, 50 + S, disjoint=True)
+        order = np.argsort(d_np, kind="stable")
+        d_ids = torch.from_numpy(d_np).to(dev)
+        m_ids = torch.from_numpy(d_np[order]).to(dev)
+        dpay = pay[:, :U].clone()
+        mpay = dpay[:, torch.from_numpy(order).to(dev)].contiguous()
+        for lay, name in zip(("planar", "packed"), K1_KERNELS):
+            one = run(lay, payload=mpay, ids=m_ids, seg=None)
+            same_bits(run(lay, payload=dpay, ids=d_ids), one,
+                      f"{name} S={S} on disjoint segments",
+                      "the one-stream kernel on the merged stream")
+        # timing, and the bytes the update needs: every uid; gw, add_cnt
+        # and touch of the real lanes, gV of those past the V gate; per
+        # touched row the leaves its updaters read and write
+        idx = uids.clamp(max=rps - 1).long()
+        gate = valid & (st.cnt[idx] >= p.V_threshold)
+        rows = int(torch.unique(uids[valid]).numel())
+        act = int(torch.unique(uids[gate]).numel())
+        nbytes = (4 * (U + 3 * n_lanes + K * int(gate.sum()))
+                  + updater_bytes("ftrl", "adagrad", K, rows, act))
+        b_ms, b_by = bound(nbytes, 20 * rows + 8 * K * act)
+        work = {"planar": clone_state(st), "packed": pack_state(st)}
+        calls = {name: (lambda w=work[lay]: pair_sweep.apply_pairs(
+            w, uids, pay, p, seg_len=C))
+            for lay, name in zip(("planar", "packed"), K1_KERNELS)}
+        plain_ms = cuda_ms(lambda: pair_sweep.apply_pairs_segs_plain(
+            work["planar"], uids, pay, p, C), reps=5)
+        for name in K1_KERNELS:
+            own = common.kernel_ms_in_turns(dev, {name: calls[name]},
+                                            K1_TRACE[name])
+            rec = dict(ms=cuda_ms(calls[name]), plain_ms=plain_ms,
+                       kernel_ms=own["warm"][name],
+                       kernel_ms_flushed=own["cold"][name],
+                       bound_ms=b_ms, bound_by=b_by, segments=S, seg_len=C,
+                       lanes=n_lanes, rows=rows, rows_past_gate=act)
+            log(f"{name} S={S} C={C} ({n_lanes} lanes, {rows} rows, {act} "
+                f"past the gate): {json.dumps(rec)}")
+            if S == K1_SEGMENTS[0]:
+                out[name] = dict(
+                    route="cuda",
+                    source="difacto_tpu_torch/csrc/" + (
+                        "apply_pairs.cu" if name == "apply_pairs_segs"
+                        else "rowmajor_pairs.cu"),
+                    replaces="difacto_tpu/ops/pair_sweep.py:449",
+                    library_ms=None, **rec)
+            else:
+                out[name][f"s{S}"] = rec
+        del work, calls
+    for name in K1_KERNELS:
+        out[name]["max_abs_err"] = worst[name]
+    log("K1 on both layouts, S = 2 and 4: plain within B2's tolerance, the "
+        "layouts bit-equal, integer sums exact, disjoint segments give the "
+        "one-stream bits")
+    return out
 
 def check_rowmajor_kernels(dev, pb, st, k_main: int) -> dict:
     """Phase 2, the pull and apply over the row-major table
@@ -2674,6 +2862,317 @@ def drive_trace_and_tools(tmp: str, flagship_files: tuple,
     return launches
 
 
+# P8, the sharded store: (a) the flagship's CLI at S = 1 with store=sharded
+# against store=local; (b) S = 2 and 3 gloo ranks sharing the card, each
+# on the flagship's global batches, P8_STEPS prepped train steps, an eval
+# and a count step on every path of P8_PATHS, held against LocalStore on
+# the card (in rank 0) over the same batches from the same state
+P8_STEPS = 8
+P8_RANKS = (2, 3)
+P8_PATHS = (("kernel=auto", ()), ("layout=planar", (("layout", "planar"),)),
+            ("kernel=pallas", (("kernel", "pallas"),)))
+# the JAX package's local-against-sharded tolerance
+# (tests/test_store_equiv.py:55): the table rtol and atol 2e-4, logloss
+# rtol 1e-4; its eval tolerance (rtol and atol 1e-5) on the scores
+P8_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def p8_config(extra: tuple, store: str, S: int):
+    from difacto_tpu_torch.config import Config
+
+    return Config.from_kwargs([
+        ("num_bits", str(NUM_BITS)), *FLAGSHIP["kw"], ("store", store),
+        ("batch_size", str(p8_rows(S))),
+        *((("num_shards", str(S)),) if store == "sharded" else ()), *extra])
+
+
+def p8_rows(S: int) -> int:
+    """The global batch's rows for S ranks: the flagship's 16384, and two
+    empty rows (no ids, mask 0: no examples) at S = 3, which must divide
+    them."""
+    return -(-BATCH // S) * S
+
+
+def p8_batches(S: int):
+    """The P8_STEPS global flagship batches (Zipf(1.2) ids) and the count
+    step's ids, padded with empty rows to p8_rows(S)."""
+    from difacto_tpu_torch.data.batch_iter import Batch
+
+    def pad(b):
+        extra = p8_rows(S) - BATCH
+        if not extra:
+            return b
+        z = np.zeros((extra, NNZ), np.float32)
+        return Batch(np.concatenate([b.ids, np.full((extra, NNZ), -1,
+                                                    np.int32)]),
+                     np.concatenate([b.vals, z]),
+                     np.concatenate([b.labels, z[:, 0]]),
+                     np.concatenate([b.mask, z[:, 0]]))
+
+    return ([pad(flagship_batch(60 + i)) for i in range(P8_STEPS)],
+            pad(flagship_batch(70)).ids)
+
+
+def p8_local_reference(extra: tuple, S: int, pbs, count_ids, seed: int):
+    """LocalStore on the card over the same global batches (``pbs``,
+    prepped for one table with their sorted slots, on the card) from the
+    same start: per step (examples, logloss, dropped), the eval scores and
+    the table after the count step (planar leaves on the card), and its
+    median step ms."""
+    import torch
+
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater, unpack_state
+
+    cfg = p8_config(extra, "local", S)
+    store = LocalStore(FMUpdater(cfg.model), cfg)
+    state = store.init_state(seed)
+    metrics, times = [], []
+    for pb in pbs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = store.train_step_prepped(state, pb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append([float(m.examples), float(m.logloss_sum),
+                        float(m.dropped_ids)])
+    _, py = store.eval_step_prepped(state, pbs[0])
+    state = store.count_step(state, torch.from_numpy(count_ids).to(
+        store.device))
+    if store.layout == "packed":
+        state = unpack_state(state)
+    elif store.layout == "stacked":
+        raise AssertionError("P8 runs no stacked table")
+    return metrics, py, state, float(np.median(times[1:])) * 1e3
+
+
+def p8_rank(out_dir: str, S: str) -> None:
+    """One rank of P8 (b), run by difacto_tpu_torch.parallel.launch: the
+    ShardedStore on the card over every path of P8_PATHS; rank 0 holds
+    the gathered table, the metrics and the scores against LocalStore on
+    the card and writes the record."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from difacto_tpu_torch.data.prep import (build_sorted_slots,
+                                             build_sorted_slots_sharded,
+                                             prep_batch, prep_batch_sharded)
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.parallel.store import ShardedStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.place import place_batch
+
+    S, rank = int(S), dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches, count_ids = p8_batches(S)
+    # every rank is handed the global batches, prepped over S groups with
+    # their sorted slots and placed on the card once (every path replays
+    # them; the scatter backward reads no slots); rank 0's reference
+    # LocalStore gets them prepped for one table
+    cfg0 = p8_config((), "sharded", S)  # the paths share the table's rows
+    store0 = ShardedStore(FMUpdater(cfg0.model), cfg0)
+    num_rows, dev = store0.num_rows, store0.device
+    pbs, ref_pbs = [], []
+    for b in batches:
+        pb = prep_batch_sharded(b, num_rows, S)
+        pb.sorted_slots = build_sorted_slots_sharded(pb)
+        pbs.append(place_batch(pb, dev))
+        if rank == 0:
+            lp = prep_batch(b, 1 << NUM_BITS)
+            lp.sorted_slots = build_sorted_slots(lp.inv, lp.vals)
+            ref_pbs.append(place_batch(lp, dev))
+    recs = {}
+    for name, extra in P8_PATHS:
+        cfg = p8_config(extra, "sharded", S)
+        store = ShardedStore(FMUpdater(cfg.model), cfg)
+        state = store.init_state(5)
+        # the all_to_all's wall time (synchronized around each call)
+        a2a = {"s": 0.0, "n": 0, "on": False}
+        exchange = store.comm.all_to_all
+
+        def timed_all_to_all(x):
+            if not a2a["on"]:
+                return exchange(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = exchange(x)
+            torch.cuda.synchronize()
+            a2a["s"] += time.perf_counter() - t0
+            a2a["n"] += 1
+            return y
+
+        store.comm.all_to_all = timed_all_to_all
+        metrics, times = [], []
+        half = P8_STEPS // 2
+        cuda.reset_launches()
+        for i, pb in enumerate(pbs[:half]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = store.train_step_prepped(state, pb)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append([float(m.examples), float(m.logloss_sum),
+                            float(m.dropped_ids)])
+        a2a["on"] = True
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for pb in pbs[half:]:
+                state, m = store.train_step_prepped(state, pb)
+                metrics.append([float(m.examples), float(m.logloss_sum),
+                                float(m.dropped_ids)])
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        a2a["on"] = False
+        em, py = store.eval_step_prepped(state, pbs[0])
+        state = store.count_step(state, count_ids)
+        torch.cuda.synchronize()
+        launches = torch.tensor([cuda.LAUNCHES[k] for k in cuda.LAUNCHES],
+                                dtype=torch.float64, device=store.device)
+        store.comm.all_reduce(launches)
+        prof_rec = device_profile(prof, t_prof, P8_STEPS - half)
+        host = store.gather_state(state)
+        if rank == 0:
+            ref_m, ref_py, ref, local_ms = p8_local_reference(
+                extra, S, ref_pbs, count_ids, 5)
+            rec = p8_compare(name, S, store, metrics, em, py, host, ref_m,
+                             ref_py, ref)
+            rec.update({
+                "kernel": store.kernel, "layout": store.layout,
+                "rows_per_shard": store.rows_per_shard,
+                "num_rows": store.num_rows,
+                "step_ms": float(np.median(times[1:])) * 1e3,
+                "local_step_ms": local_ms,
+                "all_to_all_ms_per_step": a2a["s"] * 1e3 / (P8_STEPS - half),
+                "all_to_all_calls_per_step": a2a["n"] / (P8_STEPS - half),
+                "all_to_all_share_of_traced_step": a2a["s"] / t_prof,
+                "profile": prof_rec,
+                "launches": {k: int(v) for k, v in zip(
+                    cuda.LAUNCHES, launches.tolist()) if v},
+            })
+            recs[name] = rec
+        del state, host
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(out_dir, f"p8_s{S}.json"), "w") as f:
+            json.dump(recs, f)
+
+
+def p8_compare(name, S, store, metrics, em, py, host, ref_m, ref_py,
+               ref) -> dict:
+    """Rank 0's check of one P8 path: the summed metrics of every step and
+    of the eval step, the scores, and the gathered table (its padding
+    rows zero) against LocalStore's. Returns the errors."""
+    import torch
+
+    m, r = np.asarray(metrics), np.asarray(ref_m)
+    if not (np.array_equal(m[:, 0], r[:, 0]) and not m[:, 2].any()
+            and np.allclose(m[:, 1], r[:, 1], rtol=1e-4, atol=0)):
+        raise AssertionError(f"P8 S={S} {name}: step metrics {m.tolist()} "
+                             f"against LocalStore's {r.tolist()}")
+    if float(em.dropped_ids) or float(em.examples) != BATCH:
+        raise AssertionError(f"P8 S={S} {name}: eval metrics {em}")
+    torch.testing.assert_close(py, ref_py, rtol=1e-5, atol=1e-5,
+                               msg=f"P8 S={S} {name}: eval scores")
+    errs, n = {}, ref.num_rows
+    for leaf in LEAVES:
+        got = getattr(host, leaf)
+        pad = got[..., n:]
+        if pad.numel() and bool((pad != 0).any()):
+            raise AssertionError(f"P8 S={S} {name}: padding rows of {leaf} "
+                                 "are not zero")
+        x = got[..., :n].to(ref.device)
+        y = getattr(ref, leaf)
+        if y.numel():
+            errs[leaf] = float((x - y).abs().max())
+            torch.testing.assert_close(
+                x, y, **P8_TOL, msg=f"P8 S={S} {name}: the gathered {leaf} "
+                "against LocalStore's")
+    return {"max_abs_err": errs,
+            "logloss_rel_err": float(np.max(np.abs(m[:, 1] - r[:, 1])
+                                            / np.abs(r[:, 1])))}
+
+
+def drive_sharded(dev, tmp: str, flagship_files: tuple) -> dict:
+    """P8. (a) The flagship's CLI train (3 epochs, ``model_out``) and
+    ``task=predict`` with ``store=sharded`` at S = 1 on kernel=auto
+    against ``store=local`` on the same data: the same kernels in the same
+    order, so the checkpoints and the scores must be bit-equal. (b) S = 2
+    and S = 3 gloo ranks on the card (p8_rank), the kernels built first in
+    this process so that the ranks load one library. Returns the launches
+    of each S's run (summed over its ranks and paths)."""
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.ops.metrics import exact_auc
+    from difacto_tpu_torch.parallel.launch import run_ranks
+
+    train, val = flagship_files
+    argv = [f"data_in={train}", f"data_val={val}", f"num_bits={NUM_BITS}",
+            *(f"{k}={v}" for k, v in FLAGSHIP["kw"]), "max_num_epochs=3",
+            "report_interval=0"]
+    got = {}
+    for store in ("sharded", "local"):
+        model = os.path.join(tmp, f"p8_{store}")
+        pred = os.path.join(tmp, f"p8_{store}.txt")
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main([*argv, f"store={store}", f"model_out={model}"]) != 0:
+            raise AssertionError(f"P8 CLI train store={store} failed")
+        train_s = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if cli.main([*argv, f"store={store}", f"data_in={val}",
+                     "task=predict", f"model_in={model}",
+                     f"pred_out={pred}"]) != 0:
+            raise AssertionError(f"P8 CLI predict store={store} failed")
+        with np.load(model + ".npz") as z:
+            got[store] = ({k: z[k] for k in LEAVES}, np.loadtxt(pred),
+                          train_s, launches)
+    (ms, ps, ts, ls), (ml, pl, tl, ll) = got["sharded"], got["local"]
+    for leaf in LEAVES:
+        if not np.array_equal(ms[leaf].view(np.int32),
+                              ml[leaf].view(np.int32)):
+            raise AssertionError(f"P8 (a): store=sharded's checkpoint differs "
+                                 f"from store=local's in {leaf} (tolerance: "
+                                 "bit-equal)")
+    if not (ps.size == FLAGSHIP["batch"] and np.isfinite(ps).all()
+            and np.array_equal(ps, pl)):
+        raise AssertionError("P8 (a): store=sharded's scores differ from "
+                             "store=local's (tolerance: bit-equal)")
+    if ls != ll:
+        raise AssertionError(f"P8 (a): store=sharded launched {ls}, "
+                             f"store=local {ll}")
+    from difacto_tpu_torch.data.libsvm import parse_libsvm
+
+    with open(val, "rb") as f:
+        labels = parse_libsvm(f.read()).labels
+    log(f"P8 (a) CLI store=sharded at S = 1: train {ts:.2f} s (store=local "
+        f"{tl:.2f} s), checkpoint and {ps.size} scores bit-equal to "
+        f"store=local's, predict AUC {exact_auc(labels, ps):.6f}, launches "
+        f"{ls}")
+    cuda.build()  # once, before the ranks load it
+    runs = {}
+    for S in P8_RANKS:
+        t0 = time.perf_counter()
+        run_ranks("chip_smoke:p8_rank", S, [tmp, str(S)], timeout=300,
+                  path=os.path.dirname(os.path.abspath(__file__)),
+                  group_timeout=240)
+        with open(os.path.join(tmp, f"p8_s{S}.json")) as f:
+            recs = json.load(f)
+        wall = time.perf_counter() - t0
+        for name, rec in recs.items():
+            log(f"P8 S={S} {name}: " + json.dumps(rec))
+        runs[S] = {k: sum(r["launches"].get(k, 0) for r in recs.values())
+                   for k in cuda.LAUNCHES}
+        log(f"P8 S={S}: {S} ranks on one card, {len(recs)} paths held "
+            f"against LocalStore in {wall:.1f} s; launches {runs[S]}")
+        want = {"apply_rowmajor_segs", "apply_pairs_segs",
+                "sweep_apply_rowmajor"}
+        if any(runs[S][k] == 0 for k in want):
+            raise AssertionError(f"P8 S={S}: a kernel of the sharded paths "
+                                 f"did not launch: {runs[S]}")
+    return runs
+
 def drive_cli(tmp: str) -> None:
     """Phase 5: on each table path, CLI train with validation and
     model_out, then task=predict on the checkpoint; the scores must match
@@ -2773,6 +3272,7 @@ def main() -> int:
         "(g++)")
 
     kernels = check_kernels(dev)
+    kernels.update(check_k1_kernels(dev))
     k96, ffm_loss_ms = check_ffm_kernels(dev)
     k156, libffm_loss_ms = check_libffm_kernels(dev)
     k640 = check_wide_kernels(dev)
@@ -2839,6 +3339,12 @@ def main() -> int:
                                               bcd["val"])
         new_paths["p7_traced"] = drive_trace_and_tools(tmp, flagship_files,
                                                        bcd["model"])
+        # P8 the sharded store: K1's launches are its S = 2 and 3 runs'
+        p8 = drive_sharded(dev, tmp, flagship_files)
+        for S, got in p8.items():
+            new_paths[f"p8_s{S}"] = got
+        launches.update({name: sum(got[name] for got in p8.values())
+                         for name in K1_KERNELS})
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -2853,6 +3359,9 @@ def main() -> int:
         # and B2's time in the same turns; S1a's floor; at FFM's width, at
         # libffm Criteo's and at K = 640
         **{k: v for k, v in kernels[name].items() if k in EXTRA_KEYS},
+        # K1: the segments of its figures (S = 2), and its figures at S = 4
+        **{k: v for k, v in kernels[name].items()
+           if name in K1_KERNELS and k in ("segments", "seg_len", "s4")},
         **{k: v for width in (k96, k156, k640)
            for k, v in width.get(name, {}).items()
            if k in K96_KEYS + K156_KEYS + K640_KEYS},
@@ -2863,7 +3372,8 @@ def main() -> int:
                                   for run, got in new_paths.items()}}
            if name in NEW_PATH_KERNELS else {})}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
-        + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS]
+        + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS
+        + K1_KERNELS]
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

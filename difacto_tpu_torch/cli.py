@@ -11,7 +11,9 @@ through the SGD eval path, whatever learner trained it, on any table
 path: with ``hot_rows`` the learner builds its remap from ``data_in`` and
 places the canonical checkpoint through it; with ``host_localize=0`` the
 batches are localized on the device. ``pred_out`` may be a remote URI
-(data/io.py). One process: multi-process prediction waits for ROADMAP A9.
+(data/io.py). One process: under the JAX package's multi-process env
+contract (``DIFACTO_COORDINATOR`` and ``DIFACTO_NUM_PROCESSES`` > 1) it
+raises NotImplementedError naming ROADMAP A9b before it reads anything.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
     """``device`` defaults to the card and raises without one unless the
     caller asks for ``"cpu"``."""
     from .base import tune_malloc
+    from .parallel.multihost import refuse_multiprocess
 
+    refuse_multiprocess("cli.main")
     tune_malloc()  # large ingest temporaries must not page-fault
     logging.basicConfig(
         level=logging.INFO,

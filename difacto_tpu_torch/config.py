@@ -4,10 +4,9 @@ Copy of ``difacto_tpu/config.py`` (the port imports nothing of the JAX
 package): the same dataclasses and the same keys, so a config written for
 the JAX package parses here unchanged and an unknown key stays fatal.
 
-The port carries all of the JAX package's one-process settings; the one
-setting outside it, ``store=sharded`` (ROADMAP.md A9), makes
-:meth:`Config.check` raise ``NotImplementedError`` naming that item, so a
-config never silently trains something other than what it asks for.
+The port carries every setting of the JAX package. A multi-process
+launch is not a setting but an environment (parallel/multihost.py): the
+entry points refuse it until ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -164,8 +163,8 @@ class LearnerParam(ParamBase):
 class ShardParam(ParamBase):
     """Parallelism and kernel-path knobs."""
 
-    store: str = "auto"            # local | sharded | auto (port: one card,
-                                   # auto = local)
+    store: str = "auto"            # local | sharded | auto (port: one
+                                   # process, auto = local)
     num_shards: int = 0            # store=sharded only
     capacity_factor: float = 2.0   # store=sharded only
     unique_size: int = 0           # floor of the unique-lane bucket
@@ -200,14 +199,6 @@ class ShardParam(ParamBase):
 FFM_ACTIVATION_CAP = 8 << 30
 
 
-# The setting outside the port's slice, named with the ROADMAP item that
-# brings it; Config.check raises NotImplementedError naming it.
-def _slice_violations(cfg: "Config") -> list[str]:
-    if cfg.shard.store == "sharded":
-        return ["store=sharded (ROADMAP A9, ShardedStore)"]
-    return []
-
-
 @dataclass
 class Config:
     data: DataParam = field(default_factory=DataParam)
@@ -227,9 +218,8 @@ class Config:
         return cfg
 
     def check(self) -> None:
-        """Cross-param consistency, as the JAX package checks it, then the
-        port's own refusal of ``kernel=pairs host_localize=0`` and its
-        slice guard."""
+        """Cross-param consistency, as the JAX package checks it, and the
+        port's own refusal of ``kernel=pairs host_localize=0``."""
         if self.shard.hot_rows and self.learner.learner != "sgd":
             raise ValueError(
                 "hot_rows (frequency-split table) is an SGD/LocalStore "
@@ -285,11 +275,6 @@ class Config:
             raise ValueError(
                 "interpret=1 is a Pallas option; the port runs its kernels' "
                 "plain versions whenever the tensors lie on the CPU"
-            )
-        bad = _slice_violations(self)
-        if bad:
-            raise NotImplementedError(
-                "not in the PyTorch port yet: " + "; ".join(bad)
             )
 
     def _check_ffm_activations(self) -> None:

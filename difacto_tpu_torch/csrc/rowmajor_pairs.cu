@@ -65,6 +65,16 @@
 //    wrapper cost the step more than this kernel does; it is the assert
 //    in phase A now.
 // TMA was not tried: the rows are scattered 144-byte pieces.
+//
+// K1, dft_apply_rowmajor_segs: the apply over the sharded store owner's
+// receive stream, S segments of C lanes, each non-decreasing, ids repeated
+// across segments. The same kernel, its SEGS instantiation: phase A takes
+// the owner rule and the sums of csrc/pair_runs.cuh (seg_owner, seg_sum:
+// the own run, then the id's run in each later segment by a binary
+// search), phase B adds the later segments' gV from the payload after the
+// own run's, in that order; so it has the bits of
+// csrc/apply_pairs.cu's apply_pairs_segs_kernel. The order check is per
+// segment.
 #include <assert.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -122,12 +132,15 @@ rowmajor_pull_kernel(const float* __restrict__ tbl,
   }
 }
 
-// The table is read and written here: no __restrict__ on it.
-template <int VEC>
+// The table is read and written here: no __restrict__ on it. SEGS: K1,
+// the stream is segments of C lanes (csrc/pair_runs.cuh, seg_owner), and
+// a row's sums go on over the id's runs in the later segments; else one
+// stream (C unused).
+template <int VEC, bool SEGS>
 __global__ void __launch_bounds__(RM_THREADS)
 rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
                       const float* __restrict__ pay, long long N, int K,
-                      int U, ApplyParams p) {
+                      int U, int C, ApplyParams p) {
   extern __shared__ float smem[];
   const int t = threadIdx.x & 31;
   const int lane0 = (blockIdx.x * RM_WARPS + (threadIdx.x >> 5)) * 32;
@@ -142,23 +155,35 @@ rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
   // phase A: the lane that starts a run updates the row's head
   int id = -1, end = 0;
   if (lane < U) {
-    // runs of equal ids must be consecutive. Checked here, on ids the
-    // lane reads anyway, and not by the wrapper: a check outside the
-    // kernel costs the step three more launches
-    assert((lane == 0 || uids[lane - 1] <= uids[lane]) &&
-           "apply_rowmajor: uids must be non-decreasing");
-    id = run_start(uids, lane, U, N, &end);
+    // runs of equal ids must be consecutive (within each segment, for
+    // K1). Checked here, on ids the lane reads anyway, and not by the
+    // wrapper: a check outside the kernel costs the step three more
+    // launches
+    if (SEGS) {
+      assert((lane % C == 0 || uids[lane - 1] <= uids[lane]) &&
+             "apply_rowmajor: each segment's uids must be non-decreasing");
+      id = seg_owner(uids, lane, C, N, &end);
+    } else {
+      assert((lane == 0 || uids[lane - 1] <= uids[lane]) &&
+             "apply_rowmajor: uids must be non-decreasing");
+      id = run_start(uids, lane, U, N, &end);
+    }
   }
+  // the sum of payload row r over the row's lanes
+  auto sum = [&](int r) {
+    return SEGS ? seg_sum(pay, uids, r, U, C, id, lane, end)
+                : run_sum(pay, r, U, lane, end);
+  };
   bool active = false;
-  if (id >= 0 && run_sum(pay, 2 + K, U, lane, end) > 0.0f) {  // else keep bits
-    float add_cnt = run_sum(pay, 1 + K, U, lane, end);
+  if (id >= 0 && sum(2 + K) > 0.0f) {  // else keep bits
+    float add_cnt = sum(1 + K);
     float* row = tbl + (long long)id * D;
     float h[4];
     load_head<VEC>(row, h);
     const float c = h[3];                           // PRE-update count
     const bool tail_ok = p.tail <= 0 || c >= (float)p.tail;
     if (tail_ok) {
-      WRow o = step_w(WRow{h[0], h[1], h[2]}, run_sum(pay, 0, U, lane, end), p);
+      WRow o = step_w(WRow{h[0], h[1], h[2]}, sum(0), p);
       h[0] = o.w;
       h[1] = o.z;
       h[2] = o.n;
@@ -192,15 +217,16 @@ rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
         load_v_row<VEC>(v, K, e, p);
         // the run's lanes inside the warp's tile, then (a run that
         // outlasts the warp) the rest from the payload: lane order, as
-        // run_sum
+        // run_sum; for K1 then the id's runs in the later segments
         const int cut = min(rend, lane0 + 32);
 #pragma unroll
         for (int c = 0; c < VEC; ++c) {
           const int r = piece * VEC + c;
+          const float* prow = pay + (long long)(1 + k0 + r) * U;
           float gv = 0.0f;
           for (int j = ll; j < cut - lane0; ++j) gv += tile[r * 32 + j];
-          for (int j = cut; j < rend; ++j)
-            gv += pay[(long long)(1 + k0 + r) * U + j];
+          for (int j = cut; j < rend; ++j) gv += prow[j];
+          if (SEGS) gv = later_segs_sum(gv, prow, uids, U, C, rid, lane0 + ll);
           e[c] = step_v(e[c], gv, p);
         }
         store_v_row<VEC>(v, K, e, p);
@@ -233,30 +259,59 @@ extern "C" int dft_pull_rowmajor(const void* tbl, const void* uids, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int dft_apply_rowmajor(void* tbl, const void* uids, const void* pay,
-                                  long long N, int K, int U, float lr_eta,
-                                  float lr_beta, float l1, float l2,
-                                  float V_lr_eta, float V_lr_beta, float V_l2,
-                                  float V_threshold, int tail, int w_updater,
-                                  int V_updater, int vec, void* stream) {
+// The row-major apply over one stream (C = 0) or, K1, over segments of C
+// lanes (U a multiple of C).
+static int apply_rowmajor(void* tbl, const void* uids, const void* pay,
+                          long long N, int K, int U, int C, float lr_eta,
+                          float lr_beta, float l1, float l2, float V_lr_eta,
+                          float V_lr_beta, float V_l2, float V_threshold,
+                          int tail, int w_updater, int V_updater, int vec,
+                          void* stream) {
   if (U <= 0) return (int)cudaGetLastError();
   ApplyParams p{lr_eta, lr_beta, l1, l2, V_lr_eta, V_lr_beta, V_l2,
                 V_threshold, tail, w_updater, V_updater};
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned int blocks = (unsigned int)((U + RM_THREADS - 1) / RM_THREADS);
   const size_t smem = sizeof(float) * RM_WARPS * (size_t)rm_chunk(K) * 32;
-#define RM_APPLY(V)                                                         \
+#define RM_APPLY(V, SG)                                                     \
   do {                                                                      \
-    cudaError_t e = allow_smem(rowmajor_apply_kernel<V>, smem);             \
+    cudaError_t e = allow_smem(rowmajor_apply_kernel<V, SG>, smem);         \
     if (e != cudaSuccess) return (int)e;                                    \
-    rowmajor_apply_kernel<V><<<blocks, RM_THREADS, smem, st>>>(             \
-        (float*)tbl, (const int*)uids, (const float*)pay, N, K, U, p);      \
+    rowmajor_apply_kernel<V, SG><<<blocks, RM_THREADS, smem, st>>>(         \
+        (float*)tbl, (const int*)uids, (const float*)pay, N, K, U, C, p);   \
   } while (0)
+  const bool segs = C > 0;
   switch (pick_vec(tbl, K, vec)) {
-    case 4: RM_APPLY(4); break;
-    case 2: RM_APPLY(2); break;
-    default: RM_APPLY(1); break;
+    case 4: if (segs) RM_APPLY(4, true); else RM_APPLY(4, false); break;
+    case 2: if (segs) RM_APPLY(2, true); else RM_APPLY(2, false); break;
+    default: if (segs) RM_APPLY(1, true); else RM_APPLY(1, false); break;
   }
 #undef RM_APPLY
   return (int)cudaGetLastError();
+}
+
+extern "C" int dft_apply_rowmajor(void* tbl, const void* uids, const void* pay,
+                                  long long N, int K, int U, float lr_eta,
+                                  float lr_beta, float l1, float l2,
+                                  float V_lr_eta, float V_lr_beta, float V_l2,
+                                  float V_threshold, int tail, int w_updater,
+                                  int V_updater, int vec, void* stream) {
+  return apply_rowmajor(tbl, uids, pay, N, K, U, 0, lr_eta, lr_beta, l1, l2,
+                        V_lr_eta, V_lr_beta, V_l2, V_threshold, tail,
+                        w_updater, V_updater, vec, stream);
+}
+
+// K1 on the row-major table: S segments of C lanes (U = S*C).
+extern "C" int dft_apply_rowmajor_segs(void* tbl, const void* uids,
+                                       const void* pay, long long N, int K,
+                                       int U, int C, float lr_eta,
+                                       float lr_beta, float l1, float l2,
+                                       float V_lr_eta, float V_lr_beta,
+                                       float V_l2, float V_threshold,
+                                       int tail, int w_updater, int V_updater,
+                                       int vec, void* stream) {
+  if (C <= 0 || U % C != 0) return (int)cudaErrorInvalidValue;
+  return apply_rowmajor(tbl, uids, pay, N, K, U, C, lr_eta, lr_beta, l1, l2,
+                        V_lr_eta, V_lr_beta, V_l2, V_threshold, tail,
+                        w_updater, V_updater, vec, stream);
 }

@@ -12,11 +12,13 @@ Past ``_LUT_MAX_ROWS`` table rows a batch of at least 4096 slots goes to
 the native radix localizer (data/_native.py), as in the JAX package.
 ``prep_batch(remap=, hot_rows=)`` relabels the ids by the frequency
 remap (data/remap.py) before the dedup and packs the uniques into a hot
-and a cold bucket (the hot/cold split, ``HotColdFMState``). Left out
-here, with the code that needs them: the sharded per-owner schedules
-(A9). ``build_sorted_slots`` builds no Pallas schedule (SegMeta,
-PairMeta): those are Mosaic addressing artefacts the Hopper kernels do
-not need.
+and a cold bucket (the hot/cold split, ``HotColdFMState``).
+``prep_batch_sharded`` localizes a batch for the sharded store: each of
+its S row groups on its own, stacked (``ShardPreppedBatch``).
+``build_sorted_slots`` builds no Pallas schedule (SegMeta, PairMeta),
+and the sharded prep no per-owner pair schedule (``ShardPairMetas``,
+``build_shard_pair_metas``): those are Mosaic addressing artefacts the
+Hopper kernels do not need.
 """
 
 from __future__ import annotations
@@ -329,3 +331,109 @@ def build_sorted_slots(inv: np.ndarray, vals: np.ndarray,
         slot_s[:bl] = perm
     return SortedSlots(x_sorted=x, bidx=bidx, inv_sorted=inv_s,
                        slot_sorted=slot_s)
+
+
+@dataclass
+class ShardPreppedBatch:
+    """A batch localized for the sharded store (parallel/store.py ::
+    ShardedStore): the batch's rows split into ``num_shards`` contiguous
+    row groups, one per rank, each deduplicated on its own, and the
+    per-group unique sets stacked flat, so rank s reads lanes
+    ``[s*ub, (s+1)*ub)``. All groups share one bucket size ``ub`` (the
+    largest group's, up the bucket ladder). Port of
+    ``difacto_tpu/data/prep.py::ShardPreppedBatch``."""
+
+    vals: np.ndarray     # f32 [B, L]     (global batch layout, row-split)
+    labels: np.ndarray   # f32 [B]
+    mask: np.ndarray     # f32 [B]
+    uids: np.ndarray     # i32 [S*ub]     per-group sorted uniques, stacked
+    ucounts: np.ndarray  # f32 [S*ub]
+    inv: np.ndarray      # i32 [B*L]      slot -> unique lane (group-local)
+    valid: np.ndarray    # bool [S*ub]
+    dropped: np.ndarray  # f32 [S]        unique ids dropped by a fixed bucket
+    ub: int
+    num_shards: int
+    fields: np.ndarray | None = None  # i32 [B, L] libffm fields (loss=ffm)
+    sorted_slots: SortedSlots | None = None  # stacked [S, ...] per group
+    fields_checked: bool = False  # range-validated at prep time (host)
+    # the largest (source, owner) bucket fill (shard_bucket_fills), taken
+    # here on the host so that the store's capacity needs no device sync
+    max_fill: int = 0
+
+    @property
+    def num_examples(self) -> int:
+        return int(self.mask.sum())
+
+
+def shard_bucket_fills(pb: ShardPreppedBatch, num_rows: int) -> np.ndarray:
+    """i64 [S, S] routing matrix: fills[src, owner] = how many of group
+    ``src``'s valid unique ids the store routes to rank ``owner`` (rows
+    ``[owner * rps, (owner+1) * rps)``, ``rps = num_rows // S``). The
+    sharded store sizes its all_to_all capacity from the largest."""
+    S, ub = pb.num_shards, pb.ub
+    rows_per_shard = num_rows // S
+    uids = pb.uids.reshape(S, ub).astype(np.int64)
+    bounds = np.arange(S + 1, dtype=np.int64) * rows_per_shard
+    fills = np.empty((S, S), np.int64)
+    for s in range(S):
+        n_valid = int(np.searchsorted(uids[s], num_rows, side="left"))
+        lo = np.searchsorted(uids[s][:n_valid], bounds, side="left")
+        fills[s] = lo[1:] - lo[:-1]
+    return fills
+
+
+def prep_batch_sharded(batch: Batch, num_rows: int, num_shards: int,
+                       buckets=DEFAULT_BUCKETS, fixed_ub: int | None = None,
+                       num_fields: int = 0) -> ShardPreppedBatch:
+    """Per-group host localization (see :class:`ShardPreppedBatch`).
+    ``fixed_ub`` pins the bucket size; ids past it are dropped and counted
+    in ``dropped`` (they surface as ``StepMetrics.dropped_ids``)."""
+    validate_fields(batch.fields, num_fields)
+    b, l = batch.ids.shape
+    if b % num_shards:
+        raise ValueError(f"num_shards {num_shards} must divide the batch's "
+                         f"{b} rows")
+    bs = b // num_shards
+    per = [_localize_ids(batch.ids[s * bs:(s + 1) * bs], num_rows)
+           for s in range(num_shards)]
+    if fixed_ub is None:
+        need = max(max(n_real + int(has_s), 1)
+                   for *_, has_s, n_real in per)
+        ub = bucket_for(need, buckets)
+    else:
+        ub = fixed_ub
+    u_st = np.empty((num_shards, ub), np.int32)
+    c_st = np.empty((num_shards, ub), np.float32)
+    inv_st = np.empty((num_shards, bs * l), np.int32)
+    v_st = np.empty((num_shards, ub), bool)
+    d_st = np.empty(num_shards, np.float32)
+    for s, (uids, inv, counts, has_s, n_real) in enumerate(per):
+        u_st[s], c_st[s], inv_st[s], v_st[s], d_st[s] = _pack_localized(
+            uids, inv, counts, has_s, n_real, num_rows, ub)
+    pb = ShardPreppedBatch(
+        vals=batch.vals, labels=batch.labels, mask=batch.mask,
+        uids=u_st.reshape(-1), ucounts=c_st.reshape(-1),
+        inv=inv_st.reshape(-1), valid=v_st.reshape(-1), dropped=d_st,
+        ub=ub, num_shards=num_shards, fields=batch.fields,
+        fields_checked=num_fields > 0)
+    pb.max_fill = int(shard_bucket_fills(pb, num_rows).max())
+    return pb
+
+
+def build_sorted_slots_sharded(pb: ShardPreppedBatch,
+                               with_slots: bool = False) -> SortedSlots:
+    """Per-group SortedSlots of a ShardPreppedBatch, stacked [S, ...]:
+    rank s's sorted backward reads row s. Host work with no collective
+    (the per-key sums happen before routing)."""
+    S = pb.num_shards
+    B, L = pb.vals.shape
+    bs = B // S
+    parts = [build_sorted_slots(pb.inv.reshape(S, bs * L)[s],
+                                pb.vals[s * bs:(s + 1) * bs],
+                                with_slots=with_slots) for s in range(S)]
+    return SortedSlots(
+        x_sorted=np.stack([p.x_sorted for p in parts]),
+        bidx=np.stack([p.bidx for p in parts]),
+        inv_sorted=np.stack([p.inv_sorted for p in parts]),
+        slot_sorted=(np.stack([p.slot_sorted for p in parts])
+                     if with_slots else None))

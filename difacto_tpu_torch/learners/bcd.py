@@ -31,7 +31,7 @@ against the JAX package at the same S. On the card ``index_add_`` adds
 with atomics, so the order of the sums (and an l1 threshold's last-bit
 decision) can differ from run to run. Multi-process BCD (every process
 tiling its own input parts, ``process_allgather`` of the shapes, the
-per-process placement) waits for ROADMAP A9 and raises.
+per-process placement) waits for ROADMAP A9b and raises.
 
 The linear model (V_dim must be 0) matches the reference: BCD exists
 for exact-sparsity linear CTR models, FM training uses SGD.
@@ -50,6 +50,7 @@ from ..data.batch_iter import BatchIter
 from ..data.tile_store import TileStore, build_tiles
 from ..models.losses import stable_logloss
 from ..ops.metrics import NUM_AUC_BINS, exact_auc
+from ..parallel.multihost import refuse_multiprocess
 from ..updaters.updater import FMState
 from ..utils import checkpoint
 from ..utils.device import resolve_device
@@ -94,7 +95,7 @@ def _check_one_process() -> None:
             dist.get_world_size() > 1):
         raise NotImplementedError(
             "multi-process BCD (per-process tile stores and placement) is "
-            "not in the PyTorch port yet (ROADMAP A9)")
+            "not in the PyTorch port yet (ROADMAP A9b)")
 
 
 class BCDLearner:
@@ -102,6 +103,7 @@ class BCDLearner:
     caller asks for ``"cpu"`` (utils/device.py)."""
 
     def __init__(self, cfg: Config, device=None):
+        refuse_multiprocess("BCDLearner")
         if cfg.model.V_dim != 0:
             raise ValueError("BCD trains the linear model (V_dim=0)")
         _check_one_process()

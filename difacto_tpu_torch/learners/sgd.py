@@ -16,7 +16,13 @@ Per-epoch flow mirrors RunScheduler/RunEpoch: optional feature-count pass
 (tail_feature_filter), train pass over data_in, validation pass over
 data_val (pull + predict only, no push), epoch-end callbacks, model save.
 ``DIFACTO_PROFILE`` traces the first train pass (utils/tracing.py).
-Multi-process lockstep waits for the sharded store (ROADMAP A9).
+``store=sharded`` trains through the ShardedStore at S = 1 (no process
+group): prep localizes each batch over one row group
+(data/prep.py::prep_batch_sharded), the capacity pin moves at each
+epoch's end, and checkpoints hold the gathered table, padding rows
+included, as the JAX package's one-process branch writes it. Several
+processes (a group of S > 1, or the ``DIFACTO_*`` launch contract) are
+ROADMAP A9b and raise.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ import numpy as np
 
 from ..config import Config
 from ..data.batch_iter import BatchIter
-from ..data.prep import build_sorted_slots, prep_batch, validate_fields
+from ..data.prep import (build_sorted_slots, build_sorted_slots_sharded,
+                         prep_batch, prep_batch_sharded, validate_fields)
 from ..data.remap import apply_remap, build_remap, count_sample
 from ..ops.metrics import exact_auc
-from ..parallel.store import make_store
+from ..parallel.multihost import refuse_multiprocess
+from ..parallel.store import ShardedStore, make_store
 from ..updaters.updater import FMUpdater
 from ..utils import checkpoint
 from ..utils.place import place_batch
@@ -89,9 +97,17 @@ class SGDLearner:
     caller asks for ``"cpu"`` (utils/device.py)."""
 
     def __init__(self, cfg: Config, device=None):
+        refuse_multiprocess("SGDLearner")
         self.cfg = cfg
         self.updater = FMUpdater(cfg.effective_model_param())
         self.store = make_store(self.updater, cfg, device=device)
+        self._sharded = isinstance(self.store, ShardedStore)
+        if self._sharded and self.store.S > 1:
+            raise NotImplementedError(
+                f"SGDLearner over a sharded store of {self.store.S} ranks: "
+                "the multi-process learner (input parts, lockstep, "
+                "per-process checkpoints) is not in the PyTorch port yet "
+                "(ROADMAP A9b); drive the ShardedStore directly")
         self.device = self.store.device
         self.reporter = Reporter(cfg.learner.report_interval)
         self.epoch_callbacks: list[Callable[[int, Progress], None]] = []
@@ -212,6 +228,13 @@ class SGDLearner:
         remap, hot = self._hot_remap, self.store.hot_rows
 
         def prep(b):
+            if self._sharded:  # one row group a rank (JAX sgd.py:197-245)
+                pb = prep_batch_sharded(b, num_rows, self.store.S,
+                                        num_fields=nf)
+                if sorted_slots:
+                    pb.sorted_slots = build_sorted_slots_sharded(
+                        pb, with_slots=with_slots)
+                return pb
             pb = prep_batch(b, num_rows, min_ub=min_ub, num_fields=nf,
                             remap=remap, hot_rows=hot)
             if sorted_slots:
@@ -283,6 +306,10 @@ class SGDLearner:
                     self._save({"epoch": epoch, "step": step})
         if acc is not None:
             self._fold(prog, acc)
+        if self._sharded:
+            # the epoch's end: later batches take one tight all_to_all
+            # capacity (ShardedStore.pin_capacity)
+            self.store.pin_capacity()
         st = self.store.stats(self.state)
         prog.nnz_w = float(st["nnz_w"])
         prog.nnz_V = float(st["nnz_V"])
@@ -302,8 +329,10 @@ class SGDLearner:
 
     def _save(self, meta: dict) -> str:
         """Checkpoint the state in canonical rows (a hot/cold state by the
-        run's remap)."""
-        return checkpoint.save(self.cfg.learner.model_out, self.state, meta,
+        run's remap; a sharded state gathered, padding rows included)."""
+        state = (self.store.gather_state(self.state) if self._sharded
+                 else self.state)
+        return checkpoint.save(self.cfg.learner.model_out, state, meta,
                                remap_lut=self.store.hot_lut)
 
     def eval_pass(self, uri: str) -> Progress:

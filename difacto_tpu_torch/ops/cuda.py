@@ -50,7 +50,8 @@ LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
             "bisect_ftrl4": 0, "slot_accum": 0, "bisect_rowscan": 0,
             "pull_rowmajor": 0, "apply_rowmajor": 0,
             "sweep_pull_rowmajor": 0, "sweep_apply_rowmajor": 0,
-            "segsum_chunks": 0, "segsum_rows": 0}
+            "segsum_chunks": 0, "segsum_rows": 0, "apply_pairs_segs": 0,
+            "apply_rowmajor_segs": 0}
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -69,6 +70,9 @@ _SIGNATURES = {
     # lr_eta, lr_beta, l1, l2, V_lr_eta, V_lr_beta, V_l2, V_threshold,
     # tail_feature_filter, w_updater, V_updater, stream
     "dft_sweep_apply": [_VP] * 9 + [_LL] + [_I] * 5 + [_F] * 8
+    + [_I, _I, _I, _VP],
+    # as dft_apply_pairs with the segment length C after U
+    "dft_apply_pairs_segs": [_VP] * 8 + [_LL, _I, _I, _I] + [_F] * 8
     + [_I, _I, _I, _VP],
     # as dft_apply_pairs, then the stage flags before the stream
     "dft_apply_pairs2": [_VP] * 8 + [_LL, _I, _I] + [_F] * 8
@@ -90,6 +94,9 @@ _SIGNATURES = {
     # tbl, uids, payload, N, K, U, then as dft_apply_pairs from lr_eta to
     # V_updater, vec, stream
     "dft_apply_rowmajor": [_VP] * 3 + [_LL, _I, _I] + [_F] * 8
+    + [_I, _I, _I, _I, _VP],
+    # as dft_apply_rowmajor with the segment length C after U
+    "dft_apply_rowmajor_segs": [_VP] * 3 + [_LL, _I, _I, _I] + [_F] * 8
     + [_I, _I, _I, _I, _VP],
     # tbl, sid, offsets, out, N, K, nnz, S, nb, R, V_threshold, vec, stream
     "dft_sweep_pull_rowmajor": [_VP] * 4 + [_LL] + [_I] * 5 + [_F, _I, _VP],

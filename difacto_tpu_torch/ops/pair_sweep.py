@@ -127,21 +127,24 @@ def apply_pairs_plain(state, uids: torch.Tensor, payload: torch.Tensor,
 
 
 def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
-                  payload: torch.Tensor, param: FMParam, *extra) -> FMState:
+                  payload: torch.Tensor, param: FMParam, *extra,
+                  seg_len: int | None = None) -> FMState:
     """Check what the apply kernels take and launch the one named
-    ``entry`` (``apply_pairs`` or ``apply_pairs2``: one contract), with
-    ``extra`` arguments before the stream."""
+    ``entry`` (``apply_pairs``, ``apply_pairs2`` or, over segments of
+    ``seg_len`` lanes, ``apply_pairs_segs``: one contract), with ``extra``
+    arguments before the stream."""
     n, k, u = state.num_rows, state.k, uids.shape[0]
     dev = state.device
     for name in ("w", "z", "n", "cnt"):
         cuda.require(getattr(state, name), name, torch.float32, (n,), dev)
     for name in ("V", "nV"):
         cuda.require(getattr(state, name), name, torch.float32, (k, n), dev)
-    _check_stream(entry, uids, payload, k, dev)
+    _check_stream(entry, uids, payload, k, dev, seg_len=seg_len)
+    segs = () if seg_len is None else (seg_len,)
     rc = getattr(cuda.library(), "dft_" + entry)(
         state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
         state.cnt.data_ptr(), state.V.data_ptr(), state.nV.data_ptr(),
-        uids.data_ptr(), payload.data_ptr(), n, k, u,
+        uids.data_ptr(), payload.data_ptr(), n, k, u, *segs,
         *updater_args(param), *extra, cuda.stream(dev),
     )
     cuda.check(rc, entry)
@@ -150,49 +153,98 @@ def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
 
 
 def _check_stream(entry: str, uids: torch.Tensor, payload: torch.Tensor,
-                  k: int, dev: torch.device, order: bool = True) -> None:
-    """What every apply kernel takes as its id stream and payload.
-    ``order=False`` for a kernel that asserts the ids' order itself."""
+                  k: int, dev: torch.device, order: bool = True,
+                  seg_len: int | None = None) -> None:
+    """What every apply kernel takes as its id stream and payload: one
+    non-decreasing stream, or (``seg_len``) segments of ``seg_len`` lanes,
+    each non-decreasing. ``order=False`` for a kernel that asserts the
+    ids' order itself."""
     u = uids.shape[0]
     cuda.require(uids, "uids", torch.int32, (u,), dev)
     cuda.require(payload, "payload", torch.float32, (3 + k, u), dev)
-    if order and u > 1:
+    segs = _segments(uids, seg_len)
+    if order and segs.shape[1] > 1:
         # runs of equal ids must be consecutive; checked on the device,
         # without a host sync
-        torch._assert_async(torch.all(uids[1:] >= uids[:-1]),
-                            f"{entry}: uids must be non-decreasing")
+        torch._assert_async(torch.all(segs[:, 1:] >= segs[:, :-1]),
+                            f"{entry}: uids must be non-decreasing"
+                            + ("" if seg_len is None else
+                               " within each segment"))
+
+
+def _segments(uids: torch.Tensor, seg_len: int | None) -> torch.Tensor:
+    """The stream as [S, C] segments (one segment without ``seg_len``);
+    raises unless ``seg_len`` divides its length."""
+    u = uids.shape[0]
+    if seg_len is None:
+        return uids[None]
+    if seg_len <= 0 or u % seg_len:
+        raise ValueError(f"seg_len {seg_len} does not divide the stream's "
+                         f"{u} lanes")
+    return uids.view(u // seg_len, seg_len)
 
 
 def _apply_rowmajor(state: PackedFMState, uids: torch.Tensor,
                     payload: torch.Tensor, param: FMParam,
-                    vec: int = 0) -> PackedFMState:
-    """Launch the row-major apply (``vec`` as in :func:`_pull_rowmajor`)."""
+                    vec: int = 0, seg_len: int | None = None
+                    ) -> PackedFMState:
+    """Launch the row-major apply (``vec`` as in :func:`_pull_rowmajor`),
+    over segments of ``seg_len`` lanes when it is given (K1)."""
     n, k = state.num_rows, state.k
     dev = state.device
     cuda.require(state.tbl, "tbl", torch.float32, (n, 4 + 2 * k), dev)
-    _check_stream("apply_rowmajor", uids, payload, k, dev, order=False)
-    rc = cuda.library().dft_apply_rowmajor(
+    _check_stream("apply_rowmajor", uids, payload, k, dev, order=False,
+                  seg_len=seg_len)
+    name, segs = (("apply_rowmajor", ()) if seg_len is None
+                  else ("apply_rowmajor_segs", (seg_len,)))
+    rc = getattr(cuda.library(), "dft_" + name)(
         state.tbl.data_ptr(), uids.data_ptr(), payload.data_ptr(), n, k,
-        uids.shape[0], *updater_args(param), vec, cuda.stream(dev),
+        uids.shape[0], *segs, *updater_args(param), vec, cuda.stream(dev),
     )
-    cuda.check(rc, "apply_rowmajor")
-    cuda.LAUNCHES["apply_rowmajor"] += 1
+    cuda.check(rc, name)
+    cuda.LAUNCHES[name] += 1
     return state
 
 
+def apply_pairs_segs_plain(state, uids: torch.Tensor,
+                           payload: torch.Tensor, param: FMParam,
+                           seg_len: int):
+    """The plain version of K1 (``apply_pairs`` with ``seg_len``): a
+    stable sort of the ids, then :func:`apply_pairs_plain`, which sums
+    each row in lane order of the sorted stream: segment first, then
+    lane, the kernels' order."""
+    _segments(uids, seg_len)
+    order = torch.sort(uids, stable=True).indices
+    return apply_pairs_plain(state, uids[order], payload[:, order], param)
+
+
 def apply_pairs(state, uids: torch.Tensor, payload: torch.Tensor,
-                param: FMParam):
+                param: FMParam, seg_len: int | None = None):
     """Update ``state`` (FMState or PackedFMState) IN PLACE from the
     planar payload ``[3+K, U]`` (gw | gV | add_cnt | touch) over
     non-decreasing ``uids`` (i32, sentinel ``N`` pads): once per touched
     table row, the w updater (tail filter applied), ``cnt += add_cnt``,
     and the V updater gated by the pre-update count. In place replaces the
     TPU kernel's ``input_output_aliases``; returns ``state`` for
-    chaining. The two layouts' kernels give the same bits."""
+    chaining. The two layouts' kernels give the same bits.
+
+    ``seg_len=C`` (K1, the sharded store owner's receive stream): ``uids``
+    is ``U // C`` segments of C lanes, each non-decreasing with its
+    sentinels at its end, and an id may repeat across segments; each
+    touched row is updated once from its payload summed over all its
+    lanes, segment first, then lane (``apply_pairs_segs`` and
+    ``apply_rowmajor_segs``, counted apart from the one-stream kernels).
+    ``seg_len=None`` is the one-stream contract."""
     if uids.device.type == "cpu":
+        if seg_len is not None:
+            return apply_pairs_segs_plain(state, uids, payload, param,
+                                          seg_len)
         return apply_pairs_plain(state, uids, payload, param)
     if isinstance(state, PackedFMState):
-        return _apply_rowmajor(state, uids, payload, param)
+        return _apply_rowmajor(state, uids, payload, param, seg_len=seg_len)
+    if seg_len is not None:
+        return _launch_apply("apply_pairs_segs", state, uids, payload, param,
+                             seg_len=seg_len)
     return _launch_apply("apply_pairs", state, uids, payload, param)
 
 

@@ -39,8 +39,17 @@ kernels when the state lies on the card, their plain versions when it
 lies on the CPU. ``loss=ffm`` runs every path with rows of 1 + F*k
 floats (``Config.effective_model_param``) and the FFM math of
 learners/step.py; with ``num_fields`` > 0 (libffm) every path reads the
-batch's explicit fields, validated on the host. The sharded store waits
-(ROADMAP A9).
+batch's explicit fields, validated on the host.
+
+:class:`ShardedStore` (``store=sharded``) row-shards the table over the
+ranks of a ``torch.distributed`` group, one shard a rank (parallel/comm.py),
+as the JAX ShardedStore does over a device mesh: the owner of an id is
+``id // rows_per_shard``, requests and gradients travel by all_to_all in
+per-owner capacity buckets (overflow counted in ``dropped_ids``), and the
+owner pulls and applies over the receive stream, S per-source segments:
+the pair kernels B1 and K1 on ``kernel=pairs``, the updater's gather, a
+dedup and B5 (or the updater) on ``kernel=pallas`` (``xla``). With no
+group (S = 1) it is the pair path of :class:`LocalStore` on the same rows.
 """
 
 from __future__ import annotations
@@ -49,7 +58,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.prep import PreppedBatch, build_sorted_slots, validate_fields
+from ..data.prep import (PreppedBatch, ShardPreppedBatch, SortedSlots,
+                         build_sorted_slots, build_sorted_slots_sharded,
+                         validate_fields)
 from ..learners.step import (StepMetrics, worker_forward, worker_grads,
                              worker_grads_sorted)
 from ..ops.localize import Localized, localize
@@ -58,9 +69,10 @@ from ..ops.sweep import sweep_apply, sweep_pull
 from ..ops.sweep_ms import apply_payload
 from ..updaters.updater import (FMState, FMUpdater, HotColdFMState, LEAVES,
                                 PackedFMState, StackedFMState, leaf_planes,
-                                pack_state, unpack_state)
+                                pack_state, stack_state, unpack_state)
 from ..utils.device import resolve_device
 from ..utils.place import place_batch
+from .comm import Comm
 
 
 def _require_fields(fields, num_fields: int):
@@ -487,8 +499,482 @@ class LocalStore:
         return self.updater.stats(state)
 
 
-def make_store(updater: FMUpdater, cfg: Config, device=None) -> LocalStore:
-    """Store::Create. The port runs on one card: ``store=auto`` and
-    ``store=local`` both give a LocalStore (``sharded`` is refused by the
-    config, ROADMAP A9)."""
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _cap_ladder(c: int) -> int:
+    """A capacity rounded up a ~1.5x geometric ladder of 128-multiples, so
+    that batches land on few distinct capacities (the JAX package's
+    ladder: each capacity was a compile there; it is kept so that the
+    capacities, and with them ``dropped_ids``, match)."""
+    v = 128
+    while v < c:
+        v = _round_up(int(v * 3 / 2), 128)
+    return v
+
+
+# the lane window of the JAX pair kernels: their capacity is a multiple of
+# it, and so is this store's on kernel=pairs, so that both drop the same
+# ids (the Hopper kernels take any capacity)
+PAIR_WINDOW = 128
+
+
+class ShardedStore(LocalStore):
+    """Row-sharded store over a ``torch.distributed`` group (reference:
+    StoreDist over ps-lite; port of the JAX ShardedStore,
+    ``difacto_tpu/parallel/store.py:818-1732``). Rank r holds rows
+    ``[r * rows_per_shard, (r+1) * rows_per_shard)`` of a table padded up
+    so that S ranks divide it in whole ``block_rows`` (padded rows are
+    never hashed into and hold zeros), in the layout ``LocalStore``
+    resolves. Every rank is handed the same GLOBAL batch, prepped over S
+    row groups (data/prep.py::prep_batch_sharded), steps its own group
+    and returns the metrics summed over the ranks (``psum``); an eval
+    step returns the scores of the whole batch.
+
+    S is the size of the initialized default group, 1 without one
+    (parallel/comm.py). ``device``
+    defaults to the card and raises without one unless the caller passes
+    ``"cpu"``. The train step updates the rank's shard in place."""
+
+    def __init__(self, updater: FMUpdater, cfg: Config, device=None):
+        if cfg.shard.hot_rows:
+            raise ValueError(
+                "hot_rows is a LocalStore big-table feature (store=local): "
+                "a sharded table's shards are small already")
+        super().__init__(updater, cfg, device=device)
+        self.comm = Comm()
+        S = self.S = self.comm.size
+        self.rank = self.comm.rank
+        if cfg.shard.num_shards and cfg.shard.num_shards != S:
+            raise ValueError(f"num_shards {cfg.shard.num_shards} is not the "
+                             f"process group's size {S} (one shard a rank)")
+        if cfg.data.batch_size % S:
+            raise ValueError(f"{S} ranks must divide batch_size "
+                             f"{cfg.data.batch_size}")
+        # hashed ids live in [0, 2^num_bits); the table pads up so that S
+        # divides it in block-aligned shards (a non-power-of-two S, as the
+        # reference's key ranges allowed any server count)
+        self.hash_rows = 1 << cfg.data.num_bits
+        per = -(-self.hash_rows // S)
+        self.rows_per_shard = _round_up(per, min(cfg.shard.block_rows, per))
+        self.num_rows = self.rows_per_shard * S
+        self.block_rows = min(cfg.shard.block_rows, self.rows_per_shard)
+        self.lo = self.rank * self.rows_per_shard
+        self.unique_size = cfg.shard.unique_size or (
+            cfg.data.batch_size // S * cfg.data.max_nnz_per_row)
+        self.pairs = self.kernel == "pairs"
+        # the all_to_all capacity for the worst case (device-localized
+        # batches, and the floor an explicit unique_size sets)
+        self.capacity = self._capacity_for(self.unique_size)
+        # the epoch pin of the pairs capacity (pin_capacity)
+        self._cap_seen = 0
+        self._cap_pin: int | None = None
+
+    # -- all_to_all capacity (JAX store.py:1007-1063, kept verbatim so that
+    # the same batches drop the same ids) ----------------------------------
+
+    def _capacity_for(self, unique_lanes: int) -> int:
+        """The per-(source, owner) slot capacity for a rank's unique-lane
+        count: its even share times ``capacity_factor``, 8-aligned; a
+        multiple of the pair window on ``kernel=pairs``."""
+        perfect = -(-unique_lanes // self.S)
+        c = _round_up(max(int(perfect * self.cfg.shard.capacity_factor), 8),
+                      8)
+        return _round_up(c, PAIR_WINDOW) if self.pairs else c
+
+    def pairs_capacity(self, pb: ShardPreppedBatch) -> int:
+        """The capacity of the pairs path for one batch: its largest
+        (source, owner) bucket fill (``pb.max_fill``, which prep takes on
+        the host by data/prep.py::shard_bucket_fills over this store's
+        rows), W-aligned (no drops), then :meth:`_cap_resolve`. Every rank
+        reads it from the global batch: no collective."""
+        return self._cap_resolve(_round_up(max(pb.max_fill, 1), PAIR_WINDOW))
+
+    def _cap_resolve(self, c: int) -> int:
+        """Exact W-aligned need -> served capacity: the epoch pin when it
+        fits, else the ``unique_size`` floor and the ladder."""
+        self._cap_seen = max(self._cap_seen, c)
+        if self._cap_pin is not None and c <= self._cap_pin:
+            return self._cap_pin
+        if self.cfg.shard.unique_size:
+            c = max(c, self.capacity)
+        return _cap_ladder(c)
+
+    def pin_capacity(self) -> int:
+        """Pin the pairs capacity to the largest exact need seen so far
+        (the learner calls it at each epoch boundary). Returns the pin."""
+        if self._cap_seen:
+            self._cap_pin = max(self._cap_pin or 0, self._cap_seen)
+        return self._cap_pin or 0
+
+    # -- state --------------------------------------------------------------
+
+    def _shard_of(self, leaves, rows_in: int):
+        """This rank's rows of the planar leaves ``leaves`` (name ->
+        [.., rows_in] tensor, anywhere), zero-padded past ``rows_in``, on
+        the device in this store's layout."""
+        lo, hi = self.lo, self.lo + self.rows_per_shard
+        out = {}
+        for name in LEAVES:
+            x = leaves[name][..., lo:min(hi, rows_in)].to(self.device,
+                                                           torch.float32)
+            pad = self.rows_per_shard - x.shape[-1]
+            out[name] = (torch.nn.functional.pad(x, (0, pad)) if pad
+                         else x).contiguous()
+        st = FMState(**out)
+        if self.layout == "packed":
+            return pack_state(st)
+        if self.layout == "stacked":
+            return stack_state(st)
+        return st
+
+    def init_state(self, seed: int = 0):
+        """Initialized over the HASH space, as one table, then this rank's
+        rows (zero padding past the hash space): the model depends on
+        ``num_bits`` and ``seed`` alone, not on S (JAX
+        ``store.py:1093-1121``)."""
+        full = self.updater.init_state(self.hash_rows, seed, self.device)
+        return self._shard_of({n: getattr(full, n) for n in LEAVES},
+                              self.hash_rows)
+
+    def place_state(self, host_state):
+        """This rank's rows of a whole table in any layout with the six
+        leaves (a checkpoint's FMState), on the device in this store's
+        layout. The table may lack the padding rows (they are zeros) but
+        not rows of the hash space (JAX ``store.py:1693-1729``)."""
+        n_in = host_state.num_rows
+        if n_in < self.hash_rows or n_in > self.num_rows:
+            raise ValueError(
+                f"checkpoint has {n_in} rows; this store's hash space is "
+                f"{self.hash_rows} (padded table {self.num_rows}) — "
+                "num_bits mismatch?")
+        if host_state.k != self.param.V_dim:
+            raise ValueError(f"checkpoint has V_dim {host_state.k} but this "
+                             f"store expects {self.param.V_dim} (F*k for "
+                             "loss=ffm)")
+        return self._shard_of({n: getattr(host_state, n) for n in LEAVES},
+                              n_in)
+
+    def gather_state(self, state) -> FMState:
+        """The whole padded table as a planar FMState on the CPU, every
+        rank's rows in order (the checkpoint's and the tests' view; JAX's
+        ``device_get`` of the global state). A collective: every rank
+        calls it."""
+        out = {}
+        for name in LEAVES:
+            planes = leaf_planes(getattr(state, name))
+            full = torch.zeros((planes.shape[0], self.num_rows))
+            for j in range(planes.shape[0]):
+                full[j] = self.comm.all_gather(
+                    planes[j].contiguous()).reshape(-1).cpu()
+            out[name] = full if name in ("V", "nV") else full[0]
+        return FMState(**out)
+
+    def stats(self, state) -> dict[str, float]:
+        local = self.updater.stats(state)
+        keys = sorted(local)
+        tot = self.comm.all_reduce(torch.tensor(
+            [local[k] for k in keys], dtype=torch.float64, device=self.device))
+        return {k: float(v) for k, v in zip(keys, tot.tolist())}
+
+    # -- this rank's part of a global batch ----------------------------------
+
+    def _rows(self, x):
+        """This rank's row group of a global [B, ...] array."""
+        if x is None:
+            return None
+        bs = x.shape[0] // self.S
+        return x[self.rank * bs:(self.rank + 1) * bs]
+
+    def _local(self, pb: ShardPreppedBatch, need_slots: bool):
+        """(this rank's PreppedBatch on the device, its prep drops)."""
+        if not isinstance(pb, ShardPreppedBatch):
+            raise TypeError("the sharded store takes a ShardPreppedBatch "
+                            "(data/prep.py::prep_batch_sharded)")
+        if pb.num_shards != self.S:
+            raise ValueError(f"batch prepped over {pb.num_shards} groups for "
+                             f"{self.S} ranks")
+        if self.expects_fields:
+            pb.fields = _prepped_fields(pb, self.num_fields)
+            pb.fields_checked = True
+        ffm = self.loss == "ffm"
+        ss = pb.sorted_slots
+        if need_slots and (ss is None or (ffm and ss.slot_sorted is None)):
+            if isinstance(pb.inv, torch.Tensor):
+                raise ValueError("a placed batch needs its sorted slots "
+                                 "built before placement (data/prep.py)")
+            pb.sorted_slots = ss = build_sorted_slots_sharded(
+                pb, with_slots=ffm)
+        r, ub = self.rank, pb.ub
+        lanes = slice(r * ub, (r + 1) * ub)
+        nl = pb.inv.shape[0] // self.S
+        local = PreppedBatch(
+            vals=self._rows(pb.vals), labels=self._rows(pb.labels),
+            mask=self._rows(pb.mask), uids=pb.uids[lanes],
+            ucounts=pb.ucounts[lanes], inv=pb.inv[r * nl:(r + 1) * nl],
+            valid=pb.valid[lanes], fields=self._rows(pb.fields),
+            fields_checked=pb.fields_checked,
+            sorted_slots=None if ss is None or not need_slots else
+            SortedSlots(x_sorted=ss.x_sorted[r], bidx=ss.bidx[r],
+                        inv_sorted=ss.inv_sorted[r],
+                        slot_sorted=None if ss.slot_sorted is None
+                        else ss.slot_sorted[r]))
+        return place_batch(local, self.device), pb.dropped[r]
+
+    # -- the per-rank program (JAX: inside shard_map) ------------------------
+
+    def _routing(self, loc: Localized, C: int):
+        """Scatter-form routing: each sorted unique lane's slot in the
+        per-owner send buckets, ``pos`` (S*C for a lane not sent), and the
+        lanes a full bucket drops (JAX ``store.py:1304``)."""
+        S, U = self.S, loc.uids.shape[0]
+        owner = torch.clamp(loc.uids.long() // self.rows_per_shard,
+                            max=S - 1)
+        start = torch.searchsorted(
+            owner, torch.arange(S, device=owner.device, dtype=owner.dtype))
+        slot = torch.arange(U, device=owner.device) - start[owner]
+        ok = loc.valid & (slot < C)
+        pos = torch.where(ok, owner * C + slot, S * C)
+        return pos, ok, (loc.valid & ~ok).to(torch.float32).sum()
+
+    def _gather_routing(self, loc: Localized, C: int):
+        """Gather-form routing of the pairs path (JAX ``store.py:1472``):
+        send slot (o, j) reads unique lane ``start[o] + j`` (``src``, sent
+        where ``take``); lane -> its slot ``pos``, ``ok`` where it was
+        sent; the lanes a full bucket drops."""
+        S, U = self.S, loc.uids.shape[0]
+        dev = loc.uids.device
+        bnds = torch.arange(S + 1, device=dev, dtype=torch.int64) * (
+            self.rows_per_shard)
+        # st[S] is the first sentinel lane (sentinel = num_rows = S * rps)
+        st = torch.searchsorted(loc.uids.long(), bnds)
+        cnt = st[1:] - st[:-1]
+        t = torch.arange(S * C, device=dev)
+        o = t // C
+        j = t - o * C
+        src = st[:-1][o] + j
+        take = j < cnt[o]
+        owner = torch.clamp(loc.uids.long() // self.rows_per_shard,
+                            max=S - 1)
+        slot = torch.arange(U, device=dev) - st[:-1][owner]
+        ok = loc.valid & (slot < C)
+        pos = torch.where(ok, owner * C + slot, S * C - 1)
+        return src, take, pos, ok, (loc.valid & ~ok).to(torch.float32).sum()
+
+    def _receive(self, recv_ids: torch.Tensor):
+        """The owner's view of the received ids: local rows, the local
+        sentinel ``rows_per_shard`` on empty slots, and the valid mask."""
+        rvalid = recv_ids >= 0
+        rl = torch.where(rvalid, recv_ids - self.lo,
+                         self.rows_per_shard).to(torch.int32)
+        return rl, rvalid
+
+    def _routed_pull(self, state, loc: Localized, C: int):
+        """The XLA and sweep paths' pull (JAX ``store.py:1319``): ids to
+        their owners, the owner's gather, rows back. Returns (rows_u
+        [U, 1+K], the push's context, lanes dropped)."""
+        S = self.S
+        pos, ok, dropped = self._routing(loc, C)
+        send_ids = torch.full((S * C + 1,), -1, dtype=torch.int32,
+                              device=loc.uids.device)
+        send_ids[pos] = torch.where(ok, loc.uids, -1).to(torch.int32)
+        rl, rvalid = self._receive(self.comm.all_to_all(send_ids[:S * C]))
+        rows_local = self.updater.pull(state, rl, rvalid)  # [S*C, 1+K]
+        rows_back = self.comm.all_to_all(rows_local)
+        rows_u = torch.where(ok[:, None],
+                             rows_back[pos.clamp(max=S * C - 1)], 0.0)
+        return rows_u, (pos, ok, rl, rvalid), dropped
+
+    def _routed_push(self, state, loc: Localized, grads: torch.Tensor, ctx,
+                     C: int):
+        """Per-key gradients (planar [1+K, U]) and counts to their owners;
+        the owner dedups its S*C received lanes (``torch.unique``, padded
+        to S*C with the local sentinel), sums them (``index_add_``) and
+        applies once a row: B5 on ``kernel=pallas``, the updater on
+        ``kernel=xla`` (JAX ``store.py:1343-1386``)."""
+        S, D = self.S, grads.shape[0]
+        pos, ok, rl, rvalid = ctx
+        payload = torch.cat([grads.T, loc.counts[:, None]], dim=1)
+        send = torch.zeros((S * C + 1, D + 1), dtype=torch.float32,
+                           device=payload.device)
+        send[pos] = torch.where(ok[:, None], payload, 0.0)
+        recv = self.comm.all_to_all(send[:S * C])
+        rps = self.rows_per_shard
+        ouids, oinv = torch.unique(rl, sorted=True, return_inverse=True)
+        ouids = torch.nn.functional.pad(ouids, (0, S * C - ouids.shape[0]),
+                                        value=rps).to(torch.int32)
+        ovalid = ouids < rps
+        agg = torch.zeros((S * C, D + 1), dtype=torch.float32,
+                          device=recv.device)
+        agg.index_add_(0, oinv, recv * rvalid[:, None].to(torch.float32))
+        if self.pallas:
+            return sweep_apply(state, ouids, agg[:, :D].T, agg[:, D], ovalid,
+                               self.param, block_rows=self.block_rows)
+        return self.updater.update(state, ouids, agg[:, :D], agg[:, D],
+                                   ovalid)
+
+    def _pull_pairs(self, state, loc: Localized, C: int):
+        """The pairs path's pull (JAX ``store.py:1504``): B1 over the
+        owner's receive stream, S sorted segments of C lanes. S = 1 is
+        LocalStore's pull on the rank's own stream."""
+        if self.S == 1:
+            rows_u, _ = self._pull(state, loc)
+            return rows_u, None, torch.zeros((), device=loc.uids.device)
+        S, U = self.S, loc.uids.shape[0]
+        src, take, pos, ok, dropped = self._gather_routing(loc, C)
+        send_ids = torch.where(take, loc.uids[src.clamp(max=U - 1)], -1)
+        rl, rvalid = self._receive(self.comm.all_to_all(
+            send_ids.to(torch.int32)))
+        rows_p = pull_pairs(state, rl, self.param)  # [1+K, S*C]
+        rows_back = self.comm.all_to_all(
+            torch.where(rvalid[:, None], rows_p.T, 0.0))
+        rows_u = torch.where(ok[:, None], rows_back[pos], 0.0)
+        return rows_u, (src, take, rl, rvalid), dropped
+
+    def _push_pairs(self, state, loc: Localized, grads: torch.Tensor, ctx,
+                    C: int):
+        """The pairs path's push (JAX ``store.py:1554``): gradients to
+        their owners, then K1, B2 over the S segments of the receive
+        stream, each row once with its total. S = 1 is LocalStore's
+        apply."""
+        if self.S == 1:
+            return self._apply(state, loc, grads, None)
+        U, D = loc.uids.shape[0], grads.shape[0]
+        src, take, rl, rvalid = ctx
+        payload = torch.cat([grads.T, loc.counts[:, None]], dim=1)
+        send = torch.where(take[:, None], payload[src.clamp(max=U - 1)], 0.0)
+        recv = self.comm.all_to_all(send)
+        rf = rvalid.to(torch.float32)
+        # planar gw | gV | add_cnt | touch; an id several sources sent
+        # spans several segments, and K1 sums them before its one update
+        pay = torch.cat([recv[:, :D].T * rf[None, :],
+                         (recv[:, D] * rf)[None, :], rf[None, :]], dim=0)
+        return apply_pairs(state, rl, pay, self.param, seg_len=C)
+
+    def _sum_metrics(self, metrics: StepMetrics, dropped) -> StepMetrics:
+        """The step's metrics summed over the ranks (``psum``), in one
+        all_reduce."""
+        m = metrics._replace(dropped_ids=metrics.dropped_ids + dropped)
+        if self.S == 1:
+            return m
+        flat = self.comm.all_reduce(torch.cat([t.reshape(-1) for t in m]))
+        out, at = [], 0
+        for t in m:
+            out.append(flat[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+        return StepMetrics(*out)
+
+    # -- steps ---------------------------------------------------------------
+
+    def _route(self, pb: ShardPreppedBatch, loc: Localized):
+        """(pull, push, capacity) of the table path for this batch."""
+        if self.pairs:
+            return self._pull_pairs, self._push_pairs, self.pairs_capacity(pb)
+        return (self._routed_pull, self._routed_push,
+                self._capacity_for(loc.uids.shape[0]))
+
+    def train_step_prepped(self, state, pb: ShardPreppedBatch):
+        """This rank's row group of ``pb``: pull -> forward -> backward
+        (scatter, or B3 on the rank's sorted slots, before routing) ->
+        push and apply on the owners. Returns (state, metrics summed over
+        the ranks)."""
+        lb, dropped_prep = self._local(pb, need_slots=self.sorted_grads)
+        loc = Localized(uids=lb.uids, inv=lb.inv, counts=lb.ucounts,
+                        valid=lb.valid)
+        pull, push, C = self._route(pb, loc)
+        rows_u, ctx, dropped = pull(state, loc, C)
+        fields = self._fields(lb.fields)
+        if self.sorted_grads:
+            ss = lb.sorted_slots
+            grads, _, metrics = worker_grads_sorted(
+                rows_u, loc, lb.vals, lb.labels, lb.mask,
+                (ss.x_sorted, ss.bidx, ss.inv_sorted),
+                slot_s=ss.slot_sorted, fields=fields, **self.loss_kw)
+        else:
+            grads_u, _, metrics = worker_grads(rows_u, loc, lb.vals,
+                                               lb.labels, lb.mask,
+                                               fields=fields, **self.loss_kw)
+            grads = grads_u.T
+        state = push(state, loc, grads, ctx, C)
+        return state, self._sum_metrics(metrics, dropped + dropped_prep)
+
+    def _gather_py(self, py: torch.Tensor) -> torch.Tensor:
+        return self.comm.all_gather(py).reshape(-1)
+
+    def eval_step_prepped(self, state, pb: ShardPreppedBatch
+                          ) -> tuple[StepMetrics, torch.Tensor]:
+        """pull -> forward. Returns (metrics summed over the ranks, the
+        whole batch's py [B])."""
+        lb, dropped_prep = self._local(pb, need_slots=False)
+        loc = Localized(uids=lb.uids, inv=lb.inv, counts=lb.ucounts,
+                        valid=lb.valid)
+        pull, _, C = self._route(pb, loc)
+        rows_u, _, dropped = pull(state, loc, C)
+        py, metrics = worker_forward(rows_u, loc, lb.vals, lb.labels,
+                                     lb.mask, fields=self._fields(lb.fields),
+                                     **self.loss_kw)
+        return (self._sum_metrics(metrics, dropped + dropped_prep),
+                self._gather_py(py))
+
+    # -- device-localized steps (raw ids; JAX store.py:1388-1404) ------------
+
+    def _raw(self, ids, vals, labels, mask, fields):
+        return super()._raw(self._rows(ids), self._rows(vals),
+                            self._rows(labels), self._rows(mask),
+                            self._rows(fields))
+
+    def train_step(self, state, ids, vals, labels, mask, fields=None):
+        """A train step on a raw GLOBAL batch (``ids`` i32 [B, L]): this
+        rank's rows localized on the device into ``unique_size`` lanes,
+        the XLA or sweep path's routing and push."""
+        loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
+                                                    fields)
+        C = self._capacity_for(loc.uids.shape[0])
+        rows_u, ctx, dropped = self._routed_pull(state, loc, C)
+        grads_u, _, metrics = worker_grads(rows_u, loc, vals, labels, mask,
+                                           fields=fields, **self.loss_kw)
+        state = self._routed_push(state, loc, grads_u.T, ctx, C)
+        return state, self._sum_metrics(metrics, dropped + loc.overflow)
+
+    def eval_step(self, state, ids, vals, labels, mask,
+                  fields=None) -> tuple[StepMetrics, torch.Tensor]:
+        loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
+                                                    fields)
+        rows_u, _, dropped = self._routed_pull(state, loc,
+                                        self._capacity_for(
+                                            loc.uids.shape[0]))
+        py, metrics = worker_forward(rows_u, loc, vals, labels, mask,
+                                     fields=fields, **self.loss_kw)
+        return (self._sum_metrics(metrics, dropped + loc.overflow),
+                self._gather_py(py))
+
+    def count_step(self, state, ids):
+        """The feature-frequency pass over a raw GLOBAL batch: this rank's
+        per-id counts routed to their owners, which add them to ``cnt``
+        (JAX ``store.py:1655-1680``)."""
+        ids = _as_tensor(self._rows(ids), self.device, torch.int32)
+        loc = localize(ids, self.num_rows, self.unique_size)
+        S, C = self.S, self._capacity_for(loc.uids.shape[0])
+        pos, ok, _ = self._routing(loc, C)
+        send_ids = torch.full((S * C + 1,), -1, dtype=torch.int32,
+                              device=ids.device)
+        send_ids[pos] = torch.where(ok, loc.uids, -1).to(torch.int32)
+        send_cnt = torch.zeros(S * C + 1, dtype=torch.float32,
+                               device=ids.device)
+        send_cnt[pos] = torch.where(ok, loc.counts, 0.0)
+        rl, rvalid = self._receive(self.comm.all_to_all(send_ids[:S * C]))
+        recv_cnt = self.comm.all_to_all(send_cnt[:S * C])
+        state.cnt.index_add_(0, torch.where(rvalid, rl, 0).long(),
+                             torch.where(rvalid, recv_cnt, -0.0))
+        return state
+
+
+def make_store(updater: FMUpdater, cfg: Config, device=None):
+    """Store::Create. ``store=sharded`` gives a :class:`ShardedStore` over
+    the process group (S = 1 without one); ``local`` and ``auto`` a
+    :class:`LocalStore` (the JAX package's ``auto`` is sharded only over
+    more than one device, and the port runs one process)."""
+    if cfg.shard.store == "sharded":
+        return ShardedStore(updater, cfg, device=device)
     return LocalStore(updater, cfg, device=device)

@@ -15,7 +15,7 @@ many-to-one, so the hash row is the model's native key here).
 Port of ``difacto_tpu/tools/dump_model.py``: host NumPy over the port's
 ``utils/checkpoint.load``, local or remote prefix (data/io.py); the same
 text, byte for byte, on the same checkpoint. The per-process sharded
-layout (``load_full`` in the JAX package) waits for ROADMAP A9 and raises.
+layout (``load_full`` in the JAX package) waits for ROADMAP A9b and raises.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ partitioning would produce (reference: ps-lite GetServerKeyRanges).
 Port of ``difacto_tpu/tools/table_stats.py``: host NumPy over the port's
 ``utils/checkpoint.load``, local or remote prefix (data/io.py); the same
 dict on the same checkpoint. The per-process sharded layout
-(``load_full`` in the JAX package) waits for ROADMAP A9 and raises.
+(``load_full`` in the JAX package) waits for ROADMAP A9b and raises.
 """
 
 from __future__ import annotations

@@ -12,8 +12,9 @@ would be another 9.7 GB on the card), and a hot/cold state un-permuted
 into canonical hash rows by the run's remap lut, so a model trained in
 one layout loads into any other, and into the JAX package. A prefix may
 be a remote URI (``gs://``, ``s3://``, ``memory://``, ...; data/io.py),
-as in the JAX package. The per-process sharded layout waits for the
-sharded store (ROADMAP A9).
+as in the JAX package. A sharded store's run saves its gathered table
+(padding rows included), as the JAX package's one-process branch does;
+the per-process sharded layout is ROADMAP A9b.
 
 :func:`state_from_numpy` and :func:`state_to_numpy` carry a state between
 the two packages as NumPy arrays.
@@ -155,7 +156,7 @@ def load(path_prefix: str) -> tuple[FMState, dict]:
     if meta.get("sharded"):
         raise NotImplementedError(
             f"{path_prefix} is a per-process sharded checkpoint: not in the "
-            "PyTorch port yet (ROADMAP A9, sharded store)"
+            "PyTorch port yet (ROADMAP A9b)"
         )
     with _open_npz(path_prefix + ".npz") as zf:
         state = state_from_numpy({k: zf[k] for k in LEAVES})

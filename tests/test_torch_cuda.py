@@ -25,7 +25,8 @@ from difacto_tpu_torch.ops import cuda, pair_sweep, segsum, sweep, sweep_ms
 from difacto_tpu_torch.probes import bench_slot_accum as slot_probe
 from difacto_tpu_torch.probes import bisect_apply as bisect_probe
 from difacto_tpu_torch.probes import hw_packed_pairs as packed_probe
-from difacto_tpu_torch.updaters.updater import pack_state, unpack_state
+from difacto_tpu_torch.updaters.updater import (FMUpdater, pack_state,
+                                                unpack_state)
 from difacto_tpu_torch.utils.checkpoint import state_from_numpy
 
 torch.set_num_threads(2)
@@ -1613,3 +1614,240 @@ def test_cuda_trace_names_the_kernels(card, tmp_path, monkeypatch):
     for kernel in ("rowmajor_pull_kernel", "segsum_tiles_kernel",
                    "rowmajor_apply_kernel"):
         assert any(kernel in n for n in names), kernel
+
+
+# -- K1: the apply over S sorted segments (the sharded store owner's receive
+# stream; csrc/apply_pairs.cu apply_pairs_segs_kernel, csrc/rowmajor_pairs.cu
+# rowmajor_apply_kernel<VEC, true>)
+
+def seg_stream(rng, S, C=256, n=N, disjoint=False, fill=0.8):
+    """K1's stream: S segments of C lanes, each sorted with a sentinel
+    (``n``) tail. The ids of every segment come from one pool, so they
+    repeat across segments, and are drawn with replacement, so they also
+    repeat within one; ``disjoint`` gives each segment its own slice of
+    the pool. Returns (uids i32 [S*C], valid bool [S*C])."""
+    pool = rng.choice(n, size=int(C * fill) * S, replace=False)
+    segs = []
+    for s in range(S):
+        src = pool[s::S] if disjoint else pool[:int(C * fill) * 2]
+        k = int(C * fill) - int(rng.integers(0, C // 8))
+        seg = np.full(C, n, np.int32)
+        seg[:k] = np.sort(rng.choice(src, size=k, replace=True))
+        segs.append(seg)
+    uids = np.concatenate(segs)
+    return uids, uids < n
+
+
+def seg_payload(K, valid, rng, integer=False):
+    """gw | gV | add_cnt | touch over a K1 stream, zero on its sentinel
+    lanes; ``integer``: all rows in [1, 8] on the real lanes."""
+    u = valid.shape[0]
+    vf = valid.astype(np.float32)
+    if integer:
+        return rng.integers(1, 9, (3 + K, u)).astype(np.float32) * vf
+    grads = rng.normal(size=(1 + K, u)).astype(np.float32) * vf
+    addc = rng.integers(1, 4, u).astype(np.float32) * vf
+    return np.concatenate([grads, addc[None], vf[None]], axis=0)
+
+
+K1_NAMES = {"planar": "apply_pairs_segs", "packed": "apply_rowmajor_segs"}
+
+
+def k1_state(s, layout, card):
+    st = state_from_numpy(s, card)
+    return pack_state(st) if layout == "packed" else st
+
+
+def k1_planar(st):
+    return unpack_state(st) if hasattr(st, "tbl") else st
+
+
+@pytest.mark.parametrize("layout", ["planar", "packed"])
+@pytest.mark.parametrize("S", [2, 3, 4])
+@pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
+                                             (0, "ftrl", "adagrad", 0),
+                                             (3, "sgd", "adagrad", 2),
+                                             (16, "adagrad", "sgd", 0),
+                                             (130, "ftrl", "adagrad", 0)])
+def test_cuda_k1_matches_plain(card, layout, S, K, wupd, vupd, tff):
+    """K1 against its plain version (a stable sort, then the one-stream
+    plain apply: the kernels' summation order) at B2's tolerance (the
+    plain division runs as a multiply by the reciprocal on the card); both
+    layouts give the same bits; rows no lane names keep theirs; a second
+    call repeats the bits (no atomics)."""
+    rng = np.random.default_rng(300 + 7 * S + K)
+    p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                    tail_feature_filter=tff)
+    s = state_np(K, rng)
+    uids_np, valid = seg_stream(rng, S)
+    uids = torch.from_numpy(uids_np).to(card)
+    pay = torch.from_numpy(seg_payload(K, valid, rng)).to(card)
+    C = uids_np.shape[0] // S
+    name = K1_NAMES[layout]
+    n0 = cuda.LAUNCHES[name]
+    got = k1_planar(pair_sweep.apply_pairs(k1_state(s, layout, card), uids,
+                                           pay, p, seg_len=C))
+    assert cuda.LAUNCHES[name] == n0 + 1
+    ref = pair_sweep.apply_pairs_segs_plain(state_from_numpy(s, card), uids,
+                                            pay, p, C)
+    other = k1_planar(pair_sweep.apply_pairs(
+        k1_state(s, "planar" if layout == "packed" else "packed", card),
+        uids, pay, p, seg_len=C))
+    again = k1_planar(pair_sweep.apply_pairs(k1_state(s, layout, card), uids,
+                                             pay, p, seg_len=C))
+    touched = torch.zeros(N, dtype=torch.bool, device=card)
+    touched[uids[torch.from_numpy(valid).to(card)].long()] = True
+    for leaf in LEAVES:
+        x = getattr(got, leaf)
+        torch.testing.assert_close(x, getattr(ref, leaf), rtol=1e-5,
+                                   atol=1e-6, msg=leaf)
+        assert torch.equal(x, getattr(other, leaf)), leaf
+        assert torch.equal(x, getattr(again, leaf)), leaf
+        orig = torch.from_numpy(s[leaf]).to(card)
+        assert torch.equal(x[..., ~touched], orig[..., ~touched]), leaf
+
+
+@pytest.mark.parametrize("layout", ["planar", "packed"])
+def test_cuda_k1_exact_on_integers(card, layout):
+    """An integer payload in [1, 8] through SGD with unit rates on a zero
+    table: w = -sum(gw), V = -sum(gV), cnt = sum(add_cnt), exact in
+    float32, so a lane lost or added twice, in any segment, fails."""
+    rng = np.random.default_rng(320)
+    K = 5
+    p = port_params(V_dim=K, w_updater="sgd", V_updater="sgd", lr_eta=1.0,
+                    l2=0.0, V_lr_eta=1.0, V_l2=0.0, V_threshold=0)
+    s = {k: np.zeros_like(v) for k, v in state_np(K, rng).items()}
+    uids_np, valid = seg_stream(rng, 4)
+    uids = torch.from_numpy(uids_np).to(card)
+    pay_np = seg_payload(K, valid, rng, integer=True)
+    pay = torch.from_numpy(pay_np).to(card)
+    got = k1_planar(pair_sweep.apply_pairs(k1_state(s, layout, card), uids,
+                                           pay, p, seg_len=256))
+    # the float64 sums of every id's lanes
+    ids = uids_np[valid].astype(np.int64)
+    exp = np.zeros((3 + K, N))
+    for r in range(3 + K):
+        np.add.at(exp[r], ids, pay_np[r, valid].astype(np.float64))
+    assert np.array_equal(got.w.cpu().numpy(), -exp[0].astype(np.float32))
+    assert np.array_equal(got.V.cpu().numpy(),
+                          -exp[1:1 + K].astype(np.float32))
+    assert np.array_equal(got.cnt.cpu().numpy(),
+                          exp[1 + K].astype(np.float32))
+
+
+@pytest.mark.parametrize("layout", ["planar", "packed"])
+def test_cuda_k1_disjoint_segments_give_the_one_stream_bits(card, layout):
+    """Segments with disjoint ids: each row's lanes lie in one segment, so
+    K1 gives the bits of the one-stream kernel on the same lanes merged
+    into one sorted stream (a stable sort)."""
+    rng = np.random.default_rng(330)
+    K = 16
+    p = port_params(V_dim=K)
+    s = state_np(K, rng)
+    uids_np, valid = seg_stream(rng, 3, disjoint=True)
+    pay_np = seg_payload(K, valid, rng)
+    order = np.argsort(uids_np, kind="stable")
+    got = pair_sweep.apply_pairs(
+        k1_state(s, layout, card), torch.from_numpy(uids_np).to(card),
+        torch.from_numpy(pay_np).to(card), p, seg_len=256)
+    one = pair_sweep.apply_pairs(
+        k1_state(s, layout, card), torch.from_numpy(uids_np[order]).to(card),
+        torch.from_numpy(np.ascontiguousarray(pay_np[:, order])).to(card), p)
+    got, one = k1_planar(got), k1_planar(one)
+    for leaf in LEAVES:
+        assert torch.equal(getattr(got, leaf), getattr(one, leaf)), leaf
+
+
+@pytest.mark.parametrize("layout", ["planar", "packed"])
+def test_cuda_k1_one_segment_gives_todays_bits(card, layout):
+    """``seg_len`` = the stream's length (one segment) gives the bits of
+    the one-stream call, ``seg_len=None``, which launches today's kernel."""
+    rng = np.random.default_rng(340)
+    K = 16
+    p = port_params(V_dim=K)
+    s = state_np(K, rng)
+    uids_np, valid = sorted_uids(rng, repeat=True)
+    uids = torch.from_numpy(uids_np).to(card)
+    pay = torch.from_numpy(payload(K, valid, rng)).to(card)
+    one_name = {"planar": "apply_pairs", "packed": "apply_rowmajor"}[layout]
+    n0 = cuda.LAUNCHES[one_name]
+    today = k1_planar(pair_sweep.apply_pairs(k1_state(s, layout, card), uids,
+                                             pay, p))
+    assert cuda.LAUNCHES[one_name] == n0 + 1
+    seg = k1_planar(pair_sweep.apply_pairs(k1_state(s, layout, card), uids,
+                                           pay, p, seg_len=U))
+    for leaf in LEAVES:
+        assert torch.equal(getattr(today, leaf), getattr(seg, leaf)), leaf
+
+
+def two_rank_steps(out: str) -> None:
+    """One rank of the two-rank sharded step on the card (run by
+    difacto_tpu_torch.parallel.launch): four prepped train steps of the
+    flagship's shape cut down, on kernel=auto, then an eval step; rank 0
+    writes the gathered table and the metrics."""
+    import torch.distributed as dist
+
+    from difacto_tpu_torch.parallel.store import ShardedStore
+
+    cfg, batches, start = two_rank_case()
+    store = ShardedStore(FMUpdater(cfg.model), cfg)
+    state = store.place_state(state_from_numpy(start))
+    res = two_rank_drive(store, state, batches)
+    if dist.get_rank() == 0:
+        np.savez(out, **res)
+
+
+def two_rank_case():
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.probes.common import flagship_batch
+
+    cfg = Config.from_kwargs([("batch_size", "2048"), ("num_bits", "16"),
+                              ("max_nnz_per_row", "40"), ("V_dim", "16"),
+                              ("store", "sharded")])
+    batches = [flagship_batch(90 + i, 2048, 40, 16) for i in range(4)]
+    return cfg, batches, state_np(16, np.random.default_rng(350), n=1 << 16)
+
+
+def two_rank_drive(store, state, batches) -> dict:
+    from difacto_tpu_torch.data.prep import (build_sorted_slots,
+                                             build_sorted_slots_sharded,
+                                             prep_batch, prep_batch_sharded)
+    from difacto_tpu_torch.parallel.store import ShardedStore
+    from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+
+    sharded = isinstance(store, ShardedStore)
+    losses = []
+    for b in batches:
+        if sharded:
+            pb = prep_batch_sharded(b, store.num_rows, store.S)
+            pb.sorted_slots = build_sorted_slots_sharded(pb)
+        else:
+            pb = prep_batch(b, store.num_rows)
+            pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
+        state, m = store.train_step_prepped(state, pb)
+        losses.append(float(m.logloss_sum))
+    host = store.gather_state(state) if sharded else state
+    return {"losses": np.asarray(losses), **state_to_numpy(host)}
+
+
+def test_cuda_two_rank_gloo_step_matches_local_store(card, tmp_path):
+    """Two gloo ranks on the one card (ShardedStore, K1 on each owner)
+    against LocalStore on the card over the same batches from the same
+    state: the JAX package's local-against-sharded tolerance
+    (tests/test_store_equiv.py: rtol and atol 2e-4, logloss rtol 1e-4)."""
+    from difacto_tpu_torch.parallel.launch import run_ranks
+    from difacto_tpu_torch.parallel.store import LocalStore
+
+    out = str(tmp_path / "ranks.npz")
+    cuda.build()  # once, before the ranks load it
+    run_ranks("test_torch_cuda:two_rank_steps", 2, [out], timeout=300,
+              path=str(pathlib.Path(__file__).parent))
+    got = np.load(out)
+    cfg, batches, start = two_rank_case()
+    store = LocalStore(FMUpdater(cfg.model), cfg, device=card)
+    ref = two_rank_drive(store, store.place_state(state_from_numpy(start)),
+                         batches)
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-4)
+    for leaf in LEAVES:
+        np.testing.assert_allclose(got[leaf], ref[leaf], rtol=2e-4,
+                                   atol=2e-4, err_msg=leaf)

@@ -437,9 +437,10 @@ _OUT_OF_SLICE = [
 
 
 # the cases of ROADMAP items the port has brought since: (kernel, layout)
-# each resolves to, as the JAX store resolves it
+# each resolves to, as the JAX store resolves it; A9 (store=sharded, A9a)
+# gives a ShardedStore of one shard on the pairs path
 _PORTED = {"A13": ("xla", "stacked"), "A14": ("xla", "stacked"),
-           "A16": ("xla", "stacked")}
+           "A16": ("xla", "stacked"), "A9": ("pairs", "planar")}
 # items ported since that configure no store: the BCD learner, remote IO
 _ACCEPTED = ("A15", "A19")
 
@@ -449,7 +450,8 @@ _ACCEPTED = ("A15", "A19")
 def test_out_of_slice_setting_raises(key, val, item, extra):
     """A setting outside the port raises, naming its ROADMAP item; one of
     an item ported since (A13 hot/cold, A14 the XLA path, A16 device
-    localize) is accepted and resolves as the JAX store resolves it; one
+    localize, A9 the sharded store) is accepted and resolves as the JAX
+    store resolves it (the sharded store to one shard); one
     of A15 (BCD) or A19 (remote IO) is accepted and parses as in the JAX
     package."""
     kw = [("num_bits", "12"), (key, val), *extra]
@@ -465,8 +467,15 @@ def test_out_of_slice_setting_raises(key, val, item, extra):
         return
     cfg, jcfg = Config.from_kwargs(kw), JConfig.from_kwargs(kw)
     store = make_store(FMUpdater(cfg.model), cfg, device="cpu")
-    jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg)
     assert (store.kernel, store.layout) == _PORTED[item]
+    if item == "A9":
+        from difacto_tpu_torch.parallel.store import ShardedStore
+
+        # one process: one shard, the table of the hash space
+        assert isinstance(store, ShardedStore) and store.S == 1
+        assert store.num_rows == 1 << 12
+        return
+    jstore = JLocalStore(JFMUpdater(jcfg.model), jcfg)
     assert not (jstore.pairs or jstore.pallas)  # the JAX store's xla
     assert jstore.layout == store.layout
     assert store.hot_rows == jstore.hot_rows
@@ -559,6 +568,12 @@ cfg = Config.from_kwargs(kw + [("host_localize", "0")])
 dev = make_store(FMUpdater(cfg.model), cfg, device="cpu")
 st, m = dev.train_step(dev.init_state(0), b.ids, b.vals, b.labels, b.mask)
 assert float(m.examples) == 8.0 and float(m.dropped_ids) == 0.0
+from difacto_tpu_torch.data.prep import prep_batch_sharded
+from difacto_tpu_torch.parallel import launch, multihost
+cfg = Config.from_kwargs(kw + [("store", "sharded")])
+sh = make_store(FMUpdater(cfg.model), cfg, device="cpu")
+st, m = sh.train_step_prepped(sh.init_state(0), prep_batch_sharded(b, 1024, 1))
+assert float(m.examples) == 8.0 and not multihost.multiprocess_requested()
 blk = libsvm.parse_libsvm(b"1 3:1 5:2\\n0 4:1\\n")
 assert blk.num_rows == 2 and sum(_native.RUNS.values()) == 1
 assert libsvm.parse_libffm(b"1 0:3:1\\n").fields.tolist() == [0]
