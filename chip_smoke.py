@@ -120,6 +120,26 @@ metrics and the scores held in rank 0 against LocalStore on the card
 (the JAX package's local-against-sharded tolerance), with the step ms,
 the busy ms, the idle share and the all_to_all's share of the step.
 
+P9 drives the multi-process learner (``drive_multiprocess``): the CLI's
+``main`` as P processes under the env contract
+(``DIFACTO_COORDINATOR``/``NUM_PROCESSES``/``PROCESS_ID``, a free port,
+``run_processes``, each launch under a timeout that kills every process
+left), sharing the card, on P6's flagship text in byte-range parts, 8
+global batches of 16384, 3 epochs, one validation batch: (a) P = 2 on
+kernel=auto, (c) P = 3 at a global batch of 16386, (d) P = 2 on
+layout=planar, each held against LocalStore on the card fed the same
+global stream (the per-process checkpoint by the port's ``load_full``,
+rtol and atol 2e-4; the validation logloss rel 1e-5 and exact AUC abs
+1e-5, the same on every process; (a) and (d) pad a step); (b) P = 2
+``task=predict`` on (a)'s checkpoint, its part files against a
+one-process predict of the file set, B1 alone; (e) P = 2 BCD on
+``examples/bcd_linear.conf`` over 2^18 of P5's rows, w against one
+process on the card. Each run prints rank 0's epoch s and step ms (the
+one-process CLI's beside them), the shares of the timed epoch taken by
+the all_to_alls and the host allgathers (BCD: the all_reduce), the busy
+ms and idle share of rank 0's traced last epoch, and each process's wall
+s (``P9Probe``).
+
 It prints the card's name and power limit, one JSON line listing the
 kernels with their numbers, and last ``{"ok": true, "device": ...}``. It
 needs a card: without one (or without the rest of the repository) it
@@ -3173,6 +3193,440 @@ def drive_sharded(dev, tmp: str, flagship_files: tuple) -> dict:
                                  f"did not launch: {runs[S]}")
     return runs
 
+
+# P9 the multi-process learner: the CLI under the env contract, one
+# process a rank sharing the card, at the flagship's width (P6's libsvm
+# text in byte-range parts, 8 global batches of 16384, 3 epochs, one
+# validation batch), each launch under a timeout that kills every process
+# still running past it
+P9_TIMEOUT_S = 300.0
+P9_GROUP_TIMEOUT_S = 180.0
+P9_EPOCHS = 3
+P9_TIMED_EPOCH, P9_TRACED_EPOCH = 1, 2  # epoch 0 streams untouched
+P9_TOL = dict(rtol=2e-4, atol=2e-4)
+# the SGD runs: (tag, processes, config on top of the flagship's, the
+# kernels its steps launch)
+P9_RUNS = (("a", 2, (), ("pull_rowmajor", "segsum_sorted",
+                         "apply_rowmajor_segs")),
+           ("c", 3, (("batch_size", str(3 * -(-BATCH // 3))),),
+            ("pull_rowmajor", "segsum_sorted", "apply_rowmajor_segs")),
+           ("d", 2, (("layout", "planar"),),
+            ("pull_pairs", "segsum_sorted", "apply_pairs_segs")))
+P9_KERNELS = ("pull_pairs", "pull_rowmajor", "segsum_sorted") + K1_KERNELS
+
+
+class P9Probe:
+    """Times a CLI run from inside its process, by wrapping the learners'
+    and the collectives' entries for the run and restoring them after:
+    each epoch's wall; in epoch P9_TIMED_EPOCH each train step
+    (synchronized around), the all_to_alls and the host allgathers
+    (synchronized around each call, as P8 times the exchange); epoch
+    P9_TRACED_EPOCH under torch.profiler when ``traced``; BCD's block
+    steps and their all_reduce. ``rec`` holds the numbers."""
+
+    def __init__(self, traced: bool):
+        self.traced = traced
+        self.rec = {"epoch_s": [], "step_ms": [], "a2a_s": 0.0,
+                    "a2a_calls": 0, "allgather_s": 0.0, "allgather_calls": 0,
+                    "allreduce_s": 0.0, "allreduce_calls": 0}
+        self.on, self.steps = False, 0
+        self.saved = []
+
+    def _patch(self, owner, name, make):
+        old = getattr(owner, name)
+        self.saved.append((owner, name, old))
+        setattr(owner, name, make(old))
+
+    def _timed(self, key):
+        import torch
+
+        def make(fn):
+            def run(*a, **kw):
+                if not self.on:
+                    return fn(*a, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.rec[key + "_s"] += time.perf_counter() - t0
+                self.rec[key + "_calls"] += 1
+                return out
+            return run
+        return make
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from difacto_tpu_torch.learners import bcd, sgd
+        from difacto_tpu_torch.parallel import comm, store
+
+        probe, rec = self, self.rec
+        self._patch(comm.Comm, "all_to_all", self._timed("a2a"))
+        for mod in (comm, store, sgd, bcd):
+            self._patch(mod, "allgather_host", self._timed("allgather"))
+        self._patch(bcd, "_all_reduce", self._timed("allreduce"))
+
+        def epochs(fn):
+            def run(learner, epoch):
+                traced = probe.traced and epoch == P9_TRACED_EPOCH
+                probe.on = epoch == P9_TIMED_EPOCH
+                probe.steps = 0
+                torch.cuda.synchronize()
+                if traced:  # the wall inside the trace, as P8's
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        out = fn(learner, epoch)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                else:
+                    t0 = time.perf_counter()
+                    out = fn(learner, epoch)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                probe.on = False
+                rec["epoch_s"].append(wall)
+                rec["steps_per_epoch"] = probe.steps
+                if traced:
+                    rec["profile"] = device_profile(prof, wall,
+                                                    max(probe.steps, 1))
+                return out
+            return run
+
+        def steps(fn):
+            def run(learner, *a):
+                probe.steps += 1
+                if not probe.on:
+                    return fn(learner, *a)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(learner, *a)
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        def result(fn):
+            def run(learner):
+                last = fn(learner)
+                rec["val_logloss"] = last.logloss
+                rec["val_exact_auc"] = getattr(last, "exact_auc", None)
+                return last
+            return run
+
+        self._patch(sgd.SGDLearner, "train_epoch", epochs)
+        self._patch(sgd.SGDLearner, "_train_step", steps)
+        self._patch(sgd.SGDLearner, "run", result)
+        self._patch(bcd.BCDLearner, "train_epoch", epochs)
+        self._patch(bcd.BCDLearner, "step", steps)
+        self._patch(bcd.BCDLearner, "run", result)
+        return rec
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self.saved):
+            setattr(owner, name, old)
+        return False
+
+
+def p9_child(out_dir: str, tag: str, *argv: str) -> int:
+    """One process of a P9 launch (started by run_processes under the env
+    contract): the CLI's ``main`` on ``argv``, as ``python -m
+    difacto_tpu_torch`` calls it, inside a P9Probe (rank 0 traced), with
+    the launch counters reset just before; writes
+    ``p9_{tag}_rank{p}.json``."""
+    t0 = time.perf_counter()
+    import torch
+
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, _ = multihost.maybe_initialize_distributed()
+    with P9Probe(traced=rank == 0) as rec:
+        cuda.reset_launches()
+        rc = cli.main(list(argv))
+        rec["launches"] = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    rec["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"p9_{tag}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return rc
+
+
+def p9_launch(tmp: str, tag: str, P: int, argv: list[str]) -> list[dict]:
+    """Launch ``P`` processes of p9_child; returns each one's record."""
+    from difacto_tpu_torch.parallel.launch import run_processes
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    run_processes(["-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+                   "p9_child(*sys.argv[1:]))", tmp, tag, *argv], P,
+                  timeout=P9_TIMEOUT_S, path=here,
+                  group_timeout=P9_GROUP_TIMEOUT_S)
+    recs = []
+    for r in range(P):
+        with open(os.path.join(tmp, f"p9_{tag}_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def p9_launches(recs: list[dict], kernels: tuple, what: str,
+                alone: bool = False) -> dict:
+    """A run's launches summed over its processes; each of ``kernels``
+    must have launched (and, ``alone``, nothing else)."""
+    from difacto_tpu_torch.ops import cuda
+
+    got = {k: sum(r["launches"].get(k, 0) for r in recs)
+           for k in cuda.LAUNCHES}
+    ran = {k for k, v in got.items() if v}
+    if not ran >= set(kernels) or (alone and ran != set(kernels)):
+        raise AssertionError(f"P9 {what}: launched {got}; the path's "
+                             f"kernels are {kernels}")
+    return got
+
+
+def p9_reference(files: tuple, extra: tuple, P: int) -> dict:
+    """LocalStore on the card fed the P processes' global stream
+    (tests/test_multiprocess.py:135-199): each epoch the processes' part
+    streams as the learner reads them (BatchIter over byte-range part p of
+    P, its share of the batch, its shuffle seed), zipped, the shorter
+    padded with empty batches, ``[p0 rows; p1 rows; ...]`` a step, prepped
+    for one table with their sorted slots; then the validation pass.
+    Returns the table's planar leaves, the validation logloss and exact
+    AUC, the parts' batch counts and the median step ms."""
+    import torch
+
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data.batch_iter import Batch, BatchIter
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.ops.metrics import exact_auc
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+    from difacto_tpu_torch.utils.place import place_batch
+
+    cfg = Config.from_kwargs([("num_bits", str(NUM_BITS)), *FLAGSHIP["kw"],
+                              *extra, ("store", "local")])
+    d = cfg.data
+    bs = d.batch_size // P
+    store = LocalStore(FMUpdater(cfg.model), cfg)
+    state = store.init_state(d.seed)
+    empty = Batch(np.full((bs, NNZ), -1, np.int32),
+                  np.zeros((bs, NNZ), np.float32), np.zeros(bs, np.float32),
+                  np.zeros(bs, np.float32))
+
+    def stream(uri: str, shuffle: bool, epoch: int):
+        parts = [list(BatchIter(
+            uri, batch_size=bs, max_nnz=d.max_nnz_per_row,
+            num_bits=d.num_bits, data_format=d.data_format,
+            part_index=range(p, p + 1), num_parts=P,
+            shuffle=shuffle and d.shuffle, seed=d.seed + epoch,
+            batch_workers=d.batch_workers)) for p in range(P)]
+        n = max(len(s) for s in parts)
+        out = []
+        for i in range(n):
+            step = [s[i] if i < len(s) else empty for s in parts]
+            pb = prep_batch(Batch(*(np.concatenate([getattr(b, f)
+                                                    for b in step])
+                                    for f in ("ids", "vals", "labels",
+                                              "mask"))), store.num_rows)
+            pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
+            out.append(place_batch(pb, store.device))
+        return out, [len(s) for s in parts]
+
+    times, counts = [], {}
+    for epoch in range(P9_EPOCHS):
+        steps, counts["train"] = stream(files[0], True, epoch)
+        for pb in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = store.train_step_prepped(state, pb)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    loss, n, ys, ps = 0.0, 0.0, [], []
+    steps, counts["val"] = stream(files[1], False, 0)
+    for pb in steps:
+        m, py = store.eval_step_prepped(state, pb)
+        loss += float(m.logloss_sum)
+        n += float(m.examples)
+        keep = pb.mask.cpu().numpy() > 0
+        ys.append(pb.labels.cpu().numpy()[keep])
+        ps.append(py.cpu().numpy()[keep])
+    return {"leaves": state_to_numpy(state), "val_logloss": loss / n,
+            "val_exact_auc": exact_auc(np.concatenate(ys),
+                                       np.concatenate(ps)),
+            "part_batches": counts, "step_ms": float(np.median(times))}
+
+
+def p9_summary(recs: list[dict]) -> dict:
+    """Rank 0's epoch s and step ms, the shares of the timed epoch taken
+    by the all_to_alls, the host allgathers and (BCD) the all_reduces,
+    rank 0's traced epoch (busy ms a step, idle share), and each process's
+    wall s."""
+    r0 = recs[0]
+    ep = r0["epoch_s"][P9_TIMED_EPOCH]
+    out = {"epoch_s": r0["epoch_s"], "steps_per_epoch": r0["steps_per_epoch"],
+           "step_ms_median": float(np.median(r0["step_ms"])),
+           "step_ms_range": [min(r0["step_ms"]), max(r0["step_ms"])]}
+    for key in ("a2a", "allgather", "allreduce"):
+        if r0[key + "_calls"]:
+            out[f"{key}_share_of_timed_epoch"] = r0[key + "_s"] / ep
+            out[f"{key}_calls_per_step"] = (r0[key + "_calls"]
+                                            / len(r0["step_ms"]))
+    out["profile"] = r0.get("profile")
+    out["wall_s"] = [r["wall_s"] for r in recs]
+    return out
+
+
+def p9_table(prefix: str, ref: dict, what: str) -> dict:
+    """The per-process checkpoint, read by the port's load_full, against
+    the reference's leaves (its padding rows zero). Returns the errors."""
+    from difacto_tpu_torch.utils import checkpoint
+    from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+
+    host, meta = checkpoint.load_full(prefix)
+    got = state_to_numpy(host)
+    errs = {}
+    for leaf in LEAVES:
+        want = ref[leaf]
+        n = want.shape[-1]
+        if got[leaf][..., n:].any():
+            raise AssertionError(f"P9 {what}: padding rows of {leaf} are not "
+                                 "zero")
+        if want.size:
+            errs[leaf] = float(np.abs(got[leaf][..., :n] - want).max())
+            np.testing.assert_allclose(got[leaf][..., :n], want, **P9_TOL,
+                                       err_msg=f"P9 {what}: {leaf}")
+    return {"max_abs_err": errs, "process_count": meta["process_count"]}
+
+
+def drive_multiprocess(tmp: str, flagship_files: tuple, smi: str) -> dict:
+    """P9: the multi-process CLI, one process a rank sharing the card
+    (kernels built first in this process, so that every process loads one
+    library). (a) P = 2 on kernel=auto with validation and ``model_out``;
+    (c) P = 3 at a global batch of 16386; (d) P = 2 on layout=planar: each
+    held against LocalStore on the card over the same global stream (the
+    checkpoint's leaves, read by the port's load_full, rtol and atol
+    2e-4; the validation logloss rel 1e-5; the exact AUC abs 1e-5, the
+    same on every process), its steps' kernels launched, and on (a) and
+    (d) a step padded by the lockstep. (b) P = 2 task=predict on (a)'s
+    checkpoint: the part files concatenate to a one-process predict of
+    the file set loaded into LocalStore; B1 alone launches. (e) P = 2 BCD
+    on examples/bcd_linear.conf over 2^18 of P5's rows: w against
+    one-process BCD on the card (rtol and atol 2e-4). Returns each run's
+    launches summed over its processes."""
+    import torch
+
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.learners.bcd import BCDLearner
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.utils import arg_parser, checkpoint
+
+    t_p9 = time.perf_counter()
+    cuda.build()  # once, before the processes load it
+    train, val = flagship_files
+    base = [f"data_in={train}", f"data_val={val}", f"num_bits={NUM_BITS}",
+            *(f"{k}={v}" for k, v in FLAGSHIP["kw"]),
+            f"max_num_epochs={P9_EPOCHS}", "report_interval=0"]
+    # the one-process CLI on the same file, timed by the same probe
+    t0 = time.perf_counter()
+    with P9Probe(traced=True) as one:
+        if cli.main(base + [f"model_out={os.path.join(tmp, 'p9_one')}"]) \
+                != 0:
+            raise AssertionError("P9: the one-process CLI train failed")
+    one["wall_s"] = time.perf_counter() - t0
+    one = p9_summary([one])
+    log(f"P9 one process (the reference's times) on {smi}: "
+        + json.dumps(one))
+    launches = {}
+    for tag, P, extra, kernels in P9_RUNS:
+        model = os.path.join(tmp, f"p9_{tag}")
+        argv = base + [f"{k}={v}" for k, v in extra] + [f"model_out={model}"]
+        recs = p9_launch(tmp, tag, P, argv)
+        ref = p9_reference(flagship_files, extra, P)
+        what = f"({tag}) P={P} {dict(extra) or 'kernel=auto'}"
+        rec = p9_table(model, ref["leaves"], what)
+        aucs = {r["val_exact_auc"] for r in recs}
+        if len(aucs) != 1:
+            raise AssertionError(f"P9 {what}: the processes logged different "
+                                 f"exact AUCs {aucs}")
+        loss, auc = recs[0]["val_logloss"], recs[0]["val_exact_auc"]
+        rel = abs(loss - ref["val_logloss"]) / ref["val_logloss"]
+        if rel > 1e-5 or abs(auc - ref["val_exact_auc"]) > 1e-5:
+            raise AssertionError(
+                f"P9 {what}: validation logloss {loss} / exact AUC {auc} "
+                f"against LocalStore's {ref['val_logloss']} / "
+                f"{ref['val_exact_auc']} (rel 1e-5, abs 1e-5)")
+        padded = len(set(ref["part_batches"]["train"])) > 1
+        if tag in ("a", "d") and not padded:
+            raise AssertionError(f"P9 {what}: equal parts "
+                                 f"{ref['part_batches']}: no step padded")
+        launches[tag] = got = p9_launches(recs, kernels, what)
+        rec.update({"val_logloss": loss, "val_logloss_rel_err": rel,
+                    "val_exact_auc": auc,
+                    "val_exact_auc_abs_err": abs(auc - ref["val_exact_auc"]),
+                    "part_batches": ref["part_batches"],
+                    "local_store_step_ms": ref["step_ms"],
+                    "launches": {k: v for k, v in got.items() if v},
+                    **p9_summary(recs)})
+        log(f"P9 {what} on {smi}: " + json.dumps(rec))
+        del ref
+        torch.cuda.empty_cache()
+    # (b) predict on (a)'s file set, against one process
+    pred = os.path.join(tmp, "p9_pred.txt")
+    model = os.path.join(tmp, "p9_a")
+    argv = base + ["task=predict", f"model_in={model}", f"data_in={val}",
+                   f"pred_out={pred}"]
+    recs = p9_launch(tmp, "b", 2, argv)
+    launches["b"] = got = p9_launches(recs, ("pull_rowmajor",),
+                                      "(b) P=2 task=predict", alone=True)
+    parts = np.concatenate([np.loadtxt(f"{pred}.part{p}") for p in (0, 1)])
+    one_pred = os.path.join(tmp, "p9_pred_one.txt")
+    if cli.main(argv[:-1] + [f"pred_out={one_pred}"]) != 0:
+        raise AssertionError("P9 (b): the one-process predict failed")
+    ref = np.loadtxt(one_pred)
+    if not (parts.shape == (BATCH,) and np.isfinite(parts).all()):
+        raise AssertionError(f"P9 (b): {parts.shape} scores")
+    np.testing.assert_allclose(parts, ref, **P9_TOL,
+                               err_msg="P9 (b): the part files against one "
+                               "process's predict")
+    log(f"P9 (b) P=2 task=predict on {smi}: " + json.dumps({
+        "scores": int(parts.size),
+        "max_abs_err": float(np.abs(parts - ref).max()),
+        "launches": {k: v for k, v in got.items() if v},
+        "wall_s": [r["wall_s"] for r in recs]}))
+    # (e) BCD over 2^18 of P5's rows
+    part = os.path.join(tmp, "bcd_train.part00000.npz")
+    bcd = bcd_argv(part) + [f"data_val={os.path.join(tmp, 'bcd_val.part00000.npz')}"]
+    model = os.path.join(tmp, "p9_e")
+    recs = p9_launch(tmp, "e", 2, bcd + [f"model_out={model}"])
+    launches["e"] = p9_launches(recs, (), "(e) P=2 BCD", alone=True)
+    t0 = time.perf_counter()
+    with P9Probe(traced=False) as one_bcd:
+        learner = BCDLearner(Config.from_kwargs(arg_parser.parse(bcd)))
+        va = learner.run()
+    one_bcd["wall_s"] = time.perf_counter() - t0
+    w = learner.w.cpu().numpy()
+    host, _ = checkpoint.load_full(model)
+    err = float(np.abs(host.w.numpy() - w).max())
+    np.testing.assert_allclose(host.w.numpy(), w, **P9_TOL,
+                               err_msg="P9 (e): w against one process")
+    if not np.count_nonzero(w):
+        raise AssertionError("P9 (e): BCD learned nothing")
+    if {r["val_exact_auc"] for r in recs} != {recs[0]["val_exact_auc"]}:
+        raise AssertionError("P9 (e): the processes logged different AUCs")
+    log(f"P9 (e) P=2 BCD (examples/bcd_linear.conf, 2^18 rows) on {smi}: "
+        + json.dumps({"w_max_abs_err": err,
+                      "nonzero_w": int(np.count_nonzero(w)),
+                      "val_exact_auc": recs[0]["val_exact_auc"],
+                      "one_process_val_exact_auc": va.exact_auc,
+                      "one_process": p9_summary([one_bcd]),
+                      **p9_summary(recs)}))
+    log(f"P9: {time.perf_counter() - t_p9:.1f} s")
+    return launches
+
+
 def drive_cli(tmp: str) -> None:
     """Phase 5: on each table path, CLI train with validation and
     model_out, then task=predict on the checkpoint; the scores must match
@@ -3345,6 +3799,10 @@ def main() -> int:
             new_paths[f"p8_s{S}"] = got
         launches.update({name: sum(got[name] for got in p8.values())
                          for name in K1_KERNELS})
+        # P9 the multi-process learner: K1's launches gain its runs'
+        p9 = drive_multiprocess(tmp, flagship_files, smi)
+        launches.update({name: launches[name] + sum(
+            got[name] for got in p9.values()) for name in K1_KERNELS})
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -3370,7 +3828,11 @@ def main() -> int:
         # P5's predict, P6 and P7
         **({"new_path_launches": {run: got[name]
                                   for run, got in new_paths.items()}}
-           if name in NEW_PATH_KERNELS else {})}
+           if name in NEW_PATH_KERNELS else {}),
+        # B1, B3 and K1: their launches in P9's runs, summed over each
+        # run's processes
+        **({"p9_launches": {tag: got[name] for tag, got in p9.items()}}
+           if name in P9_KERNELS else {})}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
         + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS
         + K1_KERNELS]

@@ -11,9 +11,18 @@ through the SGD eval path, whatever learner trained it, on any table
 path: with ``hot_rows`` the learner builds its remap from ``data_in`` and
 places the canonical checkpoint through it; with ``host_localize=0`` the
 batches are localized on the device. ``pred_out`` may be a remote URI
-(data/io.py). One process: under the JAX package's multi-process env
-contract (``DIFACTO_COORDINATOR`` and ``DIFACTO_NUM_PROCESSES`` > 1) it
-raises NotImplementedError naming ROADMAP A9b before it reads anything.
+(data/io.py).
+
+Several processes: the launcher starts one a rank with the JAX package's
+env contract (parallel/multihost.py), e.g. on one host
+
+    DIFACTO_COORDINATOR=localhost:<port> DIFACTO_NUM_PROCESSES=2 \
+    DIFACTO_PROCESS_ID=<p> python -m difacto_tpu_torch <conf>
+
+``main`` joins the group first; the learner then trains one sharded model
+over the processes' input parts (learners/sgd.py). ``task=predict``
+writes ``pred_out.part{p}``, each process's rows in its parts' order, and
+every process logs the logloss and AUC of the whole prediction set.
 """
 
 from __future__ import annotations
@@ -31,9 +40,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     """``device`` defaults to the card and raises without one unless the
     caller asks for ``"cpu"``."""
     from .base import tune_malloc
-    from .parallel.multihost import refuse_multiprocess
 
-    refuse_multiprocess("cli.main")
     tune_malloc()  # large ingest temporaries must not page-fault
     logging.basicConfig(
         level=logging.INFO,
@@ -46,13 +53,19 @@ def main(argv: list[str] | None = None, device=None) -> int:
         print(__doc__)
         print(Config())
         return 0
+    from .parallel.multihost import leave, maybe_initialize_distributed
+
+    maybe_initialize_distributed()
     cfg = Config.from_kwargs(arg_parser.parse(argv))
     if not cfg.data.data_in:
         raise SystemExit("data_in is required")
     if cfg.learner.task == "predict":
-        return run_predict(cfg, device)
-    create_learner(cfg, device).run()
-    return 0
+        rc = run_predict(cfg, device)
+    else:
+        create_learner(cfg, device).run()
+        rc = 0
+    leave()
+    return rc
 
 
 def create_learner(cfg: Config, device=None):
@@ -77,6 +90,8 @@ def run_predict(cfg: Config, device=None) -> int:
     from .data.io import open_uri
     from .learners.sgd import SGDLearner
     from .ops.metrics import exact_auc, logloss
+    from .parallel.comm import allgather_pairs
+    from .parallel.multihost import process_count, process_index
 
     if not cfg.learner.model_in:
         raise SystemExit("task=predict requires model_in")
@@ -88,9 +103,15 @@ def run_predict(cfg: Config, device=None) -> int:
     py, labels = learner.predict(cfg.data.data_in)
     out = cfg.learner.pred_out
     if out:
+        # several processes: each writes its own part file (reference:
+        # every worker's pred job writes pred_out + its rank)
+        if process_count() > 1:
+            out = f"{out}.part{process_index()}"
         with open_uri(out, "wb") as f:
             np.savetxt(f, py, fmt="%.6g")
         log.info("wrote %d scores to %s", len(py), out)
+    # the metrics of the whole prediction set, the same on every process
+    labels, py = allgather_pairs(labels, py)
     if len(set(np.asarray(labels) > 0)) > 1:
         log.info(
             "predict: #ex %d  logloss %.6f  auc %.6f",

@@ -5,8 +5,7 @@ package): the same dataclasses and the same keys, so a config written for
 the JAX package parses here unchanged and an unknown key stays fatal.
 
 The port carries every setting of the JAX package. A multi-process
-launch is not a setting but an environment (parallel/multihost.py): the
-entry points refuse it until ROADMAP A9b.
+launch is not a setting but an environment (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -163,8 +162,8 @@ class LearnerParam(ParamBase):
 class ShardParam(ParamBase):
     """Parallelism and kernel-path knobs."""
 
-    store: str = "auto"            # local | sharded | auto (port: one
-                                   # process, auto = local)
+    store: str = "auto"            # local | sharded | auto (sharded
+                                   # over more than one rank)
     num_shards: int = 0            # store=sharded only
     capacity_factor: float = 2.0   # store=sharded only
     unique_size: int = 0           # floor of the unique-lane bucket

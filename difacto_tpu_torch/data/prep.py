@@ -365,17 +365,21 @@ class ShardPreppedBatch:
         return int(self.mask.sum())
 
 
-def shard_bucket_fills(pb: ShardPreppedBatch, num_rows: int) -> np.ndarray:
-    """i64 [S, S] routing matrix: fills[src, owner] = how many of group
+def shard_bucket_fills(pb: ShardPreppedBatch, num_rows: int,
+                       num_shards_global: int | None = None) -> np.ndarray:
+    """i64 [G, S] routing matrix: fills[src, owner] = how many of group
     ``src``'s valid unique ids the store routes to rank ``owner`` (rows
     ``[owner * rps, (owner+1) * rps)``, ``rps = num_rows // S``). The
-    sharded store sizes its all_to_all capacity from the largest."""
-    S, ub = pb.num_shards, pb.ub
+    sharded store sizes its all_to_all capacity from the largest. ``G`` is
+    the batch's row groups; ``S``, the owners, is ``num_shards_global``
+    (a process's batch of its own rows: one group, S owners) or G."""
+    G, ub = pb.num_shards, pb.ub
+    S = num_shards_global or G
     rows_per_shard = num_rows // S
-    uids = pb.uids.reshape(S, ub).astype(np.int64)
+    uids = pb.uids.reshape(G, ub).astype(np.int64)
     bounds = np.arange(S + 1, dtype=np.int64) * rows_per_shard
-    fills = np.empty((S, S), np.int64)
-    for s in range(S):
+    fills = np.empty((G, S), np.int64)
+    for s in range(G):
         n_valid = int(np.searchsorted(uids[s], num_rows, side="left"))
         lo = np.searchsorted(uids[s][:n_valid], bounds, side="left")
         fills[s] = lo[1:] - lo[:-1]
@@ -384,10 +388,15 @@ def shard_bucket_fills(pb: ShardPreppedBatch, num_rows: int) -> np.ndarray:
 
 def prep_batch_sharded(batch: Batch, num_rows: int, num_shards: int,
                        buckets=DEFAULT_BUCKETS, fixed_ub: int | None = None,
-                       num_fields: int = 0) -> ShardPreppedBatch:
+                       num_fields: int = 0,
+                       num_shards_global: int | None = None
+                       ) -> ShardPreppedBatch:
     """Per-group host localization (see :class:`ShardPreppedBatch`).
     ``fixed_ub`` pins the bucket size; ids past it are dropped and counted
-    in ``dropped`` (they surface as ``StepMetrics.dropped_ids``)."""
+    in ``dropped`` (they surface as ``StepMetrics.dropped_ids``). A process
+    of a multi-process run preps its own rows as one group
+    (``num_shards=1``) for ``num_shards_global`` owners, at the store's
+    fixed bucket, so that every process has the same shapes."""
     validate_fields(batch.fields, num_fields)
     b, l = batch.ids.shape
     if b % num_shards:
@@ -416,7 +425,8 @@ def prep_batch_sharded(batch: Batch, num_rows: int, num_shards: int,
         inv=inv_st.reshape(-1), valid=v_st.reshape(-1), dropped=d_st,
         ub=ub, num_shards=num_shards, fields=batch.fields,
         fields_checked=num_fields > 0)
-    pb.max_fill = int(shard_bucket_fills(pb, num_rows).max())
+    pb.max_fill = int(shard_bucket_fills(pb, num_rows,
+                                         num_shards_global).max())
     return pb
 
 

@@ -4,7 +4,7 @@ Port of ``difacto_tpu/learners/bcd.py`` (reference:
 ``src/bcd/bcd_learner.h`` :: BCDLearner + ``bcd_updater.h`` (closed-form
 proximal coordinate update) + ``src/loss/logit_loss_delta.h``
 (cached-prediction delta loss) + ``src/data/tile_store.h``/
-``tile_builder.h`` (column-block data layout)), on one device:
+``tile_builder.h`` (column-block data layout)):
 
   * PrepareData: the dataset is streamed twice into a DISK tile cache
     (``data/tile_store.py``, the JAX package's files: per-feature-block
@@ -29,9 +29,21 @@ unset) are folded into one launch at rows ``s * rows_per_shard + tr[s]``,
 whose sums are what ``psum`` computes, so a run at any S can be held
 against the JAX package at the same S. On the card ``index_add_`` adds
 with atomics, so the order of the sums (and an l1 threshold's last-bit
-decision) can differ from run to run. Multi-process BCD (every process
-tiling its own input parts, ``process_allgather`` of the shapes, the
-per-process placement) waits for ROADMAP A9b and raises.
+decision) can differ from run to run.
+
+Several processes (the env contract, parallel/multihost.py; reference:
+BCDLearner::PrepareData ran on every worker over its own part): each
+process tiles its own input parts (InputSplit) into
+``bcd_tile_dir/proc{p}`` (or a temporary directory), over its share of
+the S row shards (``shard.num_shards``, else one a process); one host
+allgather after the build agrees the example count, the tile extent and
+the shard length. Each block step sums g and h over the processes (one
+``all_reduce``, the JAX step's ``psum``), and every process applies the
+same proximal update to its copy of w; the blocks follow the same seeded
+order everywhere. The train metrics are summed, the train and validation
+AUCs taken over every process's gathered (label, score) pairs, and each
+process saves its whole copy of w as its piece of a per-process
+checkpoint, as the JAX package's replicated w is saved.
 
 The linear model (V_dim must be 0) matches the reference: BCD exists
 for exact-sparsity linear CTR models, FM training uses SGD.
@@ -40,6 +52,7 @@ for exact-sparsity linear CTR models, FM training uses SGD.
 from __future__ import annotations
 
 import logging
+import os
 import tempfile
 
 import numpy as np
@@ -50,7 +63,9 @@ from ..data.batch_iter import BatchIter
 from ..data.tile_store import TileStore, build_tiles
 from ..models.losses import stable_logloss
 from ..ops.metrics import NUM_AUC_BINS, exact_auc
-from ..parallel.multihost import refuse_multiprocess
+from ..parallel.comm import allgather_host, allgather_pairs
+from ..parallel.multihost import (input_part, maybe_initialize_distributed,
+                                  process_count, process_index)
 from ..updaters.updater import FMState
 from ..utils import checkpoint
 from ..utils.device import resolve_device
@@ -60,12 +75,14 @@ from ..utils.progress import Progress
 log = logging.getLogger("difacto_tpu_torch")
 
 
-def block_step(py, yy, mr, w_blk, rows, cols, vals, l1: float, l2: float):
+def block_step(py, yy, mr, w_blk, rows, cols, vals, l1: float, l2: float,
+               reduce=None):
     """One feature block's update, in place on ``py`` [n_pad] and
     ``w_blk`` (the block's [R] slice of w). ``rows``, ``cols``, ``vals``:
     the block's triplets, flat (the shards' local rows already offset into
     the shard-major py); padding triplets carry value 0 and add nothing.
-    The arithmetic is the JAX step's, term for term."""
+    ``reduce``: sums the stacked [2, R] (g, h) over the processes in place
+    (JAX's ``psum``). The arithmetic is the JAX step's, term for term."""
     p = py.index_select(0, rows)
     sig = torch.sigmoid(p)
     m = mr.index_select(0, rows)
@@ -76,6 +93,8 @@ def block_step(py, yy, mr, w_blk, rows, cols, vals, l1: float, l2: float):
         0, cols, vals * d)
     hh = torch.zeros(R, dtype=py.dtype, device=py.device).index_add_(
         0, cols, vals * vals * h)
+    if reduce is not None:
+        g, hh = reduce(torch.stack([g, hh]))
     u = w_blk * hh - g
     w_new = torch.sign(u) * torch.clamp(u.abs() - l1, min=0.0) / (hh + l2)
     w_new = torch.where(hh > 0, w_new, w_blk)  # untouched coords keep w
@@ -86,16 +105,10 @@ def block_step(py, yy, mr, w_blk, rows, cols, vals, l1: float, l2: float):
     w_blk.copy_(w_new)
 
 
-def _check_one_process() -> None:
-    """The port trains BCD in one process; a torch.distributed group of
-    more than one rank is where the JAX package runs its multi-process
-    branch."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and (
-            dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process BCD (per-process tile stores and placement) is "
-            "not in the PyTorch port yet (ROADMAP A9b)")
+def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the processes, in place."""
+    torch.distributed.all_reduce(x)
+    return x
 
 
 class BCDLearner:
@@ -103,31 +116,39 @@ class BCDLearner:
     caller asks for ``"cpu"`` (utils/device.py)."""
 
     def __init__(self, cfg: Config, device=None):
-        refuse_multiprocess("BCDLearner")
         if cfg.model.V_dim != 0:
             raise ValueError("BCD trains the linear model (V_dim=0)")
-        _check_one_process()
+        # the env contract's join (once a process; cli.main joins first)
+        maybe_initialize_distributed()
+        self.nproc = process_count()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_rows = 1 << cfg.data.num_bits
         self.num_blocks = min(cfg.learner.bcd_num_blocks, self.num_rows)
-        self.S = cfg.shard.num_shards or 1
+        # this process's row shards: its share of the S of the run
+        S = cfg.shard.num_shards or self.nproc
+        if S % self.nproc:
+            raise ValueError(f"num_shards {S} is not a multiple of the "
+                             f"{self.nproc} processes")
+        self.S = S // self.nproc
+        self._reduce = _all_reduce if self.nproc > 1 else None
         self.epoch_callbacks = []
         self._prepare_data()
 
     # -- PrepareData (reference: kPrepareData + TileBuilder) ----------------
 
     def _batch_iter(self, uri: str):
+        """This process's byte-range parts of ``uri`` (InputSplit)."""
         d = self.cfg.data
-        nppf = max(d.num_parts_per_file, 1)
+        parts, num_parts = input_part(d.num_parts_per_file)
         return BatchIter(
             uri,
             batch_size=d.batch_size,
             max_nnz=d.max_nnz_per_row,
             num_bits=d.num_bits,
             data_format=d.data_format,
-            part_index=range(nppf),
-            num_parts=nppf,
+            part_index=parts,
+            num_parts=num_parts,
         )
 
     def _prepare_data(self) -> None:
@@ -135,6 +156,8 @@ class BCDLearner:
         if not tile_dir:
             self._tmp = tempfile.TemporaryDirectory(prefix="difacto_tiles_")
             tile_dir = self._tmp.name
+        elif self.nproc > 1:
+            tile_dir = os.path.join(tile_dir, f"proc{process_index()}")
         self.tiles: TileStore = build_tiles(
             lambda: self._batch_iter(self.cfg.data.data_in),
             tile_dir,
@@ -144,8 +167,15 @@ class BCDLearner:
         )
         self.rows_per_block = self.tiles.rows_per_block
         self.labels = self.tiles.labels
-        self.n = self.tiles.n
-        self.shard_rows = self.tiles.rows_per_shard
+        ts = self.tiles
+        # the processes agree the shapes once, after the build: the
+        # example count summed, the tile extent and the shard length the
+        # largest (JAX bcd.py:124-137)
+        got = allgather_host(np.array([ts.n, ts.tile_nnz, ts.rows_per_shard],
+                                      np.int64))
+        self.n = int(got[:, 0].sum())
+        self.tile_nnz = int(got[:, 1].max())
+        self.shard_rows = int(got[:, 2].max())
 
     # -- state --------------------------------------------------------------
 
@@ -166,8 +196,9 @@ class BCDLearner:
                               device=dev)
         self.yy = put(ts.to_shard_order(
             np.where(self.labels > 0, 1.0, -1.0).astype(np.float32),
-            fill=-1.0))
-        self.mr = put(ts.to_shard_order(np.ones(self.n, np.float32)))
+            fill=-1.0, rows_per_shard=self.shard_rows))
+        self.mr = put(ts.to_shard_order(np.ones(ts.n, np.float32),
+                                        rows_per_shard=self.shard_rows))
         # shard s's local row r is py row s * rows_per_shard + r
         self._shard_base = (torch.arange(self.S, dtype=torch.int32,
                                          device=dev)[:, None]
@@ -191,7 +222,7 @@ class BCDLearner:
         p = self.cfg.model
         block_step(self.py, self.yy, self.mr,
                    self.w[block * R:(block + 1) * R], rows, cols, vals,
-                   p.l1, p.l2)
+                   p.l1, p.l2, self._reduce)
 
     def _tile_stream(self, order):
         """Tiles read from the disk cache and copied to the device one
@@ -218,6 +249,7 @@ class BCDLearner:
             ys.append(batch.labels[keep])
         y = np.concatenate(ys) if ys else np.zeros(0, np.float32)
         py = np.concatenate(pys) if pys else np.zeros(0, np.float32)
+        y, py = allgather_pairs(y, py)
         yy = np.where(y > 0, 1.0, -1.0).astype(np.float32)
         loss = np.logaddexp(0.0, -yy * py)
         prob = 1.0 / (1.0 + np.exp(-np.clip(py, -30.0, 30.0)))
@@ -249,14 +281,18 @@ class BCDLearner:
         self.sweep()
         loss = stable_logloss(-self.yy * self.py) * self.mr
         correct = ((self.py > 0) == (self.yy > 0)).to(torch.float32) * self.mr
+        sums = torch.stack([loss.sum(), correct.sum()])
+        if self._reduce is not None:
+            sums = self._reduce(sums)
         prog = Progress(
             num_examples=float(self.n),
-            logloss_sum=float(loss.sum()),
-            correct_sum=float(correct.sum()),
+            logloss_sum=float(sums[0]),
+            correct_sum=float(sums[1]),
         )
         prog.nnz_w = float((self.w != 0).sum())
-        prog.exact_auc = exact_auc(
-            self.labels, self.tiles.from_shard_order(self.py.cpu().numpy()))
+        prog.exact_auc = exact_auc(*allgather_pairs(
+            self.labels, self.tiles.from_shard_order(
+                self.py.cpu().numpy(), rows_per_shard=self.shard_rows)))
         log.info(
             "bcd epoch %d train: logloss %.6f auc %.6f acc %.4f |w|>0 %d",
             epoch, prog.logloss, prog.exact_auc, prog.accuracy,
@@ -290,5 +326,8 @@ class BCDLearner:
                                 device=w.device)
             state = FMState(w=w, z=torch.zeros_like(w), n=torch.zeros_like(w),
                             V=empty, nV=empty, cnt=torch.zeros_like(w))
-            checkpoint.save(cfg.learner.model_out, state, {"learner": "bcd"})
+            # several processes: each saves its whole copy, as its piece
+            checkpoint.save(cfg.learner.model_out, state, {"learner": "bcd"},
+                            shard=(0, self.num_rows) if self.nproc > 1
+                            else None)
         return last

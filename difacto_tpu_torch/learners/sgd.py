@@ -1,9 +1,9 @@
-"""Synchronous minibatch SGD learner on one device.
+"""Synchronous minibatch SGD learner.
 
 Port of ``difacto_tpu/learners/sgd.py`` (reference:
-``src/sgd/sgd_learner.h`` :: SGDLearner), single process: the scheduler's
-job queue is program order, and the bounded-staleness pipeline is
-host-side prefetch overlapping device steps (staleness 0). Host threads
+``src/sgd/sgd_learner.h`` :: SGDLearner): the scheduler's job queue is
+program order, and the bounded-staleness pipeline is host-side prefetch
+overlapping device steps (staleness 0). Host threads
 parse the data, localize and sort each batch (data/prep.py) and copy it
 to the device one step ahead (utils/place.py); the main thread runs the
 store's train and eval steps. With ``host_localize=0`` the raw batches
@@ -16,13 +16,26 @@ Per-epoch flow mirrors RunScheduler/RunEpoch: optional feature-count pass
 (tail_feature_filter), train pass over data_in, validation pass over
 data_val (pull + predict only, no push), epoch-end callbacks, model save.
 ``DIFACTO_PROFILE`` traces the first train pass (utils/tracing.py).
-``store=sharded`` trains through the ShardedStore at S = 1 (no process
-group): prep localizes each batch over one row group
-(data/prep.py::prep_batch_sharded), the capacity pin moves at each
-epoch's end, and checkpoints hold the gathered table, padding rows
-included, as the JAX package's one-process branch writes it. Several
-processes (a group of S > 1, or the ``DIFACTO_*`` launch contract) are
-ROADMAP A9b and raise.
+``store=sharded`` trains through the ShardedStore: prep localizes each
+batch over its row groups (data/prep.py::prep_batch_sharded), the
+capacity pin moves at each epoch's end, and a one-process run's
+checkpoint holds the gathered table, padding rows included, as the JAX
+package's one-process branch writes it.
+
+Several processes (the ``DIFACTO_*`` launch contract,
+parallel/multihost.py; the store shards the table, one shard a process):
+``batch_size`` is the global batch, and each process reads its own
+byte-range parts of every file (InputSplit) at ``batch_size / P`` rows a
+step, preps them as one row group at the store's fixed bucket, and steps
+in lockstep with the others (:meth:`SGDLearner._lockstep`: a process whose
+parts run out steps fully masked batches until all are done). The metrics
+are summed over the processes; the exact AUC is taken over every
+process's reservoir of ``exact_auc_cap / P`` pairs, gathered, so every
+process logs the same value. Each process saves its own shard
+(utils/checkpoint.py) and predicts its own rows. Every collective (the
+lockstep flag, the agreed capacity, the all_to_alls, the pairs) runs on
+the main thread in the same order on every process; the prep and
+placement threads call none.
 """
 
 from __future__ import annotations
@@ -34,12 +47,14 @@ from typing import Callable
 import numpy as np
 
 from ..config import Config
-from ..data.batch_iter import BatchIter
+from ..data.batch_iter import Batch, BatchIter
 from ..data.prep import (build_sorted_slots, build_sorted_slots_sharded,
                          prep_batch, prep_batch_sharded, validate_fields)
 from ..data.remap import apply_remap, build_remap, count_sample
 from ..ops.metrics import exact_auc
-from ..parallel.multihost import refuse_multiprocess
+from ..parallel.comm import allgather_host, allgather_pairs
+from ..parallel.multihost import (input_part, maybe_initialize_distributed,
+                                  process_count)
 from ..parallel.store import ShardedStore, make_store
 from ..updaters.updater import FMUpdater
 from ..utils import checkpoint
@@ -97,17 +112,13 @@ class SGDLearner:
     caller asks for ``"cpu"`` (utils/device.py)."""
 
     def __init__(self, cfg: Config, device=None):
-        refuse_multiprocess("SGDLearner")
+        # the env contract's join (once a process; cli.main joins first)
+        maybe_initialize_distributed()
+        self._nproc = process_count()
         self.cfg = cfg
         self.updater = FMUpdater(cfg.effective_model_param())
         self.store = make_store(self.updater, cfg, device=device)
         self._sharded = isinstance(self.store, ShardedStore)
-        if self._sharded and self.store.S > 1:
-            raise NotImplementedError(
-                f"SGDLearner over a sharded store of {self.store.S} ranks: "
-                "the multi-process learner (input parts, lockstep, "
-                "per-process checkpoints) is not in the PyTorch port yet "
-                "(ROADMAP A9b); drive the ShardedStore directly")
         self.device = self.store.device
         self.reporter = Reporter(cfg.learner.report_interval)
         self.epoch_callbacks: list[Callable[[int, Progress], None]] = []
@@ -154,7 +165,62 @@ class SGDLearner:
         """Batches of ``uri``: raw host Batches when ``localize`` is
         false (the count pass), else batches on the device: prepped, with
         their sorted slots when ``sorted_slots`` (the train pass), or raw
-        with ``host_localize=0`` (the store localizes them)."""
+        with ``host_localize=0`` (the store localizes them). Several
+        processes step them in lockstep."""
+        prep = (self._prep_fn(sorted_slots)
+                if localize and self._host_localize else None)
+
+        def empty():
+            """A fully masked batch in the form of the pass's items."""
+            b = self._empty_batch()
+            if not localize:
+                return b
+            return place_batch(prep(b) if prep else self._check_raw(b),
+                               self.device)
+
+        return self._lockstep(
+            self._stream(uri, shuffle, localize, epoch, sorted_slots, prep),
+            empty)
+
+    def _empty_batch(self) -> Batch:
+        """A batch of this process's rows with no ids and mask 0."""
+        d = self.cfg.data
+        bs, L = d.batch_size // self._nproc, d.max_nnz_per_row
+        return Batch(np.full((bs, L), -1, np.int32),
+                     np.zeros((bs, L), np.float32), np.zeros(bs, np.float32),
+                     np.zeros(bs, np.float32),
+                     fields=(np.zeros((bs, L), np.int32)
+                             if d.data_format == "libffm" else None))
+
+    def _lockstep(self, it, make_empty):
+        """The items of ``it`` in lockstep across processes (JAX
+        ``SGDLearner._lockstep``): at each step every process says by a
+        host allgather whether it still has an item; the pass ends when
+        none has, and a process whose items ran out yields ``make_empty()``
+        meanwhile, so every process runs the same steps and collectives.
+        Runs on the consumer's (main) thread. One process: ``it``."""
+        if self._nproc == 1:
+            return it
+
+        def gen():
+            src, done, empty = iter(it), False, None
+            while True:
+                item = None if done else next(src, None)
+                done = item is None
+                if not allgather_host(np.array(not done, np.int32)).any():
+                    return
+                if item is None:
+                    if empty is None:
+                        empty = make_empty()
+                    item = empty
+                yield item
+
+        return gen()
+
+    def _stream(self, uri: str, shuffle: bool, localize: bool, epoch: int,
+                sorted_slots: bool, prep):
+        """This process's batches of ``uri`` (see :meth:`_iter`), before
+        the lockstep."""
         d = self.cfg.data
         # the cache key covers everything that changes batch content or
         # order; the raw count-pass stream is never cached (it runs once)
@@ -167,15 +233,18 @@ class SGDLearner:
             # the cache fixes one batch order for every epoch (the
             # reference's DataStore reuses the same compacted batches too)
             epoch = 0
-        nppf = max(d.num_parts_per_file, 1)
+        # the InputSplit contract: this process's byte-range parts of every
+        # file, at its share of the global batch (the store checked that
+        # the processes divide it)
+        parts, num_parts = input_part(d.num_parts_per_file)
         src = iter(BatchIter(
             uri,
-            batch_size=d.batch_size,
+            batch_size=d.batch_size // self._nproc,
             max_nnz=d.max_nnz_per_row,
             num_bits=d.num_bits,
             data_format=d.data_format,
-            part_index=range(nppf),
-            num_parts=nppf,
+            part_index=parts,
+            num_parts=num_parts,
             shuffle=shuffle and d.shuffle,
             # epoch-dependent seed: each epoch must shuffle differently AND
             # a resumed run must reproduce the interrupted epoch's order
@@ -184,8 +253,8 @@ class SGDLearner:
         ))
         if not localize:
             return ThreadedIter(src, depth=4)
-        if self._host_localize:
-            out = self._prep_iter(src, sorted_slots)
+        if prep is not None:
+            out = self._prep_iter(src, prep)
         else:
             out = ThreadedIter(map(self._check_raw, src), depth=4)
         if cache_key is None:
@@ -212,10 +281,9 @@ class SGDLearner:
             validate_fields(b.fields, self.cfg.model.num_fields)
         return b
 
-    def _prep_iter(self, src, sorted_slots: bool):
-        """Prepped host batches of a raw batch stream, from a pool of prep
-        workers."""
-        d = self.cfg.data
+    def _prep_fn(self, sorted_slots: bool):
+        """The host prep of one raw batch (run by the prep workers; it
+        calls no collective)."""
         num_rows = self.store.num_rows
         min_ub = self.cfg.shard.unique_size or None
         # FFM's sorted backward gathers its per-slot payload by the sort
@@ -229,8 +297,14 @@ class SGDLearner:
 
         def prep(b):
             if self._sharded:  # one row group a rank (JAX sgd.py:197-245)
-                pb = prep_batch_sharded(b, num_rows, self.store.S,
-                                        num_fields=nf)
+                # a process's own rows are one group at the store's fixed
+                # bucket: every process has the same shapes, and the same
+                # batches drop the same ids (counted)
+                st = self.store
+                pb = prep_batch_sharded(
+                    b, num_rows, 1 if st.local_rows else st.S,
+                    fixed_ub=st.unique_size if st.local_rows else None,
+                    num_fields=nf, num_shards_global=st.S)
                 if sorted_slots:
                     pb.sorted_slots = build_sorted_slots_sharded(
                         pb, with_slots=with_slots)
@@ -242,6 +316,12 @@ class SGDLearner:
                                                      with_slots=with_slots)
             return pb
 
+        return prep
+
+    def _prep_iter(self, src, prep):
+        """Prepped host batches of a raw batch stream, from a pool of prep
+        workers."""
+        d = self.cfg.data
         # prep_workers=0 -> auto: leave cores for the parse thread, the
         # batchify pool and the main thread
         pw = d.prep_workers or min(4, max(1, (os.cpu_count() or 4) - 2))
@@ -327,13 +407,21 @@ class SGDLearner:
         return self.store.eval_step(self.state, batch.ids, batch.vals,
                                     batch.labels, batch.mask, batch.fields)
 
-    def _save(self, meta: dict) -> str:
+    def _save(self, meta: dict) -> str | None:
         """Checkpoint the state in canonical rows (a hot/cold state by the
-        run's remap; a sharded state gathered, padding rows included)."""
-        state = (self.store.gather_state(self.state) if self._sharded
-                 else self.state)
-        return checkpoint.save(self.cfg.learner.model_out, state, meta,
-                               remap_lut=self.store.hot_lut)
+        run's remap). A sharded state: under several processes each saves
+        its own rows (no process gathers the table); else the gathered
+        table, padding rows included, written by rank 0. Returns the file
+        this process wrote, if any."""
+        st, out = self.store, self.cfg.learner.model_out
+        if not self._sharded:
+            return checkpoint.save(out, self.state, meta,
+                                   remap_lut=st.hot_lut)
+        if st.local_rows:
+            return checkpoint.save(out, self.state, meta,
+                                   shard=(st.lo, st.num_rows))
+        state = st.gather_state(self.state)  # a collective
+        return checkpoint.save(out, state, meta) if st.rank == 0 else None
 
     def eval_pass(self, uri: str) -> Progress:
         prog = Progress()
@@ -342,8 +430,10 @@ class SGDLearner:
         # a cap; past it a uniform RESERVOIR sample of cap pairs replaces
         # the collection. The streaming binned AUC always covers the full
         # pass.
+        # several processes: a reservoir of cap / P pairs each, gathered
         cap = self.cfg.learner.exact_auc_cap
-        res = _Reservoir(cap, self.cfg.data.seed) if cap > 0 else None
+        res = (_Reservoir(max(cap // self._nproc, 1), self.cfg.data.seed)
+               if cap > 0 else None)
         for batch in self._iter(uri, shuffle=False):
             metrics, py = self._eval_step(batch)
             acc = metrics if acc is None else merge_metrics(acc, metrics)
@@ -352,8 +442,10 @@ class SGDLearner:
                 res.add(_host(batch.labels)[keep], _host(py)[keep])
         if acc is not None:
             self._fold(prog, acc)
-        if res is not None and res.n_seen:
-            y, p = res.sample()
+        y = p = None
+        if res is not None and (self._nproc > 1 or res.n_seen):
+            y, p = allgather_pairs(*res.sample())  # every process calls it
+        if y is not None and len(y):
             prog.exact_auc = exact_auc(y, p)
             prog.exact_auc_truncated = res.truncated
             prog.exact_auc_n = len(y)
@@ -413,12 +505,14 @@ class SGDLearner:
                 or epoch + 1 == cfg.learner.max_num_epochs
             ):
                 path = self._save({"epoch": epoch + 1, "step": 0})
-                log.info("saved model to %s", path)
+                if path:
+                    log.info("saved model to %s", path)
         return last
 
     def predict(self, uri: str) -> tuple[np.ndarray, np.ndarray]:
-        """Batch prediction: returns (scores, labels) for all rows
-        (reference: the validation/pred flow with model_in + no training)."""
+        """Batch prediction: returns (scores, labels) for all rows of this
+        process's parts, in their order (reference: the validation/pred
+        flow with model_in + no training)."""
         pys, ys = [], []
         for batch in self._iter(uri, shuffle=False):
             _, py = self._eval_step(batch)

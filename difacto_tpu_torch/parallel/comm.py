@@ -15,6 +15,13 @@ plus an all-gather, which the JAX package gets from a global array's
 ``device_get`` (the whole table on the host for a checkpoint, the scores
 of an eval step).
 
+:func:`allgather_host` is the multi-process learner's
+``multihost_utils.process_allgather``: a small NumPy array from every
+process of the default group, as CPU tensors (the lockstep's "have data"
+flag, the agreed all_to_all capacity, the exact AUC's pairs, BCD's build
+shapes), so none of them waits on the card. Every process calls it at
+the same point of its program, on its main thread.
+
 With no process group (or a group of one) a :class:`Comm` has S = 1 and
 every collective is the identity: the store's S = 1 branch calls none.
 
@@ -30,8 +37,43 @@ ROADMAP A9c; these calls do not change for it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+from .multihost import process_count
+
+
+def allgather_host(x) -> np.ndarray:
+    """[P, *x.shape]: every process's NumPy array ``x`` (the same shape and
+    dtype on every process), in rank order; ``x[None]`` without a group."""
+    x = np.ascontiguousarray(x)
+    if not (dist.is_available() and dist.is_initialized()) or (
+            dist.get_world_size() == 1):
+        return x[None]
+    t = torch.from_numpy(x.copy())
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return torch.stack(out).numpy()
+
+
+def allgather_pairs(y: np.ndarray, p: np.ndarray):
+    """(label, score) pairs of every process, in process order (JAX
+    ``SGDLearner._allgather_pairs``): each pads to the longest with label
+    NaN, which no real label is (a sign test would drop genuine
+    negatives). One process (no multi-process launch): the pairs as
+    given."""
+    if process_count() == 1:
+        return y, p
+    m = int(allgather_host(np.array(len(y), np.int64)).max())
+    ypad = np.full(m, np.nan, np.float32)
+    ppad = np.zeros(m, np.float32)
+    ypad[:len(y)] = y
+    ppad[:len(p)] = p
+    yg = allgather_host(ypad).reshape(-1)
+    pg = allgather_host(ppad).reshape(-1)
+    keep = ~np.isnan(yg)
+    return yg[keep], pg[keep]
 
 
 class Comm:

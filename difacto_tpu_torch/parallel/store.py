@@ -50,6 +50,9 @@ owner pulls and applies over the receive stream, S per-source segments:
 the pair kernels B1 and K1 on ``kernel=pairs``, the updater's gather, a
 dedup and B5 (or the updater) on ``kernel=pallas`` (``xla``). With no
 group (S = 1) it is the pair path of :class:`LocalStore` on the same rows.
+Under a multi-process launch (parallel/multihost.py) each rank is handed
+its own process's rows and agrees the per-step capacity with the others
+by a host allgather.
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ from ..updaters.updater import (FMState, FMUpdater, HotColdFMState, LEAVES,
                                 pack_state, stack_state, unpack_state)
 from ..utils.device import resolve_device
 from ..utils.place import place_batch
-from .comm import Comm
+from .comm import Comm, allgather_host
+from .multihost import process_count
 
 
 def _require_fields(fields, num_fields: int):
@@ -527,10 +531,20 @@ class ShardedStore(LocalStore):
     ``[r * rows_per_shard, (r+1) * rows_per_shard)`` of a table padded up
     so that S ranks divide it in whole ``block_rows`` (padded rows are
     never hashed into and hold zeros), in the layout ``LocalStore``
-    resolves. Every rank is handed the same GLOBAL batch, prepped over S
-    row groups (data/prep.py::prep_batch_sharded), steps its own group
-    and returns the metrics summed over the ranks (``psum``); an eval
-    step returns the scores of the whole batch.
+    resolves. The train and eval steps return the metrics summed over the
+    ranks (``psum``). A rank's batches come in one of two forms:
+
+    * the GLOBAL batch, the same on every rank, prepped over S row groups
+      (data/prep.py::prep_batch_sharded); each rank steps its own group,
+      reads the capacity from the batch with no collective, and an eval
+      step returns the scores of the whole batch. ``run_ranks`` groups
+      (parallel/launch.py) and one process (S = 1) run so;
+    * this process's own rows alone (``local_rows``: a multi-process
+      launch, JAX's ``process_count() > 1``), prepped as one
+      row group for S owners at the fixed bucket ``unique_size``; the
+      pairs capacity is agreed per step by one host allgather of the
+      ranks' largest bucket fills (JAX ``_mp_pairs_capacity``), and an
+      eval step returns this rank's scores.
 
     S is the size of the initialized default group, 1 without one
     (parallel/comm.py). ``device``
@@ -546,6 +560,7 @@ class ShardedStore(LocalStore):
         self.comm = Comm()
         S = self.S = self.comm.size
         self.rank = self.comm.rank
+        self.local_rows = process_count() > 1
         if cfg.shard.num_shards and cfg.shard.num_shards != S:
             raise ValueError(f"num_shards {cfg.shard.num_shards} is not the "
                              f"process group's size {S} (one shard a rank)")
@@ -588,8 +603,15 @@ class ShardedStore(LocalStore):
         (source, owner) bucket fill (``pb.max_fill``, which prep takes on
         the host by data/prep.py::shard_bucket_fills over this store's
         rows), W-aligned (no drops), then :meth:`_cap_resolve`. Every rank
-        reads it from the global batch: no collective."""
-        return self._cap_resolve(_round_up(max(pb.max_fill, 1), PAIR_WINDOW))
+        reads it from the global batch; of ``local_rows`` batches, each
+        rank knows only its own fills, and the largest is agreed by one
+        host allgather (JAX ``_mp_pairs_capacity``), so that every rank
+        resolves the same capacity and pin. A collective: every rank calls
+        it at the same step, on its main thread."""
+        need = pb.max_fill
+        if self.local_rows and self.S > 1:
+            need = int(allgather_host(np.array(need, np.int64)).max())
+        return self._cap_resolve(_round_up(max(need, 1), PAIR_WINDOW))
 
     def _cap_resolve(self, c: int) -> int:
         """Exact W-aligned need -> served capacity: the epoch pin when it
@@ -615,10 +637,18 @@ class ShardedStore(LocalStore):
         [.., rows_in] tensor, anywhere), zero-padded past ``rows_in``, on
         the device in this store's layout."""
         lo, hi = self.lo, self.lo + self.rows_per_shard
+        return self.place_rows({name: leaves[name][..., lo:min(hi, rows_in)]
+                                for name in LEAVES})
+
+    def place_rows(self, leaves):
+        """This rank's rows ``[lo, lo + rows_per_shard)`` from planar
+        leaves that hold them from ``lo`` on (name -> [.., r] tensor or
+        NumPy array, r <= rows_per_shard; zero-padded past r), on the
+        device in this store's layout (a per-process checkpoint's
+        pieces)."""
         out = {}
         for name in LEAVES:
-            x = leaves[name][..., lo:min(hi, rows_in)].to(self.device,
-                                                           torch.float32)
+            x = torch.as_tensor(leaves[name]).to(self.device, torch.float32)
             pad = self.rows_per_shard - x.shape[-1]
             out[name] = (torch.nn.functional.pad(x, (0, pad)) if pad
                          else x).contiguous()
@@ -681,9 +711,10 @@ class ShardedStore(LocalStore):
     # -- this rank's part of a global batch ----------------------------------
 
     def _rows(self, x):
-        """This rank's row group of a global [B, ...] array."""
-        if x is None:
-            return None
+        """This rank's row group of a global [B, ...] array (a
+        ``local_rows`` batch is this rank's already)."""
+        if x is None or self.local_rows:
+            return x
         bs = x.shape[0] // self.S
         return x[self.rank * bs:(self.rank + 1) * bs]
 
@@ -692,9 +723,11 @@ class ShardedStore(LocalStore):
         if not isinstance(pb, ShardPreppedBatch):
             raise TypeError("the sharded store takes a ShardPreppedBatch "
                             "(data/prep.py::prep_batch_sharded)")
-        if pb.num_shards != self.S:
+        groups = 1 if self.local_rows else self.S
+        if pb.num_shards != groups:
             raise ValueError(f"batch prepped over {pb.num_shards} groups for "
-                             f"{self.S} ranks")
+                             f"{self.S} ranks (local rows: "
+                             f"{self.local_rows})")
         if self.expects_fields:
             pb.fields = _prepped_fields(pb, self.num_fields)
             pb.fields_checked = True
@@ -706,9 +739,9 @@ class ShardedStore(LocalStore):
                                  "built before placement (data/prep.py)")
             pb.sorted_slots = ss = build_sorted_slots_sharded(
                 pb, with_slots=ffm)
-        r, ub = self.rank, pb.ub
+        r, ub = 0 if self.local_rows else self.rank, pb.ub
         lanes = slice(r * ub, (r + 1) * ub)
-        nl = pb.inv.shape[0] // self.S
+        nl = pb.inv.shape[0] // groups
         local = PreppedBatch(
             vals=self._rows(pb.vals), labels=self._rows(pb.labels),
             mask=self._rows(pb.mask), uids=pb.uids[lanes],
@@ -900,12 +933,17 @@ class ShardedStore(LocalStore):
         return state, self._sum_metrics(metrics, dropped + dropped_prep)
 
     def _gather_py(self, py: torch.Tensor) -> torch.Tensor:
+        """The whole batch's scores, or this rank's of a ``local_rows``
+        batch (JAX ``SGDLearner._local_scores``)."""
+        if self.local_rows:
+            return py
         return self.comm.all_gather(py).reshape(-1)
 
     def eval_step_prepped(self, state, pb: ShardPreppedBatch
                           ) -> tuple[StepMetrics, torch.Tensor]:
         """pull -> forward. Returns (metrics summed over the ranks, the
-        whole batch's py [B])."""
+        whole batch's py [B], or this rank's rows' of a ``local_rows``
+        batch)."""
         lb, dropped_prep = self._local(pb, need_slots=False)
         loc = Localized(uids=lb.uids, inv=lb.inv, counts=lb.ucounts,
                         valid=lb.valid)
@@ -925,9 +963,10 @@ class ShardedStore(LocalStore):
                             self._rows(fields))
 
     def train_step(self, state, ids, vals, labels, mask, fields=None):
-        """A train step on a raw GLOBAL batch (``ids`` i32 [B, L]): this
-        rank's rows localized on the device into ``unique_size`` lanes,
-        the XLA or sweep path's routing and push."""
+        """A train step on a raw GLOBAL batch (``ids`` i32 [B, L]; this
+        rank's rows of a ``local_rows`` store): this rank's rows localized
+        on the device into ``unique_size`` lanes, the XLA or sweep path's
+        routing and push."""
         loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
                                                     fields)
         C = self._capacity_for(loc.uids.shape[0])
@@ -950,9 +989,10 @@ class ShardedStore(LocalStore):
                 self._gather_py(py))
 
     def count_step(self, state, ids):
-        """The feature-frequency pass over a raw GLOBAL batch: this rank's
-        per-id counts routed to their owners, which add them to ``cnt``
-        (JAX ``store.py:1655-1680``)."""
+        """The feature-frequency pass over a raw GLOBAL batch (this rank's
+        rows of a ``local_rows`` store): this rank's per-id counts routed
+        to their owners, which add them to ``cnt`` (JAX
+        ``store.py:1655-1680``)."""
         ids = _as_tensor(self._rows(ids), self.device, torch.int32)
         loc = localize(ids, self.num_rows, self.unique_size)
         S, C = self.S, self._capacity_for(loc.uids.shape[0])
@@ -972,9 +1012,20 @@ class ShardedStore(LocalStore):
 
 def make_store(updater: FMUpdater, cfg: Config, device=None):
     """Store::Create. ``store=sharded`` gives a :class:`ShardedStore` over
-    the process group (S = 1 without one); ``local`` and ``auto`` a
-    :class:`LocalStore` (the JAX package's ``auto`` is sharded only over
-    more than one device, and the port runs one process)."""
-    if cfg.shard.store == "sharded":
+    the process group (S = 1 without one), ``local`` a :class:`LocalStore`;
+    ``auto`` is sharded over more than one rank (``num_shards``, else the
+    group's size), as the JAX package's is over more than one device, so
+    every multi-process launch shards. ``store=local`` under a
+    multi-process launch raises: each process holds a shard of the table
+    (the JAX package has no one-device store across processes)."""
+    kind = cfg.shard.store
+    if kind == "auto":
+        kind = "sharded" if (cfg.shard.num_shards or Comm().size) > 1 \
+            else "local"
+    if kind == "sharded":
         return ShardedStore(updater, cfg, device=device)
+    if process_count() > 1:
+        raise ValueError(
+            f"store=local under a launch of {process_count()} processes: a "
+            "multi-process launch shards the table (store=sharded or auto)")
     return LocalStore(updater, cfg, device=device)

@@ -13,9 +13,9 @@ is the hashed table row (the reference dumps raw feature ids; hashing is
 many-to-one, so the hash row is the model's native key here).
 
 Port of ``difacto_tpu/tools/dump_model.py``: host NumPy over the port's
-``utils/checkpoint.load``, local or remote prefix (data/io.py); the same
-text, byte for byte, on the same checkpoint. The per-process sharded
-layout (``load_full`` in the JAX package) waits for ROADMAP A9b and raises.
+``utils/checkpoint.load_full``, local or remote prefix (data/io.py), of a
+one-file checkpoint or a multi-process run's per-process file set; the
+same text, byte for byte on the same checkpoint.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ..utils import checkpoint
 
 
 def dump(prefix: str, out, limit: int = 0, include_all: bool = False) -> int:
-    state, meta = checkpoint.load(prefix)
+    state, meta = checkpoint.load_full(prefix)
     w = np.asarray(state.w)
     v = np.asarray(state.V)  # planar [K, N]
     cnt = np.asarray(state.cnt)

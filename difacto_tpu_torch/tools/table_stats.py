@@ -13,9 +13,9 @@ the share of traffic carried by the hottest 0.1%/1% of rows, and — with
 partitioning would produce (reference: ps-lite GetServerKeyRanges).
 
 Port of ``difacto_tpu/tools/table_stats.py``: host NumPy over the port's
-``utils/checkpoint.load``, local or remote prefix (data/io.py); the same
-dict on the same checkpoint. The per-process sharded layout
-(``load_full`` in the JAX package) waits for ROADMAP A9b and raises.
+``utils/checkpoint.load_full``, local or remote prefix (data/io.py), of a
+one-file checkpoint or a multi-process run's per-process file set; the
+same dict on the same checkpoint.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ..utils import checkpoint
 
 
 def stats(prefix: str, shards: int = 0, topk: int = 10) -> dict:
-    state, _ = checkpoint.load(prefix)
+    state, _ = checkpoint.load_full(prefix)
     cnt = np.asarray(state.cnt, dtype=np.float64)
     n = len(cnt)
     touched = cnt > 0

@@ -1851,3 +1851,75 @@ def test_cuda_two_rank_gloo_step_matches_local_store(card, tmp_path):
     for leaf in LEAVES:
         np.testing.assert_allclose(got[leaf], ref[leaf], rtol=2e-4,
                                    atol=2e-4, err_msg=leaf)
+
+
+@pytest.mark.parametrize("layout", ["packed", "planar"])
+def test_cuda_two_process_cli_matches_local_store(card, tmp_path, layout):
+    """``python -m difacto_tpu_torch conf`` as two processes under the env
+    contract, sharing the card (B1, B3 and K1 on the row-major table, or
+    on planar leaves), trains 2 epochs over the two byte-range parts of a
+    small set; the per-process checkpoint is LocalStore's on the card
+    over the same global stream (the parts zipped, the shorter padded
+    with empty batches), at rtol and atol 2e-4, and the two processes'
+    predict part files concatenate to a one-process predict of the file
+    set (a LocalStore)."""
+    from difacto_tpu_torch import cli
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data.batch_iter import Batch, BatchIter
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.data.synthetic import make_ctr_data, write_libsvm
+    from difacto_tpu_torch.parallel.launch import run_processes
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.utils import arg_parser, checkpoint
+    from difacto_tpu_torch.utils.checkpoint import state_to_numpy
+
+    train, val = str(tmp_path / "train.svm"), str(tmp_path / "val.svm")
+    write_libsvm(make_ctr_data(5000, num_fields=10, vocab_per_field=300,
+                               seed=1), train)
+    write_libsvm(make_ctr_data(1000, num_fields=10, vocab_per_field=300,
+                               seed=2), val)
+    conf = tmp_path / "fm.conf"
+    conf.write_text(f"data_in = {train}\ndata_val = {val}\nbatch_size = 512\n"
+                    "num_bits = 14\nmax_nnz_per_row = 12\nV_dim = 8\n"
+                    "lr_eta = 0.1\nl1 = 0.1\nV_lr_eta = 0.05\n"
+                    f"max_num_epochs = 2\nshuffle = 0\nlayout = {layout}\n")
+    model = str(tmp_path / "model")
+    cuda.build()  # once, before the processes load it
+    run_processes(["-m", "difacto_tpu_torch", str(conf),
+                   f"model_out={model}"], 2, timeout=300)
+    run_processes(["-m", "difacto_tpu_torch", str(conf), "task=predict",
+                   f"model_in={model}", f"data_in={val}",
+                   f"pred_out={tmp_path / 'pred.txt'}"], 2, timeout=300)
+    cfg = Config.from_kwargs(arg_parser.parse([str(conf)]))
+    store = LocalStore(FMUpdater(cfg.model), cfg, device=card)
+    state = store.init_state(cfg.data.seed)
+    parts = [list(BatchIter(train, batch_size=256, max_nnz=12, num_bits=14,
+                            part_index=range(p, p + 1), num_parts=2))
+             for p in (0, 1)]
+    empty = Batch(np.full((256, 12), -1, np.int32),
+                  np.zeros((256, 12), np.float32), np.zeros(256, np.float32),
+                  np.zeros(256, np.float32))
+    n = max(map(len, parts))
+    for _ in range(2):
+        for i in range(n):
+            step = [s[i] if i < len(s) else empty for s in parts]
+            pb = prep_batch(Batch(*(np.concatenate([getattr(b, f)
+                                                    for b in step])
+                                    for f in ("ids", "vals", "labels",
+                                              "mask"))), store.num_rows)
+            pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals)
+            state, _ = store.train_step_prepped(state, pb)
+    ref = state_to_numpy(state)
+    got, meta = checkpoint.load_full(model)
+    assert meta["process_count"] == 2
+    got = state_to_numpy(got)
+    for leaf in LEAVES:
+        np.testing.assert_allclose(got[leaf], ref[leaf], rtol=2e-4,
+                                   atol=2e-4, err_msg=leaf)
+    one = tmp_path / "one.txt"
+    assert cli.main([str(conf), "task=predict", f"model_in={model}",
+                     f"data_in={val}", f"pred_out={one}"]) == 0
+    np.testing.assert_allclose(
+        np.concatenate([np.loadtxt(tmp_path / f"pred.txt.part{p}")
+                        for p in (0, 1)]), np.loadtxt(one), rtol=2e-4,
+        atol=2e-4)

@@ -1,5 +1,5 @@
-"""The port's sharded store (ShardedStore over torch.distributed), K1 and
-the multi-process refusals, against the JAX package.
+"""The port's sharded store (ShardedStore over torch.distributed) and K1,
+against the JAX package.
 
 The store's cases (tests/torch_sharded_ranks.py) run in S gloo processes
 on the CPU (``difacto_tpu_torch.parallel.launch``: one group for S = 2,
@@ -14,7 +14,6 @@ tolerance (tests/test_store_equiv.py:55: the table's leaves rtol and atol
 The JAX store runs its Pallas kernels (pairs, pallas) in interpret mode.
 """
 
-import os
 import pathlib
 
 import jax
@@ -37,7 +36,6 @@ from difacto_tpu.utils import checkpoint as jcheckpoint
 from difacto_tpu_torch import cli
 from difacto_tpu_torch.config import Config
 from difacto_tpu_torch.data import prep
-from difacto_tpu_torch.learners.bcd import BCDLearner
 from difacto_tpu_torch.learners.sgd import SGDLearner
 from difacto_tpu_torch.ops import pair_sweep
 from difacto_tpu_torch.parallel import comm as tcomm
@@ -383,39 +381,3 @@ def test_sharded_learner_and_cli_match_jax(data, tmp_path):
                 ("store", "local"))))
     ref, _ = jl.predict(str(data / "val.svm"))
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-5)
-
-
-# -- D1: the multi-process launch contract is refused ------------------------
-
-
-_ENV = {"DIFACTO_COORDINATOR": "localhost:1", "DIFACTO_NUM_PROCESSES": "2",
-        "DIFACTO_PROCESS_ID": "1"}
-
-
-@pytest.mark.parametrize("entry", ["cli", "sgd", "bcd"])
-def test_multiprocess_env_contract_is_refused(entry, data, tmp_path,
-                                              monkeypatch):
-    """Under the JAX package's condition (DIFACTO_COORDINATOR set and
-    DIFACTO_NUM_PROCESSES > 1) cli.main, SGDLearner and BCDLearner raise
-    NotImplementedError naming ROADMAP A9b before reading data or writing
-    model_out, where each process would have trained the whole model on
-    all the data."""
-    for k, v in _ENV.items():
-        monkeypatch.setenv(k, v)
-    model = tmp_path / "m"
-    kw = _recipe(data, ("model_out", str(model)))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        if entry == "cli":
-            cli.main([f"{k}={v}" for k, v in kw], device="cpu")
-        elif entry == "sgd":
-            SGDLearner(Config.from_kwargs(kw), device="cpu").run()
-        else:
-            BCDLearner(Config.from_kwargs(
-                [(k, "0" if k == "V_dim" else v) for k, v in kw]
-                + [("learner", "bcd")]), device="cpu").run()
-    assert not os.listdir(tmp_path)
-    # one process (or no coordinator) is not refused
-    monkeypatch.setenv("DIFACTO_NUM_PROCESSES", "1")
-    from difacto_tpu_torch.parallel.multihost import multiprocess_requested
-
-    assert not multiprocess_requested()

@@ -114,12 +114,28 @@ def test_tools_read_a_remote_checkpoint():
     fsspec.filesystem("memory").rm("/toolbucket", recursive=True)
 
 
-def test_tools_refuse_a_sharded_checkpoint(tmp_path):
-    """The per-process layout waits for the sharded store (ROADMAP A9)."""
-    prefix = tmp_path / "sharded"
-    (tmp_path / "sharded.meta.json").write_text(json.dumps(
-        {"format_version": 1, "sharded": True, "process_count": 2}))
-    for call in (lambda: dump_model.dump(str(prefix), _io.StringIO()),
-                 lambda: table_stats.stats(str(prefix))):
-        with pytest.raises(NotImplementedError, match="A9"):
-            call()
+def test_tools_read_a_per_process_checkpoint(tmp_path, monkeypatch):
+    """A multi-process run's file set (three processes, each saving its
+    rows through the port's checkpoint.save as it runs under the launch
+    contract): the port's tools read it through load_full and print the
+    JAX tools' text and dict on it, byte for byte."""
+    from difacto_tpu_torch.parallel import multihost
+
+    st = _state_np(4, seed=30)
+    prefix = str(tmp_path / "mp")
+    cuts = (0, 1366, 2732, N)
+    for p in range(3):
+        monkeypatch.setattr(multihost, "_JOINED", (p, 3))
+        part = {k: v[..., cuts[p]:cuts[p + 1]] for k, v in st.items()}
+        checkpoint.save(prefix, state_from_numpy(part), {"epoch": 1},
+                        shard=(cuts[p], N))
+    monkeypatch.setattr(multihost, "_JOINED", None)
+    meta = json.loads((tmp_path / "mp.meta.json").read_text())
+    assert meta["sharded"] and meta["process_count"] == 3
+    assert _dump(dump_model, prefix) == _dump(jdump_model, prefix)
+    assert _dump(dump_model, prefix, include_all=True) == _dump(
+        jdump_model, prefix, include_all=True)
+    assert table_stats.stats(prefix, 4) == jtable_stats.stats(prefix, 4)
+    host, _ = checkpoint.load_full(prefix)
+    for k, v in st.items():
+        np.testing.assert_array_equal(getattr(host, k).numpy(), v, k)
