@@ -75,8 +75,11 @@ take the native radix localizer, timed against NumPy's searchsorted on
 one batch (host CPU times); P4 ``examples/northstar.conf`` with its
 config-4 settings (``num_bits=26 hot_rows=-1 cache_compact=1``) on
 northstar-shaped csr parts (39 fields of 60,000 values), beside the same
-keys with ``hot_rows=0 kernel=xla`` and with ``kernel=auto``: every batch
-of the split run split, B3 on every step. The kernel checks of the flagship's width run
+keys with ``cache_compact=0`` (the full batch cache: the same table bits,
+the cached bytes of both forms logged), ``hot_rows=0 kernel=xla`` and
+``kernel=auto``: every batch of the split runs split, B3 on every step.
+Phase 3 also holds the compact cache at the flagship's shape on
+``kernel=auto`` (``check_compact_step``). The kernel checks of the flagship's width run
 again at K = 156 on a libffm batch and at K = 640 (FFM, 40 slots of
 k = 16, 2^16 rows: the row-major kernels past one shared-memory tile),
 with the train and eval steps at K = 640 against the CPU. The native
@@ -2037,6 +2040,80 @@ def check_hotcold_against_stacked(dev) -> None:
         f"hot/cold against the CPU {worst(c, e)}")
 
 
+def check_compact_step(dev) -> None:
+    """Phase 3: the compact batch cache (``cache_compact``) at the
+    flagship's shape on ``kernel=auto`` (pairs on the row-major table).
+    The stream derived on the card from a compact batch's permutation
+    (learners/step.py::derive_sorted_slots) equals the host's full form
+    element for element and is monotone, its pads on the last real lane
+    (B3 on the card finds segments by comparing adjacent lanes); one
+    compact step and one full step from one state launch B3 once each and
+    leave the same table bits."""
+    import torch
+
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.learners.step import derive_sorted_slots
+    from difacto_tpu_torch.ops import cuda
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.place import place_batch
+
+    n = 1 << NUM_BITS
+    b = flagship_batch(31)
+    # the flagship's B*L is a whole number of 1024-slot tiles: a batch one
+    # row short gives the stream pad slots
+    cut = type(b)(*(None if a is None else a[:-1] for a in (
+        b.ids, b.vals, b.labels, b.mask, b.fields)))
+    for batch in (b, cut):
+        pb = prep_batch(batch, n)
+        full = place_batch(build_sorted_slots(pb.inv, pb.vals), dev)
+        perm = build_sorted_slots(pb.inv, pb.vals, compact=True).slot_sorted
+        derived = derive_sorted_slots(*(torch.from_numpy(a).to(dev) for a in (
+            pb.vals, pb.inv, perm)))
+        for got, name in zip(derived, ("x_sorted", "bidx", "inv_sorted")):
+            ref = getattr(full, name)
+            if got.dtype != ref.dtype or not torch.equal(
+                    got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"compact: the {name} derived on the "
+                                     "card is not the host's full form")
+        lanes = derived[2]
+        bl = pb.vals.size
+        if not (bool((lanes[1:] >= lanes[:-1]).all())
+                and bool((lanes[bl:] == lanes[bl - 1]).all())):
+            raise AssertionError("compact: the derived lane stream is not "
+                                 "monotone with its pads on the last lane")
+    tables = []
+    for compact in ("0", "1"):
+        cfg = Config.from_kwargs([
+            ("batch_size", str(BATCH)), ("num_bits", str(NUM_BITS)),
+            ("max_nnz_per_row", str(NNZ)), ("V_dim", str(K)),
+            ("V_threshold", "1"), ("cache_compact", compact)])
+        upd = FMUpdater(cfg.model)
+        store = LocalStore(upd, cfg, device=dev)
+        st = store.place_state(random_state(upd, n, dev, 32))
+        n0 = cuda.LAUNCHES["segsum_sorted"]
+        step_pb = prep_batch(b, n)
+        st, _ = store.train_step_prepped(st, step_pb)
+        torch.cuda.synchronize()
+        if cuda.LAUNCHES["segsum_sorted"] - n0 != 1:
+            raise AssertionError("compact: a step did not launch B3 once")
+        if step_pb.sorted_slots.compact != (compact == "1"):
+            raise AssertionError("compact: the store built the wrong form")
+        tables.append(st.tbl)
+    if not torch.equal(tables[0].view(torch.int32),
+                       tables[1].view(torch.int32)):
+        raise AssertionError("compact: the compact step's table is not the "
+                             "full step's bit for bit")
+    sorted_bytes = sum(getattr(full, k).nbytes
+                       for k in ("x_sorted", "bidx", "inv_sorted"))
+    log(f"compact step = full step bit for bit at the flagship "
+        f"(kernel=auto, {store.layout}): derived stream equal and monotone "
+        f"on the card at B*L {b.vals.size} and {bl} (BLp {lanes.shape[0]}); "
+        f"sorted arrays {sorted_bytes} bytes a batch in full form, "
+        f"{perm.nbytes} compact")
+
+
 def device_profile(prof, wall_s: float, steps: int) -> dict:
     """Device time per step by kernel name from a torch.profiler trace of
     a replay epoch, and the device's idle share of the traced wall time
@@ -2144,10 +2221,12 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     cuda.reset_launches()
+    mem0 = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     first = learner.train_epoch(0)  # streams the file, caches on the card
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    cache_fill = torch.cuda.memory_allocated(dev) - mem0
     t0 = time.perf_counter()
     timed = learner.train_epoch(1)  # replays the cached batches
     torch.cuda.synchronize()
@@ -2171,6 +2250,9 @@ def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
         "layout": learner.store.layout,
         "init_s": t_init,
         "epoch0_stream_s": t_stream,
+        # the device memory the train batch cache took (allocated bytes
+        # over epoch 0, which fills it)
+        "cache_fill_bytes": cache_fill,
         "replay_ms_per_step": t_replay / steps * 1e3,
         "replay_examples_per_s": batch * steps / t_replay,
         "train_logloss": [first.logloss, timed.logloss],
@@ -2431,11 +2513,51 @@ def split_record(learner) -> dict:
             "hot_share_of_uniques": shares}
 
 
-# P4's runs: the config as written (hot_rows=-1: the split), the stacked
-# table alone, and the port's kernel=auto (pairs on the row-major table)
+def cache_record(learner) -> dict:
+    """P4's batch cache: the device bytes of each cached train batch
+    (summed tensor ``nbytes``), its sorted-slot arrays apart from the
+    rest, averaged over the batches; fails unless every cached train
+    batch lies on the card in the form ``cache_compact`` asks for."""
+    import dataclasses
+
+    import torch
+
+    uri, compact = learner.cfg.data.data_in, learner.cfg.data.cache_compact
+    items = [pb for key, (_, batches) in learner._batch_cache.items()
+             if key.startswith(uri + "|") for pb in batches]
+
+    def tensors(obj):
+        return [t for t in (getattr(obj, f.name)
+                            for f in dataclasses.fields(obj))
+                if isinstance(t, torch.Tensor)]
+
+    for pb in items:
+        if pb.sorted_slots.compact != compact:
+            raise AssertionError(f"P4 cached a batch of the wrong form "
+                                 f"(cache_compact={int(compact)})")
+        if any(t.device != learner.device
+               for t in tensors(pb) + tensors(pb.sorted_slots)):
+            raise AssertionError("P4 cached a batch off the card")
+    if len(items) != MAIN_BATCHES:
+        raise AssertionError(f"P4 cached {len(items)} train batches, "
+                             f"expected {MAIN_BATCHES}")
+    return {"cached_sorted_bytes_per_batch": sum(
+                t.nbytes for pb in items
+                for t in tensors(pb.sorted_slots)) / len(items),
+            "cached_rest_bytes_per_batch": sum(
+                t.nbytes for pb in items for t in tensors(pb)) / len(items)}
+
+
+# P4's runs: the config as written (hot_rows=-1: the split, cache_compact=1:
+# the compact batch cache), its twin with the full form, the stacked table
+# alone, and the port's kernel=auto (pairs on the row-major table)
 P4_RUNS = (("p4_hot", (), XLA_KERNELS),
+           ("p4_hot_full", (("cache_compact", "0"),), XLA_KERNELS),
            ("p4_stacked", (("hot_rows", "0"), ("kernel", "xla")), XLA_KERNELS),
            ("p4_auto", (("hot_rows", "0"),), ROWMAJOR_KERNELS))
+# the config's 6 M training rows (examples/northstar.conf,
+# examples/northstar_data.py) in its batches of 16384
+NORTHSTAR_TRAIN_BATCHES = -(-6_000_000 // BATCH)
 
 
 def drive_config4(dev, tmp: str) -> dict:
@@ -2444,8 +2566,14 @@ def drive_config4(dev, tmp: str) -> dict:
     ``model_out`` and ``max_num_epochs`` overridden (``drive_main_path``
     trains 3 epochs and saves nothing), on northstar-shaped data; beside
     it the same keys with ``hot_rows=0 kernel=xla`` and with the port's
-    ``kernel=auto``. Every batch of the split run must be split and every
-    step launch B3. Returns {run: launch counts}."""
+    ``kernel=auto``, and the config's twin with ``cache_compact=0``, which
+    must end on the config's table bit for bit. Every batch of the split
+    runs must be split, every step launch B3, and the split runs' cached
+    batches lie on the card in their form (their bytes logged, and scaled
+    to the config's 6 M rows by arithmetic). Returns {run: launch
+    counts}."""
+    import torch
+
     from difacto_tpu_torch.data import remap
     from difacto_tpu_torch.data.batch_iter import BatchIter
 
@@ -2455,11 +2583,26 @@ def drive_config4(dev, tmp: str) -> dict:
              "kw": conf_kw(NORTHSTAR_CONF) + (
                  ("num_bits", str(BIG_BITS)), ("hot_rows", "-1"),
                  ("cache_compact", "1"))}
-    out, recs = {}, {}
+    out, recs, tables = {}, {}, {}
+
+    def split_run(name):
+        def inspect(learner):
+            tables[name] = vars(learner.state)  # the final table's tensors
+            return {**split_record(learner), **cache_record(learner)}
+        return inspect
+
     for name, extra, path in P4_RUNS:
         out[name], recs[name] = drive_main_path(
             dev, *files, extra, path, dict(model, name=name),
-            inspect=split_record if name == "p4_hot" else None)
+            inspect=split_run(name) if name.startswith("p4_hot") else None)
+        if name == "p4_hot_full":  # the compact cache: the same bits
+            a, b = tables.pop("p4_hot"), tables.pop(name)
+            for leaf in a:
+                if not torch.equal(a[leaf].view(torch.int32),
+                                   b[leaf].view(torch.int32)):
+                    raise AssertionError(
+                        f"P4: cache_compact=1 and cache_compact=0 end on "
+                        f"different tables ({leaf})")
     summary = {name: {
         "kernel": r["kernel"], "layout": r["layout"],
         "epoch0_s": r["init_s"] + r["epoch0_stream_s"], "init_s": r["init_s"],
@@ -2467,7 +2610,21 @@ def drive_config4(dev, tmp: str) -> dict:
         "replay_examples_per_s": r["replay_examples_per_s"],
         "busy_ms": r["profile"].get("device_busy_ms_per_step"),
         "idle_share": r["profile"].get("device_idle_share"),
-        "val_exact_auc": r["val_exact_auc"]} for name, r in recs.items()}
+        "val_exact_auc": r["val_exact_auc"],
+        **{k: r[k] for k in ("cached_sorted_bytes_per_batch",
+                             "cached_rest_bytes_per_batch") if k in r},
+        "cache_fill_bytes_per_batch": r["cache_fill_bytes"] / MAIN_BATCHES}
+        for name, r in recs.items()}
+    summary["p4_hot"]["table_bits_equal_to"] = "p4_hot_full"
+    # the measured bytes a batch, times the config's batches: arithmetic
+    scaled = {name: {
+        "sorted_GB": summary[name]["cached_sorted_bytes_per_batch"]
+        * NORTHSTAR_TRAIN_BATCHES / 1e9,
+        "batch_GB": (summary[name]["cached_sorted_bytes_per_batch"]
+                     + summary[name]["cached_rest_bytes_per_batch"])
+        * NORTHSTAR_TRAIN_BATCHES / 1e9} for name in ("p4_hot", "p4_hot_full")}
+    scaled["saved_GB"] = (scaled["p4_hot_full"]["batch_GB"]
+                          - scaled["p4_hot"]["batch_GB"])
     shares = recs["p4_hot"]["hot_share_of_uniques"]
     H = recs["p4_hot"]["hot_rows"]
     # the split's set-up on the host: the count sample and the remap
@@ -2482,6 +2639,9 @@ def drive_config4(dev, tmp: str) -> dict:
         hot_rows=H, hot_share_train=shares[:-1], hot_share_val=shares[-1],
         count_sample_s=t1 - t0, build_remap_s=t2 - t1)
     log("P4 config 4 (2^26 rows): " + json.dumps(summary))
+    log(f"P4 cache at the config's 6 M rows ({NORTHSTAR_TRAIN_BATCHES} "
+        "batches; arithmetic on the bytes measured above, not a "
+        "measurement): " + json.dumps(scaled))
     return out
 
 
@@ -3738,6 +3898,7 @@ def main() -> int:
         return 0
     check_step_against_cpu(dev)
     check_hotcold_against_stacked(dev)
+    check_compact_step(dev)
     check_step_against_cpu(dev, FFM_NNZ, (("V_dim", str(FFM_K)),
                                           ("loss", "ffm")), FFM_STEP_PATHS)
     check_step_against_cpu(dev, LIBFFM_FIELDS, (

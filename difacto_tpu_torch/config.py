@@ -79,9 +79,12 @@ class DataParam(ParamBase):
     cache_on_device: bool = False  # with cache_batches: cache the PLACED
                                    # batches so later epochs read from
                                    # device memory
-    cache_compact: bool = False    # JAX memory-saving variant of the
-                                   # cached sorted arrays; same results,
-                                   # the port always caches the full form
+    cache_compact: bool = False    # sorted backward on LocalStore: cache
+                                   # the sort PERMUTATION only and derive
+                                   # x_sorted/bidx/inv_sorted on the device
+                                   # each step (learners/step.py ::
+                                   # derive_sorted_slots); the same bits,
+                                   # a third of the sorted arrays' bytes
     seed: int = 0
 
     def validate(self) -> None:

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops.segsum import pad_sorted_stream
+from ..ops.segsum import TILE_SLOTS, pad_sorted_stream
 from .batch_iter import Batch
 
 # per-thread id->lane scratch tables (see _localize_ids): a fresh np.empty
@@ -90,17 +90,36 @@ class SortedSlots:
     """The batch's nnz slots reordered by unique lane, so per-key gradient
     sums become segment sums over a monotone stream (ops/segsum.py). All
     arrays are padded to a tile multiple; pad slots carry x == 0 and
-    repeat the last real lane (they add nothing)."""
+    repeat the last real lane (they add nothing).
 
-    x_sorted: np.ndarray    # f32 [BLp] vals in sorted-slot order
-    bidx: np.ndarray        # i32 [BLp] example index per sorted slot
-    inv_sorted: np.ndarray  # i32 [BLp] monotone unique lanes
+    The COMPACT form (``cache_compact``) keeps only ``slot_sorted``:
+    x_sorted, bidx and inv_sorted are None, and the store derives them on
+    the device from the batch's resident ``vals`` and ``inv``
+    (learners/step.py::derive_sorted_slots), a third of the bytes in a
+    device-resident batch cache."""
+
+    x_sorted: np.ndarray | None    # f32 [BLp] vals in sorted-slot order
+    bidx: np.ndarray | None        # i32 [BLp] example index per sorted slot
+    inv_sorted: np.ndarray | None  # i32 [BLp] monotone unique lanes
     # the flat [B*L] slot of each sorted slot (the sort permutation; pads
-    # carry 0 and are masked by position). Built for loss=ffm only: its
+    # carry 0 and are masked by position). Built for loss=ffm, whose
     # per-slot gradient has no per-key factoring, so the sorted backward
     # gathers the batch-space gradient rows by it
-    # (learners/step.py::worker_grads_sorted).
+    # (learners/step.py::worker_grads_sorted), and for the compact form.
     slot_sorted: np.ndarray | None = None
+
+    def __post_init__(self):
+        derived = (self.x_sorted, self.bidx, self.inv_sorted)
+        if all(a is None for a in derived):
+            if self.slot_sorted is None:
+                raise ValueError("compact SortedSlots need slot_sorted")
+        elif any(a is None for a in derived):
+            raise ValueError("SortedSlots hold all of x_sorted, bidx and "
+                             "inv_sorted, or none of them (compact)")
+
+    @property
+    def compact(self) -> bool:
+        return self.x_sorted is None
 
 
 @dataclass
@@ -310,25 +329,32 @@ def prep_batch(
 
 
 def build_sorted_slots(inv: np.ndarray, vals: np.ndarray,
-                       with_slots: bool = False) -> SortedSlots:
+                       with_slots: bool = False,
+                       compact: bool = False) -> SortedSlots:
     """SortedSlots for one prepped batch (``inv`` [B*L], ``vals`` [B, L]):
     a stable argsort of ``inv`` — host work the reference also did on
     worker CPUs — run in the prep workers, overlapped with device steps.
-    ``with_slots`` also keeps the permutation (``slot_sorted``, FFM). It
-    reads the lanes only, never the ids, so a split batch (whose ids
-    repeat across the buckets) sorts as any other."""
+    ``with_slots`` also keeps the permutation (``slot_sorted``, FFM);
+    ``compact`` keeps only the permutation (JAX
+    ``build_sorted_slots(..., compact=True)``). It reads the lanes only,
+    never the ids, so a split batch (whose ids repeat across the buckets)
+    sorts as any other."""
     L = vals.shape[1]
     perm = np.argsort(inv, kind="stable")
+    bl = perm.shape[0]
+    blp = -(-bl // TILE_SLOTS) * TILE_SLOTS
+    slot_s = None
+    if with_slots or compact:
+        slot_s = np.zeros(blp, np.int32)
+        slot_s[:bl] = perm
+    if compact:
+        return SortedSlots(x_sorted=None, bidx=None, inv_sorted=None,
+                           slot_sorted=slot_s)
     inv_s = pad_sorted_stream(inv[perm].astype(np.int32, copy=False))
-    blp, bl = inv_s.shape[0], perm.shape[0]
     x = np.zeros(blp, np.float32)
     x[:bl] = vals.reshape(-1)[perm]
     bidx = np.zeros(blp, np.int32)
     bidx[:bl] = (perm // L).astype(np.int32)
-    slot_s = None
-    if with_slots:
-        slot_s = np.zeros(blp, np.int32)
-        slot_s[:bl] = perm
     return SortedSlots(x_sorted=x, bidx=bidx, inv_sorted=inv_s,
                        slot_sorted=slot_s)
 

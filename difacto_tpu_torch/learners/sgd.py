@@ -294,6 +294,10 @@ class SGDLearner:
         nf = self.cfg.model.num_fields if self.cfg.expects_fields() else 0
         # the hot/cold split: relabel by the remap, split the buckets
         remap, hot = self._hot_remap, self.store.hot_rows
+        # LocalStore's sorted slots in the compact form on every sorted
+        # path, kernel=pairs too (the JAX learner compacts on kernel=xla
+        # only; its store takes compact batches on both)
+        compact = self.cfg.data.cache_compact
 
         def prep(b):
             if self._sharded:  # one row group a rank (JAX sgd.py:197-245)
@@ -312,8 +316,8 @@ class SGDLearner:
             pb = prep_batch(b, num_rows, min_ub=min_ub, num_fields=nf,
                             remap=remap, hot_rows=hot)
             if sorted_slots:
-                pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
-                                                     with_slots=with_slots)
+                pb.sorted_slots = build_sorted_slots(
+                    pb.inv, pb.vals, with_slots=with_slots, compact=compact)
             return pb
 
         return prep

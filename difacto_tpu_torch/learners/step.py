@@ -13,7 +13,8 @@ Two per-key aggregations:
 * :func:`worker_grads_sorted` — the sorted path (``segsum=sorted``, and
   ``kernel=pairs``'s default): the backward runs in host-sorted slot
   order and the per-key sums come from the segment-sum kernel
-  (ops/segsum.py).
+  (ops/segsum.py); :func:`derive_sorted_slots` rebuilds its sorted
+  stream on the device from a compact batch (``cache_compact``).
 
 ``loss`` is ``fm`` (K = 0 is logit) or ``ffm``: then a row's K = F*k
 factors are F field blocks of k (F = ``num_fields``, or L when slot
@@ -151,6 +152,30 @@ def worker_grads(
     grads_u.index_add_(0, loc.inv, flat)
     return grads_u, fwd.py, _batch_metrics(fwd.py, g.loss, g.correct,
                                            labels, mask)
+
+
+def derive_sorted_slots(
+    vals: torch.Tensor,    # f32 [B, L]
+    inv: torch.Tensor,     # i32 [B*L] slot -> unique lane
+    slot_s: torch.Tensor,  # i32 [BLp] the sort permutation, pads 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sorted stream of a compact batch (``cache_compact``), derived
+    where its arrays lie from ``vals``, ``inv`` and the sort permutation,
+    as the JAX store derives it (``store.py:539-551``): (x_sorted f32,
+    bidx i32, inv_sorted i32), each [BLp] and element for element the
+    host's full form (data/prep.py::build_sorted_slots). Pad slots carry
+    x = 0, example 0 and the LAST real slot's lane. The JAX package gives
+    them lane ``inv[0]``, harmless there because its kernel reads a
+    host-built schedule; the port's B3 finds segments by comparing
+    adjacent lanes, so a pad lane below the last real one would open a
+    second segment of lane ``inv[0]``, whose zero sum could overwrite the
+    first's."""
+    bl = vals.numel()
+    x_s = vals.reshape(-1).index_select(0, slot_s)
+    x_s[bl:] = 0.0
+    inv_s = inv.index_select(0, slot_s)
+    inv_s[bl:] = inv_s[bl - 1]
+    return x_s, slot_s // vals.shape[1], inv_s
 
 
 def worker_grads_sorted(

@@ -27,7 +27,9 @@ the per-key aggregation, as the JAX store does (``store.py:113-150,
 * ``segsum=sorted``: the sorted-slot backward and the segment-sum kernel
   (learners/step.py::worker_grads_sorted, B3); ``segsum=scatter``: the
   ``index_add_`` backward (worker_grads); ``segsum=auto``: sorted for
-  pairs and xla, scatter for pallas.
+  pairs and xla, scatter for pallas. With ``cache_compact`` a batch's
+  sorted slots keep only the sort permutation, and the step derives the
+  rest on the device (learners/step.py::derive_sorted_slots).
 
 The host-prepped steps (``train_step_prepped``, ``eval_step_prepped``)
 take a batch localized by data/prep.py; ``train_step`` and ``eval_step``
@@ -64,7 +66,8 @@ from ..config import Config
 from ..data.prep import (PreppedBatch, ShardPreppedBatch, SortedSlots,
                          build_sorted_slots, build_sorted_slots_sharded,
                          validate_fields)
-from ..learners.step import (StepMetrics, worker_forward, worker_grads,
+from ..learners.step import (StepMetrics, derive_sorted_slots,
+                             worker_forward, worker_grads,
                              worker_grads_sorted)
 from ..ops.localize import Localized, localize
 from ..ops.pair_sweep import apply_pairs, pull_pairs
@@ -339,10 +342,11 @@ class LocalStore:
     def _placed(self, pb: PreppedBatch, need_slots: bool) -> PreppedBatch:
         """The batch as tensors on this store's device. Host batches get
         their sorted slots built here when the prep workers did not
-        (kept on the batch, so replayed batches reuse them); FFM's also
-        keep the sort permutation. Explicit fields are checked first
-        (on the host array, when the batch is still there) unless the
-        prep did."""
+        (kept on the batch, so replayed batches reuse them), in the
+        compact form when the config asks (``cache_compact``, JAX
+        ``store.py:609-624``); FFM's also keep the sort permutation.
+        Explicit fields are checked first (on the host array, when the
+        batch is still there) unless the prep did."""
         if self.hot_rows and pb.uids_hot is None:
             raise ValueError(
                 "hot_rows store got an unsplit PreppedBatch — prep must "
@@ -356,8 +360,9 @@ class LocalStore:
             if isinstance(pb.inv, torch.Tensor):
                 raise ValueError("a placed batch needs its sorted slots "
                                  "built before placement (data/prep.py)")
-            pb.sorted_slots = build_sorted_slots(pb.inv, pb.vals,
-                                                 with_slots=ffm)
+            pb.sorted_slots = build_sorted_slots(
+                pb.inv, pb.vals, with_slots=ffm,
+                compact=self.cfg.data.cache_compact)
         return place_batch(pb, self.device)
 
     def _fields(self, fields):
@@ -422,9 +427,10 @@ class LocalStore:
         fields = self._fields(pb.fields)
         if self.sorted_grads:
             ss = pb.sorted_slots
+            stream = (derive_sorted_slots(pb.vals, pb.inv, ss.slot_sorted)
+                      if ss.compact else (ss.x_sorted, ss.bidx, ss.inv_sorted))
             grads, _, metrics = worker_grads_sorted(
-                rows_u, loc, pb.vals, pb.labels, pb.mask,
-                (ss.x_sorted, ss.bidx, ss.inv_sorted),
+                rows_u, loc, pb.vals, pb.labels, pb.mask, stream,
                 slot_s=ss.slot_sorted, fields=fields, **self.loss_kw,
             )
         else:
@@ -733,6 +739,11 @@ class ShardedStore(LocalStore):
             pb.fields_checked = True
         ffm = self.loss == "ffm"
         ss = pb.sorted_slots
+        if ss is not None and ss.compact:
+            raise ValueError(
+                "the sharded store takes the full sorted slots: "
+                "cache_compact is a LocalStore form, and the sharded prep "
+                "(build_sorted_slots_sharded) never builds it")
         if need_slots and (ss is None or (ffm and ss.slot_sorted is None)):
             if isinstance(pb.inv, torch.Tensor):
                 raise ValueError("a placed batch needs its sorted slots "

@@ -1435,6 +1435,80 @@ def test_cuda_hotcold_matches_stacked(card):
     torch.testing.assert_close(pyh, pyf, atol=1e-5, rtol=1e-4)
 
 
+# the LocalStore sorted paths of the compact batch cache (cache_compact)
+COMPACT_PATHS = {"packed": (("layout", "packed"),),
+                 "planar": (("layout", "planar"),),
+                 "xla": (("kernel", "xla"),),
+                 "split": (("hot_rows", "2048"),),
+                 "ffm": (("loss", "ffm"), ("V_dim", "2"))}
+
+
+@pytest.mark.parametrize("path", list(COMPACT_PATHS))
+def test_cuda_compact_cache_matches_full(card, path):
+    """cache_compact=1 against cache_compact=0 on the card, from one
+    state: three steps each launch B3 on the stream derived on the card
+    and end on the full form's table bit for bit; the derived stream is
+    the host's, monotone with its pads on the last real lane, and B3 on
+    it gives B3's bits on the host-built stream."""
+    from difacto_tpu_torch.config import Config
+    from difacto_tpu_torch.data import remap
+    from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
+    from difacto_tpu_torch.learners.step import derive_sorted_slots
+    from difacto_tpu_torch.parallel.store import LocalStore
+    from difacto_tpu_torch.updaters.updater import FMUpdater
+    from difacto_tpu_torch.utils.checkpoint import (state_from_numpy,
+                                                    state_to_numpy)
+    from difacto_tpu_torch.utils.place import place_batch
+
+    n = 1 << 14
+    batches = zipf_batches(14, 3, 44)
+    lut = None
+    tables = []
+    for compact in ("0", "1"):
+        cfg = Config.from_kwargs([
+            ("batch_size", "256"), ("num_bits", "14"),
+            ("max_nnz_per_row", "12"), ("V_dim", "4"), ("lr_eta", "0.1"),
+            ("l1", "0.1"), ("V_lr_eta", "0.05"), ("V_threshold", "1"),
+            ("cache_compact", compact), *COMPACT_PATHS[path]])
+        store = LocalStore(FMUpdater(cfg.effective_model_param()), cfg,
+                           device=card)
+        if store.hot_rows:
+            lut = remap.build_remap(remap.count_sample(iter(batches), n, 3),
+                                    store.hot_rows)
+            store.set_remap(lut)
+        st = store.place_state(state_from_numpy(state_np(
+            store.param.V_dim, np.random.default_rng(45), n=n)))
+        n0 = cuda.LAUNCHES["segsum_sorted"]
+        for b in batches:
+            pb = prep_batch(b, n, remap=lut, hot_rows=store.hot_rows)
+            st, _ = store.train_step_prepped(st, pb)
+            assert pb.sorted_slots.compact == (compact == "1")
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["segsum_sorted"] - n0 == len(batches)
+        tables.append(state_to_numpy(st, lut))
+    for name in LEAVES:
+        assert np.array_equal(tables[0][name].view(np.int32),
+                              tables[1][name].view(np.int32)), name
+    pb = prep_batch(zipf_batches(14, 1, 46, B=250)[0], n)  # pad slots
+    full = place_batch(build_sorted_slots(pb.inv, pb.vals), card)
+    perm = build_sorted_slots(pb.inv, pb.vals, compact=True).slot_sorted
+    derived = derive_sorted_slots(*(torch.from_numpy(a).to(card) for a in (
+        pb.vals, pb.inv, perm)))
+    for got, name in zip(derived, ("x_sorted", "bidx", "inv_sorted")):
+        assert torch.equal(got.view(torch.int32),
+                           getattr(full, name).view(torch.int32)), name
+    lanes, bl = derived[2], pb.vals.size
+    assert bl < lanes.shape[0]
+    assert bool((lanes[1:] >= lanes[:-1]).all())
+    assert bool((lanes[bl:] == lanes[bl - 1]).all())
+    ub = pb.uids.shape[0]
+    pay = torch.randn((5, lanes.shape[0]), device=card)
+    pay[:, bl:] = 0.0
+    a = segsum.segsum_sorted(pay, lanes, ub)
+    b = segsum.segsum_sorted(pay, full.inv_sorted, ub)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_cuda_localize_matches_host_prep(card):
     """Device localize on the card: the CPU's five arrays exactly, and
     host prep's uids, counts and inverse."""
