@@ -105,12 +105,18 @@ flagship's first train epoch through ``SGDLearner`` writes one
 then ``dump_model`` and ``table_stats`` on P5's and P1's checkpoints.
 
 K1, B2 over the sharded store owner's receive stream (S sorted segments
-of C lanes, ids repeated across them; ``apply_pairs(..., seg_len=C)``,
-``apply_pairs_segs`` on planar leaves and ``apply_rowmajor_segs`` on the
-row-major table), is held in phase 2 at the flagship's width on owner 0's
-stream of a flagship batch over S = 2 and 4 sources (``check_k1_kernels``:
-its plain version at B2's tolerance, exact integer sums, the one-stream
-bits on disjoint segments). P8 drives the sharded store
+of C lanes, ids repeated across them; ``apply_pairs(..., seg_len=C)``:
+the stable merge ``merge_segments`` (csrc/seg_merge.cu), then the
+one-stream apply on the merged stream, counted as ``apply_pairs_segs`` on
+planar leaves and ``apply_rowmajor_segs`` on the row-major table), is
+held in phase 2 at the flagship's width on owner 0's stream of a flagship
+batch over S = 2 and 4 sources (``check_k1_kernels``: the merge exact
+against its plain version, K1 against its plain version at B2's
+tolerance and bit for bit against the search design, the yardstick
+``apply_pairs_segs_search``, timed in turns with it, warm and flushed;
+exact integer sums, the one-stream bits on disjoint segments); P8 and
+P9 must launch one merge a K1 call and never the search design. P8
+drives the sharded store
 (``store=sharded``, ``drive_sharded``): (a) the flagship's CLI train and
 ``task=predict`` at S = 1 on kernel=auto, bit for bit against
 ``store=local``; (b) S = 2 and S = 3 gloo ranks sharing the card
@@ -671,9 +677,25 @@ def check_kernels(dev):
 # segments of C lanes, at the flagship's width, with S = 2 and 4
 K1_KERNELS = ("apply_pairs_segs", "apply_rowmajor_segs")
 K1_SEGMENTS = (2, 4)
-# the CUDA function of each in a torch.profiler trace
-K1_TRACE = {"apply_pairs_segs": "apply_pairs_segs_kernel",
-            "apply_rowmajor_segs": "rowmajor_apply_kernel"}
+# K1's first pass, the stable merge of the segments (csrc/seg_merge.cu)
+MERGE = "merge_segments"
+# the CUDA functions of each K1 call in a torch.profiler trace: the merge
+# and the one-stream apply; and those of the search design, the yardstick
+K1_TRACE = {"apply_pairs_segs": ("merge_segments_kernel",
+                                 "apply_pairs_kernel"),
+            "apply_rowmajor_segs": ("merge_segments_kernel",
+                                    "rowmajor_apply_kernel")}
+K1_SEARCH_TRACE = {"apply_pairs_segs": ("apply_pairs_segs_kernel",),
+                   "apply_rowmajor_segs": ("rowmajor_apply_kernel",)}
+# the search design's counters, 0 on every path
+K1_SEARCH = ("apply_pairs_segs_search", "apply_rowmajor_segs_search")
+# K1's and the merge's keys in the kernels line beyond the contract's:
+# the segments of their figures (S = 2), their figures at S = 4, the
+# search design's times in the same turns, the merge's time, and the
+# kernel the merge is a pass of
+K1_KEYS = ("segments", "seg_len", "s4", "search_ms", "search_kernel_ms",
+           "search_kernel_ms_flushed", "merge_kernel_ms",
+           "merge_kernel_ms_flushed", "part_of")
 
 
 def k1_stream(S: int, seed: int, disjoint: bool = False):
@@ -706,16 +728,22 @@ def k1_stream(S: int, seed: int, disjoint: bool = False):
 
 def check_k1_kernels(dev) -> dict:
     """Phase 2, K1 on both layouts at the flagship's width (K = 16,
-    FTRL/AdaGrad) on owner 0's stream of S = 2 and 4 segments: against
-    the plain version (a stable sort, then the one-stream plain apply) at
-    B2's tolerance (rtol 1e-5, atol 1e-6: the plain division runs as a
-    multiply by the reciprocal on the card), the two layouts bit for bit;
-    an integer payload through SGD with unit rates on a zero table exact
-    against the float64 sums; segments of disjoint ids bit for bit against
-    the one-stream kernels on the same lanes merged into one sorted
-    stream. Timed (CUDA events, torch.profiler warm and L2-flushed) with
-    the plain version and the byte bound. Returns the kernels' records
-    (at S = 2, the P8 run's) without launches."""
+    FTRL/AdaGrad) on owner 0's stream of S = 2 and 4 segments, by the
+    paths' route (the merge, csrc/seg_merge.cu, then the one-stream apply
+    on the merged stream): the merge exact against its plain version (a
+    stable sort and a gather); K1 against its plain version (the plain
+    merge, then the one-stream plain apply) at B2's tolerance (rtol 1e-5,
+    atol 1e-6: the plain division runs as a multiply by the reciprocal on
+    the card), the two layouts bit for bit, and bit for bit against the
+    search design (``apply_pairs_segs_search``, the yardstick); an integer
+    payload through SGD with unit rates on a zero table exact against the
+    float64 sums; segments of disjoint ids bit for bit against the
+    one-stream kernels on the same lanes merged into one sorted stream.
+    Each layout's route timed in turns with the search design (search,
+    merge, merge, search: CUDA events, torch.profiler warm and
+    L2-flushed, K1's kernel time the merge's plus the apply's); fails if
+    the route is slower. The merge timed alone. Returns the records of K1
+    and of the merge (at S = 2, the P8 run's) without launches."""
     import torch
 
     from difacto_tpu_torch.config import FMParam
@@ -729,7 +757,7 @@ def check_k1_kernels(dev) -> dict:
     upd = FMUpdater(p)
     g = torch.Generator(device=dev)
     g.manual_seed(9)
-    out, worst = {}, dict.fromkeys(K1_KERNELS, 0.0)
+    out, worst = {}, dict.fromkeys(K1_KERNELS + (MERGE,), 0.0)
     for S in K1_SEGMENTS:
         uids_np, valid_np, C, rps = k1_stream(S, 50 + S)
         uids = torch.from_numpy(uids_np).to(dev)
@@ -741,13 +769,28 @@ def check_k1_kernels(dev) -> dict:
                          torch.randint(1, 4, (1, U), generator=g,
                                        device=dev) * vf, vf[None]])
 
-        def run(layout, state=None, payload=pay, q=p, ids=uids, seg=C):
+        def run(layout, state=None, payload=pay, q=p, ids=uids, seg=C,
+                search=False):
             base = clone_state(st if state is None else state)
             if layout == "packed":
-                return unpack_state(pair_sweep.apply_pairs(
-                    pack_state(base), ids, payload, q, seg_len=seg))
-            return pair_sweep.apply_pairs(base, ids, payload, q, seg_len=seg)
+                base = pack_state(base)
+            got = (pair_sweep.apply_pairs_segs_search(base, ids, payload, q,
+                                                      seg) if search
+                   else pair_sweep.apply_pairs(base, ids, payload, q,
+                                               seg_len=seg))
+            return unpack_state(got) if layout == "packed" else got
 
+        # the merge against its plain version, the sentinel lanes' columns
+        # told apart
+        tagged = torch.where(valid, pay, torch.arange(
+            U, dtype=torch.float32, device=dev))
+        mu, mp = pair_sweep.merge_segments(uids, tagged, C)
+        ru, rp = pair_sweep.merge_segments_plain(uids, tagged, C)
+        if not (torch.equal(mu, ru) and torch.equal(mp, rp)):
+            raise AssertionError(f"merge_segments S={S} differs from its "
+                                 "plain version (tolerance: exact)")
+        worst[MERGE] = max(worst[MERGE], float((mp - rp).abs().max()))
+        del tagged, mu, mp, ru, rp
         ref = pair_sweep.apply_pairs_segs_plain(clone_state(st), uids, pay, p,
                                                 C)
         got = {lay: run(lay) for lay in ("planar", "packed")}
@@ -758,6 +801,8 @@ def check_k1_kernels(dev) -> dict:
                 torch.testing.assert_close(
                     x, y, rtol=1e-5, atol=1e-6,
                     msg=f"{name} S={S} against its plain version: {leaf}")
+            same_bits(got[lay], run(lay, search=True), f"{name} S={S}",
+                      "the search design")
         same_bits(got["packed"], got["planar"], f"apply_rowmajor_segs S={S}",
                   "apply_pairs_segs")
         # integers in [1, 8], SGD with unit rates on a zero table: w, V and
@@ -794,7 +839,8 @@ def check_k1_kernels(dev) -> dict:
                       "the one-stream kernel on the merged stream")
         # timing, and the bytes the update needs: every uid; gw, add_cnt
         # and touch of the real lanes, gV of those past the V gate; per
-        # touched row the leaves its updaters read and write
+        # touched row the leaves its updaters read and write (the merge's
+        # own traffic is not added)
         idx = uids.clamp(max=rps - 1).long()
         gate = valid & (st.cnt[idx] >= p.V_threshold)
         rows = int(torch.unique(uids[valid]).numel())
@@ -802,22 +848,51 @@ def check_k1_kernels(dev) -> dict:
         nbytes = (4 * (U + 3 * n_lanes + K * int(gate.sum()))
                   + updater_bytes("ftrl", "adagrad", K, rows, act))
         b_ms, b_by = bound(nbytes, 20 * rows + 8 * K * act)
-        work = {"planar": clone_state(st), "packed": pack_state(st)}
-        calls = {name: (lambda w=work[lay]: pair_sweep.apply_pairs(
-            w, uids, pay, p, seg_len=C))
-            for lay, name in zip(("planar", "packed"), K1_KERNELS)}
+        # the merge alone: it reads every id and payload value once and
+        # writes each once; its S - 1 searches a lane are comparisons
+        def merge():
+            return pair_sweep.merge_segments(uids, pay, C)
+
+        mown = common.kernel_ms_in_turns(dev, {MERGE: merge},
+                                         "merge_segments_kernel")
+        mb_ms, mb_by = bound(2 * 4 * U * (1 + 3 + K),
+                             U * (S - 1) * int(np.ceil(np.log2(C + 1))))
+        mrec = dict(ms=cuda_ms(merge), plain_ms=cuda_ms(
+            lambda: pair_sweep.merge_segments_plain(uids, pay, C)),
+            kernel_ms=mown["warm"][MERGE],
+            kernel_ms_flushed=mown["cold"][MERGE], bound_ms=mb_ms,
+            bound_by=mb_by, segments=S, seg_len=C, lanes=U,
+            payload_rows=3 + K)
+        log(f"{MERGE} S={S} C={C}: {json.dumps(mrec)}")
         plain_ms = cuda_ms(lambda: pair_sweep.apply_pairs_segs_plain(
-            work["planar"], uids, pay, p, C), reps=5)
-        for name in K1_KERNELS:
-            own = common.kernel_ms_in_turns(dev, {name: calls[name]},
-                                            K1_TRACE[name])
-            rec = dict(ms=cuda_ms(calls[name]), plain_ms=plain_ms,
-                       kernel_ms=own["warm"][name],
-                       kernel_ms_flushed=own["cold"][name],
+            clone_state(st), uids, pay, p, C), reps=5)
+        for lay, name in zip(("planar", "packed"), K1_KERNELS):
+            ws, wm = ((clone_state(st), clone_state(st)) if lay == "planar"
+                      else (pack_state(st), pack_state(st)))
+            search_ms, merge_ms, own = in_turns(
+                dev,
+                lambda: pair_sweep.apply_pairs_segs_search(ws, uids, pay, p,
+                                                           C),
+                lambda: pair_sweep.apply_pairs(wm, uids, pay, p, seg_len=C),
+                K1_TRACE[name] + K1_SEARCH_TRACE[name])
+            rec = dict(ms=merge_ms, plain_ms=plain_ms,
+                       kernel_ms=own["warm"][0],
+                       kernel_ms_flushed=own["cold"][0],
+                       search_ms=search_ms, search_kernel_ms=own["warm"][1],
+                       search_kernel_ms_flushed=own["cold"][1],
+                       merge_kernel_ms=mrec["kernel_ms"],
+                       merge_kernel_ms_flushed=mrec["kernel_ms_flushed"],
                        bound_ms=b_ms, bound_by=b_by, segments=S, seg_len=C,
                        lanes=n_lanes, rows=rows, rows_past_gate=act)
             log(f"{name} S={S} C={C} ({n_lanes} lanes, {rows} rows, {act} "
-                f"past the gate): {json.dumps(rec)}")
+                f"past the gate), the merge route in turns with the search "
+                f"design (kernel ms [merge route, search] warm and flushed "
+                f"{json.dumps(own)}; the merge's share "
+                f"{mrec['kernel_ms'] / own['warm'][0]:.3f} warm): "
+                f"{json.dumps(rec)}")
+            if not no_slower(own):
+                raise AssertionError(f"{name} S={S}: the merge route is "
+                                     f"slower than the search design: {own}")
             if S == K1_SEGMENTS[0]:
                 out[name] = dict(
                     route="cuda",
@@ -828,13 +903,25 @@ def check_k1_kernels(dev) -> dict:
                     library_ms=None, **rec)
             else:
                 out[name][f"s{S}"] = rec
-        del work, calls
-    for name in K1_KERNELS:
+            del ws, wm
+        if S == K1_SEGMENTS[0]:
+            # no TPU kernel of its own: K1's first pass, where the Pallas
+            # kernel walked its seg_len schedule in grid order
+            out[MERGE] = dict(
+                route="cuda", source="difacto_tpu_torch/csrc/seg_merge.cu",
+                replaces="difacto_tpu/ops/pair_sweep.py:449",
+                part_of="K1 (apply_pairs_segs, apply_rowmajor_segs)",
+                library_ms=None, **mrec)
+        else:
+            out[MERGE][f"s{S}"] = mrec
+    for name in K1_KERNELS + (MERGE,):
         out[name]["max_abs_err"] = worst[name]
-    log("K1 on both layouts, S = 2 and 4: plain within B2's tolerance, the "
-        "layouts bit-equal, integer sums exact, disjoint segments give the "
-        "one-stream bits")
+    log("K1 on both layouts, S = 2 and 4: the merge exact, plain within "
+        "B2's tolerance, the layouts and the search design bit-equal, "
+        "integer sums exact, disjoint segments give the one-stream bits, "
+        "the merge route no slower than the search design")
     return out
+
 
 def check_rowmajor_kernels(dev, pb, st, k_main: int) -> dict:
     """Phase 2, the pull and apply over the row-major table
@@ -3346,7 +3433,7 @@ def drive_sharded(dev, tmp: str, flagship_files: tuple) -> dict:
                    for k in cuda.LAUNCHES}
         log(f"P8 S={S}: {S} ranks on one card, {len(recs)} paths held "
             f"against LocalStore in {wall:.1f} s; launches {runs[S]}")
-        want = {"apply_rowmajor_segs", "apply_pairs_segs",
+        want = {"apply_rowmajor_segs", "apply_pairs_segs", MERGE,
                 "sweep_apply_rowmajor"}
         if any(runs[S][k] == 0 for k in want):
             raise AssertionError(f"P8 S={S}: a kernel of the sharded paths "
@@ -3366,13 +3453,15 @@ P9_TIMED_EPOCH, P9_TRACED_EPOCH = 1, 2  # epoch 0 streams untouched
 P9_TOL = dict(rtol=2e-4, atol=2e-4)
 # the SGD runs: (tag, processes, config on top of the flagship's, the
 # kernels its steps launch)
-P9_RUNS = (("a", 2, (), ("pull_rowmajor", "segsum_sorted",
+P9_RUNS = (("a", 2, (), ("pull_rowmajor", "segsum_sorted", MERGE,
                          "apply_rowmajor_segs")),
            ("c", 3, (("batch_size", str(3 * -(-BATCH // 3))),),
-            ("pull_rowmajor", "segsum_sorted", "apply_rowmajor_segs")),
+            ("pull_rowmajor", "segsum_sorted", MERGE,
+             "apply_rowmajor_segs")),
            ("d", 2, (("layout", "planar"),),
-            ("pull_pairs", "segsum_sorted", "apply_pairs_segs")))
-P9_KERNELS = ("pull_pairs", "pull_rowmajor", "segsum_sorted") + K1_KERNELS
+            ("pull_pairs", "segsum_sorted", MERGE, "apply_pairs_segs")))
+P9_KERNELS = ("pull_pairs", "pull_rowmajor", "segsum_sorted",
+              MERGE) + K1_KERNELS
 
 
 class P9Probe:
@@ -3787,6 +3876,20 @@ def drive_multiprocess(tmp: str, flagship_files: tuple, smi: str) -> dict:
     return launches
 
 
+def check_k1_launches(p8: dict, p9: dict) -> None:
+    """Every K1 call of P8's and P9's runs launched one merge and counted
+    once, under its K1 name: the merges equal the K1 counts in each run,
+    and the search design (the yardstick) never ran."""
+    for run, got in [(f"P8 S={S}", v) for S, v in p8.items()] + [
+            (f"P9 ({tag})", v) for tag, v in p9.items()]:
+        k1 = sum(got[name] for name in K1_KERNELS)
+        if got[MERGE] != k1 or any(got[name] for name in K1_SEARCH):
+            raise AssertionError(f"{run}: {got[MERGE]} merges for {k1} K1 "
+                                 f"calls, search design "
+                                 f"{[got[n] for n in K1_SEARCH]}")
+    log("P8, P9: one merge a K1 call, no call of the search design")
+
+
 def drive_cli(tmp: str) -> None:
     """Phase 5: on each table path, CLI train with validation and
     model_out, then task=predict on the checkpoint; the scores must match
@@ -3954,16 +4057,19 @@ def main() -> int:
                                               bcd["val"])
         new_paths["p7_traced"] = drive_trace_and_tools(tmp, flagship_files,
                                                        bcd["model"])
-        # P8 the sharded store: K1's launches are its S = 2 and 3 runs'
+        # P8 the sharded store: K1's and the merge's launches are its S = 2
+        # and 3 runs'
         p8 = drive_sharded(dev, tmp, flagship_files)
         for S, got in p8.items():
             new_paths[f"p8_s{S}"] = got
         launches.update({name: sum(got[name] for got in p8.values())
-                         for name in K1_KERNELS})
+                         for name in K1_KERNELS + (MERGE,)})
         # P9 the multi-process learner: K1's launches gain its runs'
         p9 = drive_multiprocess(tmp, flagship_files, smi)
         launches.update({name: launches[name] + sum(
-            got[name] for got in p9.values()) for name in K1_KERNELS})
+            got[name] for got in p9.values())
+            for name in K1_KERNELS + (MERGE,)})
+        check_k1_launches(p8, p9)
         drive_cli(tmp)
     probed = drive_probes(dev)
     launches.update({name: probed[name] for name in PROBE_KERNELS})
@@ -3978,9 +4084,10 @@ def main() -> int:
         # and B2's time in the same turns; S1a's floor; at FFM's width, at
         # libffm Criteo's and at K = 640
         **{k: v for k, v in kernels[name].items() if k in EXTRA_KEYS},
-        # K1: the segments of its figures (S = 2), and its figures at S = 4
+        # K1 and the merge: the segments of their figures (S = 2), their
+        # figures at S = 4, the search design's times in the same turns
         **{k: v for k, v in kernels[name].items()
-           if name in K1_KERNELS and k in ("segments", "seg_len", "s4")},
+           if name in K1_KERNELS + (MERGE,) and k in K1_KEYS},
         **{k: v for width in (k96, k156, k640)
            for k, v in width.get(name, {}).items()
            if k in K96_KEYS + K156_KEYS + K640_KEYS},
@@ -3996,7 +4103,7 @@ def main() -> int:
            if name in P9_KERNELS else {})}
         for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
         + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS
-        + K1_KERNELS]
+        + K1_KERNELS + (MERGE,)]
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,15 +31,21 @@
 // lane, in a second launch, measured no faster on an H100 (PERF.md), so
 // the one launch stays; a row-major V is the ROADMAP's open question.
 //
-// K1, dft_apply_pairs_segs: the same function over the sharded store
-// owner's receive stream, S segments of C lanes, each non-decreasing, ids
-// repeated across segments (the Pallas kernel's build_pair_meta(...,
-// seg_len=C) schedule). The lane that owns a row (csrc/pair_runs.cuh,
-// seg_owner: first of its id in its segment, no earlier segment holding
-// it) sums its run and then the id's run in each later segment, found by
-// a binary search over that segment's C sorted lanes; still no atomics,
-// and the order is a stable sort's, so the plain version (a stable sort,
-// then the one-stream apply) sums in the kernel's order.
+// K1, the sharded store owner's receive stream (S segments of C lanes,
+// each non-decreasing, ids repeated across segments): the Pallas kernel's
+// apply_pairs (difacto_tpu/ops/pair_sweep.py:449) with a
+// build_pair_meta(..., seg_len=C) schedule (pair_sweep.py:180-215). On a
+// path, ops/pair_sweep.py launches csrc/seg_merge.cu's stable merge and
+// then apply_pairs_kernel below on the merged stream, whose run of an id
+// lists its lanes segment first, then lane: the kernel needs no segment
+// code. Bound: the bytes the update needs, as for one stream (the merge's
+// own traffic is not added). The merge does S - 1 binary searches once a
+// lane; the first design, dft_apply_pairs_segs below, did them for each
+// of the 3 + K payload rows a row sums, serially on the owning thread.
+// That design stays as the yardstick (pair_sweep.apply_pairs_segs_search,
+// on no path): the lane that owns a row (csrc/pair_runs.cuh, seg_owner)
+// sums its run and then the id's run in each later segment, found by a
+// binary search; the same order, so the same bits.
 #include <cuda_runtime.h>
 
 #include "pair_runs.cuh"
@@ -84,8 +90,9 @@ __global__ void apply_pairs_kernel(float* __restrict__ w, float* __restrict__ z,
             [&](int r) { return run_sum(pay, r, U, lane, end); }, p);
 }
 
-// K1: the stream is S segments of C lanes (csrc/pair_runs.cuh, seg_owner):
-// the lane that owns a row sums its run, then the id's runs in the later
+// K1 by the search design, the yardstick (no path launches it): the
+// stream is S segments of C lanes (csrc/pair_runs.cuh, seg_owner); the
+// lane that owns a row sums its run, then the id's runs in the later
 // segments, and updates the row once.
 __global__ void apply_pairs_segs_kernel(
     float* __restrict__ w, float* __restrict__ z, float* __restrict__ nn,
@@ -121,8 +128,9 @@ extern "C" int dft_apply_pairs(void* w, void* z, void* n, void* cnt, void* V,
   return (int)cudaGetLastError();
 }
 
-// K1: apply over S segments of C lanes (U = S*C), each non-decreasing;
-// ids repeat across segments. One thread a lane, as dft_apply_pairs.
+// K1 by the search design (the yardstick): apply over S segments of C
+// lanes (U = S*C), each non-decreasing; ids repeat across segments. One
+// thread a lane, as dft_apply_pairs.
 extern "C" int dft_apply_pairs_segs(void* w, void* z, void* n, void* cnt,
                                     void* V, void* nV, const void* uids,
                                     const void* pay, long long N, int K,

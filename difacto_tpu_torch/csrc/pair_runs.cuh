@@ -31,17 +31,20 @@ __device__ __forceinline__ int run_start(const int* __restrict__ uids,
 }
 
 // ---------------------------------------------------------------------------
-// K1: a stream of S segments of C lanes (U = S*C), each non-decreasing
-// with sentinels at its end, ids repeated ACROSS segments: the receive
-// stream of the sharded store's owner, one segment per source rank
-// (difacto_tpu/parallel/store.py::_push_pairs). The rule is the
-// multi-stream ownership of csrc/rowmajor_sweep.cu's owned_row, with the
-// fixed segment bounds [s*C, s*C+C) for its offset tables: a lane owns its
-// row when it is the first lane of that id in its own segment and no
-// earlier segment holds the id (a binary search over each earlier
+// K1 by its first design, the search, kept as the yardstick of the merge
+// (csrc/seg_merge.cu, which paths launch before the one-stream kernels)
+// and launched by no path: a stream of S segments of C lanes (U = S*C),
+// each non-decreasing with sentinels at its end, ids repeated ACROSS
+// segments: the receive stream of the sharded store's owner, one segment
+// per source rank (difacto_tpu/parallel/store.py::_push_pairs). A lane
+// owns its row when it is the first lane of that id in its own segment
+// and no earlier segment holds the id (a binary search over each earlier
 // segment's C sorted lanes). The owner sums its own run, then the id's
 // run in each later segment, in segment order: segment first, then lane,
-// the order of a stable sort of the whole stream.
+// the order of a stable sort of the whole stream, and so the merge's.
+// Its cost is latency: the search into each later segment is repeated
+// for every payload row summed, up to (S - 1)(K + 4) dependent searches
+// a row on the planar kernel.
 
 // The first lane in [a, b) whose id is >= id (b when none).
 __device__ __forceinline__ int lane_lower_bound(const int* __restrict__ uids,

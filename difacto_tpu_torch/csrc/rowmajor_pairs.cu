@@ -66,15 +66,20 @@
 //    in phase A now.
 // TMA was not tried: the rows are scattered 144-byte pieces.
 //
-// K1, dft_apply_rowmajor_segs: the apply over the sharded store owner's
-// receive stream, S segments of C lanes, each non-decreasing, ids repeated
-// across segments. The same kernel, its SEGS instantiation: phase A takes
-// the owner rule and the sums of csrc/pair_runs.cuh (seg_owner, seg_sum:
-// the own run, then the id's run in each later segment by a binary
-// search), phase B adds the later segments' gV from the payload after the
-// own run's, in that order; so it has the bits of
-// csrc/apply_pairs.cu's apply_pairs_segs_kernel. The order check is per
-// segment.
+// K1, the apply over the sharded store owner's receive stream (S
+// segments of C lanes, each non-decreasing, ids repeated across
+// segments; difacto_tpu/ops/pair_sweep.py:449 with a build_pair_meta(...,
+// seg_len=C) schedule): on a path, csrc/seg_merge.cu's stable merge, then
+// the one-stream apply, rowmajor_apply_kernel<VEC, false>, on the merged
+// stream and payload, so the gV rows still reach the tile by cp.async.
+// Bound: the bytes the update needs (the merge's traffic not added). The
+// first design, dft_apply_rowmajor_segs (the SEGS instantiation: phase A
+// takes csrc/pair_runs.cuh's seg_owner and seg_sum, the own run and then
+// the id's run in each later segment by a binary search, three times;
+// phase B searches again for every factor), stays as the yardstick
+// (pair_sweep.apply_pairs_segs_search, on no path). Both sum segment
+// first, then lane, so both give the bits of csrc/apply_pairs.cu's
+// kernels. The SEGS instantiation checks the order per segment.
 #include <assert.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -132,10 +137,10 @@ rowmajor_pull_kernel(const float* __restrict__ tbl,
   }
 }
 
-// The table is read and written here: no __restrict__ on it. SEGS: K1,
-// the stream is segments of C lanes (csrc/pair_runs.cuh, seg_owner), and
-// a row's sums go on over the id's runs in the later segments; else one
-// stream (C unused).
+// The table is read and written here: no __restrict__ on it. SEGS: K1 by
+// the search design (the yardstick), the stream is segments of C lanes
+// (csrc/pair_runs.cuh, seg_owner), and a row's sums go on over the id's
+// runs in the later segments; else one stream (C unused).
 template <int VEC, bool SEGS>
 __global__ void __launch_bounds__(RM_THREADS)
 rowmajor_apply_kernel(float* tbl, const int* __restrict__ uids,
@@ -259,8 +264,8 @@ extern "C" int dft_pull_rowmajor(const void* tbl, const void* uids, void* out,
   return (int)cudaGetLastError();
 }
 
-// The row-major apply over one stream (C = 0) or, K1, over segments of C
-// lanes (U a multiple of C).
+// The row-major apply over one stream (C = 0) or, K1 by the search
+// design, over segments of C lanes (U a multiple of C).
 static int apply_rowmajor(void* tbl, const void* uids, const void* pay,
                           long long N, int K, int U, int C, float lr_eta,
                           float lr_beta, float l1, float l2, float V_lr_eta,
@@ -301,7 +306,8 @@ extern "C" int dft_apply_rowmajor(void* tbl, const void* uids, const void* pay,
                         w_updater, V_updater, vec, stream);
 }
 
-// K1 on the row-major table: S segments of C lanes (U = S*C).
+// K1 on the row-major table by the search design (the yardstick): S
+// segments of C lanes (U = S*C).
 extern "C" int dft_apply_rowmajor_segs(void* tbl, const void* uids,
                                        const void* pay, long long N, int K,
                                        int U, int C, float lr_eta,

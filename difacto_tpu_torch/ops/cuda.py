@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu", "sweep_pull.cu",
            "sweep_apply.cu", "planar_apply.cu", "packed_pairs.cu",
            "bisect_apply.cu", "slot_accum.cu", "rowmajor_pairs.cu",
-           "rowmajor_sweep.cu", "segsum_tiles.cu")
+           "rowmajor_sweep.cu", "segsum_tiles.cu", "seg_merge.cu")
 HEADERS = ("table_update.cuh", "sweep.cuh", "pair_runs.cuh", "rowmajor.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -51,7 +51,8 @@ LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
             "pull_rowmajor": 0, "apply_rowmajor": 0,
             "sweep_pull_rowmajor": 0, "sweep_apply_rowmajor": 0,
             "segsum_chunks": 0, "segsum_rows": 0, "apply_pairs_segs": 0,
-            "apply_rowmajor_segs": 0}
+            "apply_rowmajor_segs": 0, "merge_segments": 0,
+            "apply_pairs_segs_search": 0, "apply_rowmajor_segs_search": 0}
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -107,6 +108,8 @@ _SIGNATURES = {
     # payT (or pay), lanes, out, head, tail, pp, blp, ub, stream
     "dft_segsum_tiles": [_VP] * 5 + [_I] * 3 + [_VP],
     "dft_segsum_rows": [_VP] * 5 + [_I] * 3 + [_VP],
+    # uids, payload, merged uids, merged payload, U, C, payload rows, stream
+    "dft_merge_segments": [_VP] * 4 + [_I] * 3 + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None

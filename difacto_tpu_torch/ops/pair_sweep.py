@@ -16,6 +16,13 @@ sectors. One function, two layouts: the plain versions below run on
 either through the packed state's column views. ``apply_pairs2`` is
 planar only.
 
+``apply_pairs`` with ``seg_len`` (K1, the sharded store owner's stream of
+S sorted segments) launches two kernels: csrc/seg_merge.cu's stable merge
+of the segments, then the one-stream apply on the merged stream. K1's
+first design, a binary search into every other segment for each payload
+row a row sums (csrc/pair_runs.cuh), stays as
+:func:`apply_pairs_segs_search`, the yardstick that no path calls.
+
 Each function is a wrapper: a CUDA tensor launches the kernel (or raises
 on what the kernel does not take); a CPU tensor takes the plain PyTorch
 version beside it. There is no fallback from one to the other.
@@ -128,18 +135,20 @@ def apply_pairs_plain(state, uids: torch.Tensor, payload: torch.Tensor,
 
 def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
                   payload: torch.Tensor, param: FMParam, *extra,
-                  seg_len: int | None = None) -> FMState:
+                  seg_len: int | None = None, count: str | None = None,
+                  order: bool = True) -> FMState:
     """Check what the apply kernels take and launch the one named
     ``entry`` (``apply_pairs``, ``apply_pairs2`` or, over segments of
     ``seg_len`` lanes, ``apply_pairs_segs``: one contract), with ``extra``
-    arguments before the stream."""
+    arguments before the stream; count the launch under ``count``
+    (default ``entry``); ``order`` as in :func:`_check_stream`."""
     n, k, u = state.num_rows, state.k, uids.shape[0]
     dev = state.device
     for name in ("w", "z", "n", "cnt"):
         cuda.require(getattr(state, name), name, torch.float32, (n,), dev)
     for name in ("V", "nV"):
         cuda.require(getattr(state, name), name, torch.float32, (k, n), dev)
-    _check_stream(entry, uids, payload, k, dev, seg_len=seg_len)
+    _check_stream(entry, uids, payload, k, dev, order=order, seg_len=seg_len)
     segs = () if seg_len is None else (seg_len,)
     rc = getattr(cuda.library(), "dft_" + entry)(
         state.w.data_ptr(), state.z.data_ptr(), state.n.data_ptr(),
@@ -148,7 +157,7 @@ def _launch_apply(entry: str, state: FMState, uids: torch.Tensor,
         *updater_args(param), *extra, cuda.stream(dev),
     )
     cuda.check(rc, entry)
-    cuda.LAUNCHES[entry] += 1
+    cuda.LAUNCHES[count or entry] += 1
     return state
 
 
@@ -158,7 +167,8 @@ def _check_stream(entry: str, uids: torch.Tensor, payload: torch.Tensor,
     """What every apply kernel takes as its id stream and payload: one
     non-decreasing stream, or (``seg_len``) segments of ``seg_len`` lanes,
     each non-decreasing. ``order=False`` for a kernel that asserts the
-    ids' order itself."""
+    ids' order itself, and for a stream that :func:`merge_segments`
+    merged (its kernel asserts the segments' order)."""
     u = uids.shape[0]
     cuda.require(uids, "uids", torch.int32, (u,), dev)
     cuda.require(payload, "payload", torch.float32, (3 + k, u), dev)
@@ -186,36 +196,110 @@ def _segments(uids: torch.Tensor, seg_len: int | None) -> torch.Tensor:
 
 def _apply_rowmajor(state: PackedFMState, uids: torch.Tensor,
                     payload: torch.Tensor, param: FMParam,
-                    vec: int = 0, seg_len: int | None = None
-                    ) -> PackedFMState:
+                    vec: int = 0, seg_len: int | None = None,
+                    count: str = "apply_rowmajor") -> PackedFMState:
     """Launch the row-major apply (``vec`` as in :func:`_pull_rowmajor`),
-    over segments of ``seg_len`` lanes when it is given (K1)."""
+    over segments of ``seg_len`` lanes by the search design when it is
+    given; count the launch under ``count``."""
     n, k = state.num_rows, state.k
     dev = state.device
     cuda.require(state.tbl, "tbl", torch.float32, (n, 4 + 2 * k), dev)
     _check_stream("apply_rowmajor", uids, payload, k, dev, order=False,
                   seg_len=seg_len)
-    name, segs = (("apply_rowmajor", ()) if seg_len is None
-                  else ("apply_rowmajor_segs", (seg_len,)))
-    rc = getattr(cuda.library(), "dft_" + name)(
+    entry, segs = (("apply_rowmajor", ()) if seg_len is None
+                   else ("apply_rowmajor_segs", (seg_len,)))
+    rc = getattr(cuda.library(), "dft_" + entry)(
         state.tbl.data_ptr(), uids.data_ptr(), payload.data_ptr(), n, k,
         uids.shape[0], *segs, *updater_args(param), vec, cuda.stream(dev),
     )
-    cuda.check(rc, name)
-    cuda.LAUNCHES[name] += 1
+    cuda.check(rc, entry)
+    cuda.LAUNCHES[count] += 1
     return state
+
+
+# ---------------------------------------------------------------------------
+# K1: the apply over the sharded store owner's receive stream, S segments
+# of C lanes, each non-decreasing, ids repeated across segments
+# ---------------------------------------------------------------------------
+
+
+def merge_segments_plain(uids: torch.Tensor, payload: torch.Tensor,
+                         seg_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`merge_segments`: a stable sort of the
+    ids, and the payload's columns gathered in its order."""
+    _segments(uids, seg_len)
+    order = torch.sort(uids, stable=True).indices
+    return uids[order], payload[:, order]
+
+
+def merge_segments(uids: torch.Tensor, payload: torch.Tensor,
+                   seg_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's first pass (csrc/seg_merge.cu): ``uids`` (i32) is segments of
+    ``seg_len`` lanes, each non-decreasing (the kernel asserts it), and
+    ``payload`` planar ``[P, U]``. Returns the merged stream, non-decreasing,
+    and the payload's columns in its order, new tensors; equal ids keep
+    the lower segment first, then the lower lane: a stable sort's order."""
+    if uids.device.type == "cpu":
+        return merge_segments_plain(uids, payload, seg_len)
+    u, dev = uids.shape[0], uids.device
+    _segments(uids, seg_len)
+    cuda.require(uids, "uids", torch.int32, (u,), dev)
+    cuda.require(payload, "payload", torch.float32, (payload.shape[0], u),
+                 dev)
+    mu, mp = torch.empty_like(uids), torch.empty_like(payload)
+    rc = cuda.library().dft_merge_segments(
+        uids.data_ptr(), payload.data_ptr(), mu.data_ptr(), mp.data_ptr(), u,
+        seg_len, payload.shape[0], cuda.raw_stream(dev))
+    cuda.check(rc, "merge_segments")
+    cuda.LAUNCHES["merge_segments"] += 1
+    return mu, mp
 
 
 def apply_pairs_segs_plain(state, uids: torch.Tensor,
                            payload: torch.Tensor, param: FMParam,
                            seg_len: int):
-    """The plain version of K1 (``apply_pairs`` with ``seg_len``): a
-    stable sort of the ids, then :func:`apply_pairs_plain`, which sums
-    each row in lane order of the sorted stream: segment first, then
+    """The plain version of K1 (``apply_pairs`` with ``seg_len``):
+    :func:`merge_segments_plain`, then :func:`apply_pairs_plain`, which
+    sums each row in lane order of the merged stream: segment first, then
     lane, the kernels' order."""
-    _segments(uids, seg_len)
-    order = torch.sort(uids, stable=True).indices
-    return apply_pairs_plain(state, uids[order], payload[:, order], param)
+    return apply_pairs_plain(state, *merge_segments_plain(uids, payload,
+                                                          seg_len), param)
+
+
+def _apply_segs(state, uids: torch.Tensor, payload: torch.Tensor,
+                param: FMParam, seg_len: int):
+    """K1 on the card: :func:`merge_segments`, then the one-stream apply
+    kernel of the state's layout on the merged stream, counted once, under
+    K1's name (``apply_pairs_segs`` or ``apply_rowmajor_segs``)."""
+    _check_stream("merge_segments", uids, payload, state.k, state.device,
+                  order=False, seg_len=seg_len)
+    mu, mp = merge_segments(uids, payload, seg_len)
+    if isinstance(state, PackedFMState):
+        return _apply_rowmajor(state, mu, mp, param,
+                               count="apply_rowmajor_segs")
+    return _launch_apply("apply_pairs", state, mu, mp, param,
+                         count="apply_pairs_segs", order=False)
+
+
+def apply_pairs_segs_search(state, uids: torch.Tensor,
+                            payload: torch.Tensor, param: FMParam,
+                            seg_len: int):
+    """K1 by its first design, the yardstick of the merge: no merge; the
+    lane that owns a row (first of its id in its segment, no earlier
+    segment holding it) sums its run, then the id's run in each later
+    segment, found by a binary search for every payload row it sums
+    (csrc/pair_runs.cuh; ``apply_pairs_segs_kernel`` on planar leaves,
+    ``rowmajor_apply_kernel<VEC, true>`` on the row-major table). The
+    same bits as :func:`apply_pairs` with ``seg_len``; counted under
+    ``apply_pairs_segs_search`` or ``apply_rowmajor_segs_search``. No path
+    of the package calls it."""
+    if uids.device.type == "cpu":
+        return apply_pairs_segs_plain(state, uids, payload, param, seg_len)
+    if isinstance(state, PackedFMState):
+        return _apply_rowmajor(state, uids, payload, param, seg_len=seg_len,
+                               count="apply_rowmajor_segs_search")
+    return _launch_apply("apply_pairs_segs", state, uids, payload, param,
+                         seg_len=seg_len, count="apply_pairs_segs_search")
 
 
 def apply_pairs(state, uids: torch.Tensor, payload: torch.Tensor,
@@ -232,19 +316,20 @@ def apply_pairs(state, uids: torch.Tensor, payload: torch.Tensor,
     is ``U // C`` segments of C lanes, each non-decreasing with its
     sentinels at its end, and an id may repeat across segments; each
     touched row is updated once from its payload summed over all its
-    lanes, segment first, then lane (``apply_pairs_segs`` and
-    ``apply_rowmajor_segs``, counted apart from the one-stream kernels).
-    ``seg_len=None`` is the one-stream contract."""
+    lanes, segment first, then lane. On the card :func:`merge_segments`
+    merges the segments into one sorted stream and the one-stream kernel
+    applies it, counted under ``apply_pairs_segs`` or
+    ``apply_rowmajor_segs`` (beside ``merge_segments``), not under the
+    one-stream names. ``seg_len=None`` is the one-stream contract."""
     if uids.device.type == "cpu":
         if seg_len is not None:
             return apply_pairs_segs_plain(state, uids, payload, param,
                                           seg_len)
         return apply_pairs_plain(state, uids, payload, param)
-    if isinstance(state, PackedFMState):
-        return _apply_rowmajor(state, uids, payload, param, seg_len=seg_len)
     if seg_len is not None:
-        return _launch_apply("apply_pairs_segs", state, uids, payload, param,
-                             seg_len=seg_len)
+        return _apply_segs(state, uids, payload, param, seg_len)
+    if isinstance(state, PackedFMState):
+        return _apply_rowmajor(state, uids, payload, param)
     return _launch_apply("apply_pairs", state, uids, payload, param)
 
 

@@ -1691,8 +1691,10 @@ def test_cuda_trace_names_the_kernels(card, tmp_path, monkeypatch):
 
 
 # -- K1: the apply over S sorted segments (the sharded store owner's receive
-# stream; csrc/apply_pairs.cu apply_pairs_segs_kernel, csrc/rowmajor_pairs.cu
-# rowmajor_apply_kernel<VEC, true>)
+# stream): csrc/seg_merge.cu's merge, then the one-stream kernels
+# (csrc/apply_pairs.cu apply_pairs_kernel, csrc/rowmajor_pairs.cu
+# rowmajor_apply_kernel<VEC, false>); the search design kept as the
+# yardstick (apply_pairs_segs_kernel, rowmajor_apply_kernel<VEC, true>)
 
 def seg_stream(rng, S, C=256, n=N, disjoint=False, fill=0.8):
     """K1's stream: S segments of C lanes, each sorted with a sentinel
@@ -1722,6 +1724,60 @@ def seg_payload(K, valid, rng, integer=False):
     grads = rng.normal(size=(1 + K, u)).astype(np.float32) * vf
     addc = rng.integers(1, 4, u).astype(np.float32) * vf
     return np.concatenate([grads, addc[None], vf[None]], axis=0)
+
+
+# K1's merge cases (tests/test_torch_k1_merge.py holds the plain merge
+# against NumPy and JAX on them). A small Zipf batch (rows x nnz into
+# 2^bits table rows) for the prepped streams; its row count divides by 2,
+# 3 and 4
+PREP_ROWS, PREP_NNZ, PREP_BITS = 96, 12, 12
+
+
+def prep_stream(S: int, seed: int):
+    """Owner 0's receive stream of a Zipf batch prepped over S row groups
+    (chip_smoke.py's ``k1_stream`` at a small shape): S segments of C
+    lanes, C the pairs path's capacity (the largest bucket fill,
+    W-aligned, up the ladder), segment s the sorted ids group s sends to
+    owner 0, then the local sentinel ``rows_per_shard``. Returns (uids,
+    valid, C, rows_per_shard)."""
+    from difacto_tpu_torch.data.prep import prep_batch_sharded
+    from difacto_tpu_torch.parallel.store import (PAIR_WINDOW, _cap_ladder,
+                                                  _round_up)
+    from difacto_tpu_torch.probes.common import flagship_batch
+
+    num_rows = 3 << PREP_BITS  # divisible by 2, 3 and 4
+    rps = num_rows // S
+    pb = prep_batch_sharded(flagship_batch(seed, PREP_ROWS, PREP_NNZ,
+                                           PREP_BITS + 1), num_rows, S)
+    C = _cap_ladder(_round_up(pb.max_fill, PAIR_WINDOW))
+    segs = []
+    for u in pb.uids.reshape(S, pb.ub):
+        ids = u[u < rps]
+        seg = np.full(C, rps, np.int32)
+        seg[:len(ids)] = ids
+        segs.append(seg)
+    uids = np.concatenate(segs)
+    return uids, uids < rps, C, rps
+
+
+def k1_case(case: str, seed: int):
+    """(uids i32 [S*C], valid, C, table rows = the sentinel) of a case."""
+    rng = np.random.default_rng(seed)
+    if case.startswith("prep_s"):
+        return prep_stream(int(case[-1]), seed)
+    if case == "all_sentinel":    # segment 1 of 3 holds no id
+        uids, _ = seg_stream(rng, 3)
+        uids[256:512] = N
+    elif case == "no_sentinel":   # segment 0 of 2 is full of real ids
+        uids, _ = seg_stream(rng, 2)
+        uids[:256] = np.sort(rng.choice(N, size=256, replace=True))
+    else:                         # "s<S>": S segments of the pool
+        uids, _ = seg_stream(rng, int(case[1:]))
+    return uids, uids < N, 256, N
+
+
+K1_CASES = ("s1", "s2", "s3", "s4", "all_sentinel", "no_sentinel", "prep_s2",
+           "prep_s3", "prep_s4")
 
 
 K1_NAMES = {"planar": "apply_pairs_segs", "packed": "apply_rowmajor_segs"}
@@ -1852,6 +1908,77 @@ def test_cuda_k1_one_segment_gives_todays_bits(card, layout):
                                            pay, p, seg_len=U))
     for leaf in LEAVES:
         assert torch.equal(getattr(today, leaf), getattr(seg, leaf)), leaf
+
+
+@pytest.mark.parametrize("P", [3, 19, 133])
+@pytest.mark.parametrize("case", K1_CASES)
+def test_cuda_merge_matches_plain(card, case, P):
+    """The merge kernel (csrc/seg_merge.cu) against its plain version (a
+    stable sort and a gather), exact: the merged ids and every payload
+    row; one launch a call."""
+    uids_np, valid, C, n = k1_case(case, 800 + K1_CASES.index(case))
+    rng = np.random.default_rng(810 + P)
+    pay_np = rng.normal(size=(P, uids_np.shape[0])).astype(np.float32)
+    uids, pay = torch.from_numpy(uids_np).to(card), torch.from_numpy(
+        pay_np).to(card)
+    n0 = cuda.LAUNCHES["merge_segments"]
+    mu, mp = pair_sweep.merge_segments(uids, pay, C)
+    assert cuda.LAUNCHES["merge_segments"] == n0 + 1
+    ru, rp = pair_sweep.merge_segments_plain(uids, pay, C)
+    assert torch.equal(mu, ru) and torch.equal(mp, rp)
+    order = np.argsort(uids_np, kind="stable")
+    assert np.array_equal(mu.cpu().numpy(), uids_np[order])
+    assert np.array_equal(mp.cpu().numpy(), pay_np[:, order])
+
+
+K1_SEARCH_NAMES = {"planar": "apply_pairs_segs_search",
+                   "packed": "apply_rowmajor_segs_search"}
+ONE_STREAM_NAMES = {"planar": "apply_pairs", "packed": "apply_rowmajor"}
+
+
+@pytest.mark.parametrize("layout", ["planar", "packed"])
+@pytest.mark.parametrize("S", [2, 3, 4])
+@pytest.mark.parametrize("K,wupd,vupd,tff", [(4, "ftrl", "adagrad", 0),
+                                             (0, "ftrl", "adagrad", 0),
+                                             (3, "sgd", "adagrad", 2),
+                                             (16, "adagrad", "sgd", 0),
+                                             (130, "ftrl", "adagrad", 0)])
+def test_cuda_k1_merge_matches_search(card, layout, S, K, wupd, vupd, tff):
+    """K1 by the merge (the path's route) bit for bit against the search
+    design (the yardstick, ``apply_pairs_segs_search``) and against the
+    one-stream kernel on the stream merged by NumPy's stable argsort, over
+    test_cuda_k1_matches_plain's grid; a K1 call counts one merge and one
+    K1 launch and nothing under the one-stream names, the yardstick one
+    launch under its own name."""
+    rng = np.random.default_rng(900 + 7 * S + K)
+    p = port_params(V_dim=K, w_updater=wupd, V_updater=vupd,
+                    tail_feature_filter=tff)
+    s = state_np(K, rng)
+    uids_np, valid = seg_stream(rng, S)
+    pay_np = seg_payload(K, valid, rng)
+    uids = torch.from_numpy(uids_np).to(card)
+    pay = torch.from_numpy(pay_np).to(card)
+    C = uids_np.shape[0] // S
+    names = (K1_NAMES[layout], K1_SEARCH_NAMES[layout],
+             ONE_STREAM_NAMES[layout], "merge_segments")
+    n0 = {k: cuda.LAUNCHES[k] for k in names}
+    got = k1_planar(pair_sweep.apply_pairs(k1_state(s, layout, card), uids,
+                                           pay, p, seg_len=C))
+    assert {k: cuda.LAUNCHES[k] - n0[k] for k in names} == {
+        K1_NAMES[layout]: 1, K1_SEARCH_NAMES[layout]: 0,
+        ONE_STREAM_NAMES[layout]: 0, "merge_segments": 1}
+    search = k1_planar(pair_sweep.apply_pairs_segs_search(
+        k1_state(s, layout, card), uids, pay, p, C))
+    assert {k: cuda.LAUNCHES[k] - n0[k] for k in names} == {
+        K1_NAMES[layout]: 1, K1_SEARCH_NAMES[layout]: 1,
+        ONE_STREAM_NAMES[layout]: 0, "merge_segments": 1}
+    order = np.argsort(uids_np, kind="stable")
+    one = k1_planar(pair_sweep.apply_pairs(
+        k1_state(s, layout, card), torch.from_numpy(uids_np[order]).to(card),
+        torch.from_numpy(np.ascontiguousarray(pay_np[:, order])).to(card), p))
+    for leaf in LEAVES:
+        assert torch.equal(getattr(got, leaf), getattr(search, leaf)), leaf
+        assert torch.equal(getattr(got, leaf), getattr(one, leaf)), leaf
 
 
 def two_rank_steps(out: str) -> None:
