@@ -47,6 +47,11 @@ def main(argv: list[str] | None = None, device=None) -> int:
         format="%(asctime)s %(levelname).1s %(name)s] %(message)s",
         datefmt="%H:%M:%S",
     )
+    from .utils.tracing import verbose
+
+    # DIFACTO_VERBOSE=1: the port's debug lines too (each train step's
+    # counter deltas: its slots, lanes, distinct rows and launches)
+    log.setLevel(logging.DEBUG if verbose() else logging.NOTSET)
     if argv is None:
         argv = sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help"):

@@ -142,6 +142,9 @@ class PreppedBatch:
     # bucket (pad sentinel num_rows); these are copies of its two parts
     uids_hot: np.ndarray | None = None   # i32 [Ch]
     uids_cold: np.ndarray | None = None  # i32 [Cc] global remapped ids
+    # the batch's distinct real ids (its real lanes), a host int that
+    # placement and the batch cache keep; None where no prep counted them
+    n_real: int | None = None
 
     @property
     def num_examples(self) -> int:
@@ -306,7 +309,8 @@ def prep_batch(
             vals=batch.vals, labels=batch.labels, mask=batch.mask,
             uids=u_out, ucounts=c_out, inv=inv.reshape(-1), valid=valid,
             fields=batch.fields, fields_checked=num_fields > 0,
-            uids_hot=u_out[:ch].copy(), uids_cold=u_out[ch:].copy())
+            uids_hot=u_out[:ch].copy(), uids_cold=u_out[ch:].copy(),
+            n_real=n_real)
     # the bucket must leave a junk lane for sentinel slots when present
     need = max(n_real + int(has_sentinel), 1)
     floor = (min_ub + 127) // 128 * 128 if min_ub else 0
@@ -325,6 +329,7 @@ def prep_batch(
         valid=valid,
         fields=batch.fields,
         fields_checked=num_fields > 0,
+        n_real=n_real,
     )
 
 
@@ -385,6 +390,9 @@ class ShardPreppedBatch:
     # the largest (source, owner) bucket fill (shard_bucket_fills), taken
     # here on the host so that the store's capacity needs no device sync
     max_fill: int = 0
+    # each group's distinct real ids that its lanes keep, host ints
+    # (PreppedBatch.n_real)
+    n_real: tuple | None = None
 
     @property
     def num_examples(self) -> int:
@@ -450,7 +458,8 @@ def prep_batch_sharded(batch: Batch, num_rows: int, num_shards: int,
         uids=u_st.reshape(-1), ucounts=c_st.reshape(-1),
         inv=inv_st.reshape(-1), valid=v_st.reshape(-1), dropped=d_st,
         ub=ub, num_shards=num_shards, fields=batch.fields,
-        fields_checked=num_fields > 0)
+        fields_checked=num_fields > 0,
+        n_real=tuple(int(p[4] - d) for p, d in zip(per, d_st)))
     pb.max_fill = int(shard_bucket_fills(pb, num_rows,
                                          num_shards_global).max())
     return pb

@@ -15,7 +15,13 @@ every batch by it, and checkpoints are saved in canonical rows.
 Per-epoch flow mirrors RunScheduler/RunEpoch: optional feature-count pass
 (tail_feature_filter), train pass over data_in, validation pass over
 data_val (pull + predict only, no push), epoch-end callbacks, model save.
-``DIFACTO_PROFILE`` traces the first train pass (utils/tracing.py).
+``DIFACTO_PROFILE`` traces the first train pass (utils/tracing.py). The
+train pass marks its phases as spans on the profiler's timeline
+(``difacto.epoch``, ``difacto.batch`` around each batch fetch,
+``difacto.step``, ``difacto.epoch_end``; the store marks the step's
+phases) and counts its batches, their wait, its blocking host reads and
+the ids dropped in the ``step`` counters; :meth:`run` logs each epoch's
+counter deltas after its train row.
 ``store=sharded`` trains through the ShardedStore: prep localizes each
 batch over its row groups (data/prep.py::prep_batch_sharded), the
 capacity pin moves at each epoch's end, and a one-process run's
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Callable
 
 import numpy as np
@@ -57,11 +64,11 @@ from ..parallel.multihost import (input_part, maybe_initialize_distributed,
                                   process_count)
 from ..parallel.store import ShardedStore, make_store
 from ..updaters.updater import FMUpdater
-from ..utils import checkpoint
+from ..utils import checkpoint, tracing
 from ..utils.place import place_batch
 from ..utils.prefetch import MappedPrefetchIter, ThreadedIter
 from ..utils.progress import Progress, Reporter
-from ..utils.tracing import profile_region
+from ..utils.tracing import STEP, profile_region, span, to_host
 from .step import StepMetrics, merge_metrics
 
 log = logging.getLogger("difacto_tpu_torch")
@@ -101,10 +108,6 @@ class _Reservoir:
     def sample(self) -> tuple[np.ndarray, np.ndarray]:
         n = min(self.n_seen, self.cap)
         return self._y[:n], self._p[:n]
-
-
-def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
 
 
 class SGDLearner:
@@ -222,10 +225,7 @@ class SGDLearner:
         """This process's batches of ``uri`` (see :meth:`_iter`), before
         the lockstep."""
         d = self.cfg.data
-        # the cache key covers everything that changes batch content or
-        # order; the raw count-pass stream is never cached (it runs once)
-        cache_key = (f"{uri}|{shuffle}|{sorted_slots}"
-                     if d.cache_batches and localize else None)
+        cache_key = self._cache_key(uri, shuffle, localize, sorted_slots)
         if cache_key is not None and cache_key in self._batch_cache:
             placed, items = self._batch_cache[cache_key]
             return iter(items) if placed else self._place_iter(iter(items))
@@ -273,6 +273,15 @@ class SGDLearner:
             self._batch_cache[cache_key] = (place_first, acc)
 
         return caching() if place_first else self._place_iter(caching())
+
+    def _cache_key(self, uri: str, shuffle: bool, localize: bool,
+                   sorted_slots: bool) -> str | None:
+        """The batch cache's key of a pass: it covers everything that
+        changes batch content or order; the raw count-pass stream is never
+        cached (it runs once)."""
+        if not (self.cfg.data.cache_batches and localize):
+            return None
+        return f"{uri}|{shuffle}|{sorted_slots}"
 
     def _check_raw(self, b):
         """A raw batch's libffm fields, range-checked on the host before
@@ -368,16 +377,35 @@ class SGDLearner:
         skip = self._resume_step if epoch == self._epoch else 0
         if skip:
             log.info("resuming epoch %d at step %d", epoch, skip)
+        uri, sorted_slots = cfg.data.data_in, self.store.sorted_grads
+        source = ("batches_replayed"
+                  if self._cache_key(uri, True, True, sorted_slots)
+                  in self._batch_cache else "batches_streamed")
+        debug = log.isEnabledFor(logging.DEBUG)
         # the sorted slots only where the store's backward reads them
-        with profile_region(f"train_epoch_{epoch}"):
-            for batch in self._iter(cfg.data.data_in, shuffle=True,
-                                    epoch=epoch,
-                                    sorted_slots=self.store.sorted_grads):
+        with profile_region(f"train_epoch_{epoch}"), span("difacto.epoch"):
+            batches = iter(self._iter(uri, shuffle=True, epoch=epoch,
+                                      sorted_slots=sorted_slots))
+            while True:
+                t0 = time.perf_counter()
+                with span("difacto.batch"):
+                    batch = next(batches, None)
+                STEP["batch_wait_s"] += time.perf_counter() - t0
+                if batch is None:
+                    break
+                STEP[source] += 1
                 if step < skip:
                     step += 1
                     continue
-                self.state, metrics = self._train_step(batch)
-                acc = metrics if acc is None else merge_metrics(acc, metrics)
+                before = tracing.counters() if debug else None
+                with span("difacto.step"):
+                    self.state, metrics = self._train_step(batch)
+                    acc = (metrics if acc is None
+                           else merge_metrics(acc, metrics))
+                if debug:
+                    log.debug("epoch %d step %d counters: %s", epoch, step,
+                              tracing.format_counters(
+                                  tracing.delta(before)))
                 step += 1
                 if (self.reporter.interval > 0
                         and step % self.reporter.interval == 0):
@@ -388,13 +416,14 @@ class SGDLearner:
                 si = cfg.learner.save_interval_steps
                 if cfg.learner.model_out and si > 0 and step % si == 0:
                     self._save({"epoch": epoch, "step": step})
-        if acc is not None:
-            self._fold(prog, acc)
-        if self._sharded:
-            # the epoch's end: later batches take one tight all_to_all
-            # capacity (ShardedStore.pin_capacity)
-            self.store.pin_capacity()
-        st = self.store.stats(self.state)
+            with span("difacto.epoch_end"):
+                if acc is not None:
+                    self._fold(prog, acc)
+                if self._sharded:
+                    # the epoch's end: later batches take one tight
+                    # all_to_all capacity (ShardedStore.pin_capacity)
+                    self.store.pin_capacity()
+                st = self.store.stats(self.state)
         prog.nnz_w = float(st["nnz_w"])
         prog.nnz_V = float(st["nnz_V"])
         return prog
@@ -438,14 +467,15 @@ class SGDLearner:
         cap = self.cfg.learner.exact_auc_cap
         res = (_Reservoir(max(cap // self._nproc, 1), self.cfg.data.seed)
                if cap > 0 else None)
-        for batch in self._iter(uri, shuffle=False):
-            metrics, py = self._eval_step(batch)
-            acc = metrics if acc is None else merge_metrics(acc, metrics)
-            if res is not None:
-                keep = _host(batch.mask) > 0
-                res.add(_host(batch.labels)[keep], _host(py)[keep])
-        if acc is not None:
-            self._fold(prog, acc)
+        with span("difacto.eval"):
+            for batch in self._iter(uri, shuffle=False):
+                metrics, py = self._eval_step(batch)
+                acc = metrics if acc is None else merge_metrics(acc, metrics)
+                if res is not None:
+                    keep = to_host(batch.mask) > 0
+                    res.add(to_host(batch.labels)[keep], to_host(py)[keep])
+            if acc is not None:
+                self._fold(prog, acc)
         y = p = None
         if res is not None and (self._nproc > 1 or res.n_seen):
             y, p = allgather_pairs(*res.sample())  # every process calls it
@@ -466,7 +496,7 @@ class SGDLearner:
 
     @staticmethod
     def _fold(prog: Progress, acc: StepMetrics) -> None:
-        m = StepMetrics(*(_host(t) for t in acc))
+        m = StepMetrics(*(to_host(t) for t in acc))
         prog.merge(
             Progress(
                 num_examples=float(m.examples),
@@ -477,6 +507,10 @@ class SGDLearner:
                 auc_hist=np.asarray(m.auc_hist, dtype=np.float64),
             )
         )
+        dropped = int(m.dropped_ids)
+        if dropped:
+            STEP["ids_dropped"] += dropped
+            log.warning("routing capacity overflow: %d ids dropped", dropped)
 
     # -- driver (reference: SGDLearner::RunScheduler) -----------------------
 
@@ -486,8 +520,11 @@ class SGDLearner:
             self.count_pass()
         last = Progress()
         for epoch in range(self._epoch, cfg.learner.max_num_epochs):
+            before = tracing.counters()
             tr = self.train_epoch(epoch)
             log.info("epoch %d train: %s", epoch, tr.row())
+            log.info("epoch %d counters: %s", epoch,
+                     tracing.format_counters(tracing.delta(before)))
             if cfg.data.data_val:
                 va = self.eval_pass(cfg.data.data_val)
                 auc = getattr(va, "exact_auc", None) or va.auc
@@ -518,11 +555,12 @@ class SGDLearner:
         process's parts, in their order (reference: the validation/pred
         flow with model_in + no training)."""
         pys, ys = [], []
-        for batch in self._iter(uri, shuffle=False):
-            _, py = self._eval_step(batch)
-            keep = _host(batch.mask) > 0
-            pys.append(_host(py)[keep])
-            ys.append(_host(batch.labels)[keep])
+        with span("difacto.eval"):
+            for batch in self._iter(uri, shuffle=False):
+                _, py = self._eval_step(batch)
+                keep = to_host(batch.mask) > 0
+                pys.append(to_host(py)[keep])
+                ys.append(to_host(batch.labels)[keep])
         if not pys:
             return np.zeros(0, np.float32), np.zeros(0, np.float32)
         return np.concatenate(pys), np.concatenate(ys)

@@ -16,6 +16,11 @@ Two per-key aggregations:
   (ops/segsum.py); :func:`derive_sorted_slots` rebuilds its sorted
   stream on the device from a compact batch (``cache_compact``).
 
+Each marks its forward and backward on the batch's rows (the rows
+gather, the loss, its metrics) as the span ``difacto.loss`` and the
+per-key sums (the payload, B3 or ``index_add_``, the combine) as
+``difacto.keysum`` (utils/tracing.py).
+
 ``loss`` is ``fm`` (K = 0 is logit) or ``ffm``: then a row's K = F*k
 factors are F field blocks of k (F = ``num_fields``, or L when slot
 position is the field) and the math is models/losses.py::ffm_loss_grad,
@@ -33,6 +38,7 @@ from ..models.losses import (ffm_loss_grad, ffm_predict, fm_loss_grad,
 from ..ops.localize import Localized
 from ..ops.metrics import NUM_AUC_BINS, auc_hist_update
 from ..ops.segsum import segsum_sorted
+from ..utils.tracing import span
 
 
 class StepMetrics(NamedTuple):
@@ -117,14 +123,16 @@ def worker_forward(
     whole loss and keeps its forward: the same margins). Returns (py [B],
     metrics)."""
     B, L = vals.shape
-    rows = _rows(rows_u, loc, B, L)
-    if loss == "ffm":
-        py = ffm_predict(vals, rows[..., 0], _ffm_factors(rows, num_fields),
-                         fields=fields, block=ffm_block)
-    else:
-        py = fm_predict(vals, rows[..., 0], rows[..., 1:]).py
-    _, lossv, correct = logit_grad_coeff(py, labels, mask)
-    return py, _batch_metrics(py, lossv, correct, labels, mask)
+    with span("difacto.loss"):
+        rows = _rows(rows_u, loc, B, L)
+        if loss == "ffm":
+            py = ffm_predict(vals, rows[..., 0],
+                             _ffm_factors(rows, num_fields), fields=fields,
+                             block=ffm_block)
+        else:
+            py = fm_predict(vals, rows[..., 0], rows[..., 1:]).py
+        _, lossv, correct = logit_grad_coeff(py, labels, mask)
+        return py, _batch_metrics(py, lossv, correct, labels, mask)
 
 
 def worker_grads(
@@ -144,14 +152,16 @@ def worker_grads(
     :func:`worker_forward`."""
     B, L = vals.shape
     U, D = rows_u.shape
-    fwd, g = _loss_grad(_rows(rows_u, loc, B, L), vals, labels, mask, loss,
-                        fields, num_fields, ffm_block)
-    flat = torch.cat([g.dW.reshape(B * L, 1), g.dV.reshape(B * L, D - 1)],
-                     dim=1)
-    grads_u = torch.zeros((U, D), dtype=flat.dtype, device=flat.device)
-    grads_u.index_add_(0, loc.inv, flat)
-    return grads_u, fwd.py, _batch_metrics(fwd.py, g.loss, g.correct,
-                                           labels, mask)
+    with span("difacto.loss"):
+        fwd, g = _loss_grad(_rows(rows_u, loc, B, L), vals, labels, mask,
+                            loss, fields, num_fields, ffm_block)
+        metrics = _batch_metrics(fwd.py, g.loss, g.correct, labels, mask)
+    with span("difacto.keysum"):
+        flat = torch.cat([g.dW.reshape(B * L, 1),
+                          g.dV.reshape(B * L, D - 1)], dim=1)
+        grads_u = torch.zeros((U, D), dtype=flat.dtype, device=flat.device)
+        grads_u.index_add_(0, loc.inv, flat)
+    return grads_u, fwd.py, metrics
 
 
 def derive_sorted_slots(
@@ -213,33 +223,39 @@ def worker_grads_sorted(
     B, L = vals.shape
     K = rows_u.shape[1] - 1
     x_s, bidx, inv_s = ss
-    rows = _rows(rows_u, loc, B, L)
     if loss == "ffm":
-        fwd, g = _loss_grad(rows, vals, labels, mask, loss, fields,
-                            num_fields, ffm_block)
-        flat = torch.cat([g.dW.reshape(B * L, 1), g.dV.reshape(B * L, K)],
-                         dim=1)
-        real = torch.arange(slot_s.shape[0], device=flat.device) < B * L
-        pay = torch.where(real[:, None],
-                          flat.index_select(0, slot_s.long()), 0.0)
-        grads_p = segsum_sorted(pay.T.contiguous(), inv_s, rows_u.shape[0])
-        return grads_p, fwd.py, _batch_metrics(fwd.py, g.loss, g.correct,
-                                               labels, mask)
-    fwd = fm_predict(vals, rows[..., 0], rows[..., 1:])
-    d, lossv, correct = logit_grad_coeff(fwd.py, labels, mask)
-    if K > 0:
-        dS = torch.cat([d[:, None], fwd.S], dim=1)        # [B, 1+K]
-        g = dS.index_select(0, bidx)                      # [BLp, 1+K]
-        dw_s = g[:, 0] * x_s
-        payT = torch.cat([dw_s[None, :], (dw_s * x_s)[None, :],
-                          (dw_s[:, None] * g[:, 1:]).T], dim=0)
-    else:
-        payT = (d.index_select(0, bidx) * x_s)[None, :]
-    segs = segsum_sorted(payT.contiguous(), inv_s, rows_u.shape[0])
-    if K > 0:
-        gV = segs[2 : 2 + K] - rows_u.T[1:] * segs[1][None, :]
-        grads_p = torch.cat([segs[:1], gV], dim=0)
-    else:
-        grads_p = segs
-    return grads_p, fwd.py, _batch_metrics(fwd.py, lossv, correct, labels,
-                                           mask)
+        with span("difacto.loss"):
+            fwd, g = _loss_grad(_rows(rows_u, loc, B, L), vals, labels,
+                                mask, loss, fields, num_fields, ffm_block)
+            metrics = _batch_metrics(fwd.py, g.loss, g.correct, labels,
+                                     mask)
+        with span("difacto.keysum"):
+            flat = torch.cat([g.dW.reshape(B * L, 1),
+                              g.dV.reshape(B * L, K)], dim=1)
+            real = torch.arange(slot_s.shape[0], device=flat.device) < B * L
+            pay = torch.where(real[:, None],
+                              flat.index_select(0, slot_s.long()), 0.0)
+            grads_p = segsum_sorted(pay.T.contiguous(), inv_s,
+                                    rows_u.shape[0])
+        return grads_p, fwd.py, metrics
+    with span("difacto.loss"):
+        rows = _rows(rows_u, loc, B, L)
+        fwd = fm_predict(vals, rows[..., 0], rows[..., 1:])
+        d, lossv, correct = logit_grad_coeff(fwd.py, labels, mask)
+        metrics = _batch_metrics(fwd.py, lossv, correct, labels, mask)
+    with span("difacto.keysum"):
+        if K > 0:
+            dS = torch.cat([d[:, None], fwd.S], dim=1)        # [B, 1+K]
+            g = dS.index_select(0, bidx)                      # [BLp, 1+K]
+            dw_s = g[:, 0] * x_s
+            payT = torch.cat([dw_s[None, :], (dw_s * x_s)[None, :],
+                              (dw_s[:, None] * g[:, 1:]).T], dim=0)
+        else:
+            payT = (d.index_select(0, bidx) * x_s)[None, :]
+        segs = segsum_sorted(payT.contiguous(), inv_s, rows_u.shape[0])
+        if K > 0:
+            gV = segs[2 : 2 + K] - rows_u.T[1:] * segs[1][None, :]
+            grads_p = torch.cat([segs[:1], gV], dim=0)
+        else:
+            grads_p = segs
+    return grads_p, fwd.py, metrics

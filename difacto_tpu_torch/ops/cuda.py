@@ -15,7 +15,8 @@ that may have no ``nvcc``.
 ``LAUNCHES`` counts kernel launches per wrapper (ops/pair_sweep.py,
 ops/segsum.py, ops/sweep_ms.py and the probes' wrappers under probes/):
 each wrapper adds one where it launches its kernel and nowhere else, so
-a run can show which kernels its path went through.
+a run can show which kernels its path went through. It is the ``launch``
+group of the program's counters (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.tracing import counter_group
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_pairs.cu", "apply_pairs.cu", "segsum.cu", "sweep_pull.cu",
            "sweep_apply.cu", "planar_apply.cu", "packed_pairs.cu",
@@ -44,15 +47,16 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libdifacto_torch_kernels.so"
 
-LAUNCHES = {"pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
-            "sweep_pull": 0, "sweep_apply": 0, "apply_pairs2": 0,
-            "pull_packed": 0, "apply_packed": 0, "bisect_w": 0,
-            "bisect_ftrl4": 0, "slot_accum": 0, "bisect_rowscan": 0,
-            "pull_rowmajor": 0, "apply_rowmajor": 0,
-            "sweep_pull_rowmajor": 0, "sweep_apply_rowmajor": 0,
-            "segsum_chunks": 0, "segsum_rows": 0, "apply_pairs_segs": 0,
-            "apply_rowmajor_segs": 0, "merge_segments": 0,
-            "apply_pairs_segs_search": 0, "apply_rowmajor_segs_search": 0}
+LAUNCHES = counter_group("launch", {
+    "pull_pairs": 0, "apply_pairs": 0, "segsum_sorted": 0,
+    "sweep_pull": 0, "sweep_apply": 0, "apply_pairs2": 0,
+    "pull_packed": 0, "apply_packed": 0, "bisect_w": 0,
+    "bisect_ftrl4": 0, "slot_accum": 0, "bisect_rowscan": 0,
+    "pull_rowmajor": 0, "apply_rowmajor": 0,
+    "sweep_pull_rowmajor": 0, "sweep_apply_rowmajor": 0,
+    "segsum_chunks": 0, "segsum_rows": 0, "apply_pairs_segs": 0,
+    "apply_rowmajor_segs": 0, "merge_segments": 0,
+    "apply_pairs_segs_search": 0, "apply_rowmajor_segs_search": 0})
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.tracing import span
 from .multihost import process_count
 
 
@@ -53,7 +54,8 @@ def allgather_host(x) -> np.ndarray:
         return x[None]
     t = torch.from_numpy(x.copy())
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t)
+    with span("difacto.exchange"):
+        dist.all_gather(out, t)
     return torch.stack(out).numpy()
 
 
@@ -94,13 +96,15 @@ class Comm:
             return x
         x = x.contiguous()
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x)
+        with span("difacto.exchange"):
+            dist.all_to_all_single(out, x)
         return out
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over ranks (``psum``), in place; returns ``x``."""
         if self.size > 1:
-            dist.all_reduce(x, op=dist.ReduceOp.SUM)
+            with span("difacto.exchange"):
+                dist.all_reduce(x, op=dist.ReduceOp.SUM)
         return x
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -109,5 +113,6 @@ class Comm:
             return x[None]
         x = x.contiguous()
         out = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(out, x)
+        with span("difacto.exchange"):
+            dist.all_gather(out, x)
         return torch.stack(out)

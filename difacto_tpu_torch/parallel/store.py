@@ -31,6 +31,13 @@ the per-key aggregation, as the JAX store does (``store.py:113-150,
   sorted slots keep only the sort permutation, and the step derives the
   rest on the device (learners/step.py::derive_sorted_slots).
 
+A train step's phases are spans on the profiler's timeline
+(utils/tracing.py): ``difacto.place``, ``difacto.pull``, the worker's
+``difacto.loss`` and ``difacto.keysum`` (learners/step.py),
+``difacto.apply``, and ``difacto.exchange`` around each collective of the
+sharded store; each train step adds its slots, lanes and distinct rows
+to the ``step`` counters.
+
 The host-prepped steps (``train_step_prepped``, ``eval_step_prepped``)
 take a batch localized by data/prep.py; ``train_step`` and ``eval_step``
 take raw ids and localize them on the device (``host_localize=0``,
@@ -78,6 +85,7 @@ from ..updaters.updater import (FMState, FMUpdater, HotColdFMState, LEAVES,
                                 pack_state, stack_state, unpack_state)
 from ..utils.device import resolve_device
 from ..utils.place import place_batch
+from ..utils.tracing import STEP, span, to_host
 from .comm import Comm, allgather_host
 from .multihost import process_count
 
@@ -104,6 +112,17 @@ def _prepped_fields(pb: PreppedBatch, num_fields: int):
     return _require_fields(pb.fields, num_fields)
 
 
+
+
+def _count_step(slots: int, lanes: int, unique_rows: int | None) -> None:
+    """A train step's work in the ``step`` counters (utils/tracing.py):
+    its slots B*L, the unique lanes its kernels launch over, and the
+    distinct rows among them when the host prep counted them."""
+    STEP["steps"] += 1
+    STEP["slots"] += slots
+    STEP["lanes"] += lanes
+    if unique_rows is not None:
+        STEP["unique_rows"] += unique_rows
 
 
 def _kernel_kind(cfg: Config) -> str:
@@ -347,23 +366,27 @@ class LocalStore:
         ``store.py:609-624``); FFM's also keep the sort permutation.
         Explicit fields are checked first (on the host array, when the
         batch is still there) unless the prep did."""
-        if self.hot_rows and pb.uids_hot is None:
-            raise ValueError(
-                "hot_rows store got an unsplit PreppedBatch — prep must "
-                "run with (remap, hot_rows) (the learner threads them)")
-        if self.expects_fields:
-            pb.fields = _prepped_fields(pb, self.num_fields)
-            pb.fields_checked = True
-        ffm = self.loss == "ffm"
-        ss = pb.sorted_slots
-        if need_slots and (ss is None or (ffm and ss.slot_sorted is None)):
-            if isinstance(pb.inv, torch.Tensor):
-                raise ValueError("a placed batch needs its sorted slots "
-                                 "built before placement (data/prep.py)")
-            pb.sorted_slots = build_sorted_slots(
-                pb.inv, pb.vals, with_slots=ffm,
-                compact=self.cfg.data.cache_compact)
-        return place_batch(pb, self.device)
+        with span("difacto.place"):
+            if self.hot_rows and pb.uids_hot is None:
+                raise ValueError(
+                    "hot_rows store got an unsplit PreppedBatch — prep "
+                    "must run with (remap, hot_rows) (the learner threads "
+                    "them)")
+            if self.expects_fields:
+                pb.fields = _prepped_fields(pb, self.num_fields)
+                pb.fields_checked = True
+            ffm = self.loss == "ffm"
+            ss = pb.sorted_slots
+            if need_slots and (ss is None
+                               or (ffm and ss.slot_sorted is None)):
+                if isinstance(pb.inv, torch.Tensor):
+                    raise ValueError(
+                        "a placed batch needs its sorted slots built "
+                        "before placement (data/prep.py)")
+                pb.sorted_slots = build_sorted_slots(
+                    pb.inv, pb.vals, with_slots=ffm,
+                    compact=self.cfg.data.cache_compact)
+            return place_batch(pb, self.device)
 
     def _fields(self, fields):
         """The batch's fields for the loss: None unless the config
@@ -376,40 +399,44 @@ class LocalStore:
         path's stacked tables the raw [D, U] gather the update reuses
         (else None). ``split``: the hot and cold buckets of a split
         batch."""
-        valid = loc.valid
-        if self.pallas:
-            return sweep_pull(state, loc.uids, valid, self.param,
-                              block_rows=self.block_rows), None
-        if self.xla:
-            if split is not None:
-                raw = self.updater.pull_raw_split(state, *split)
-            elif isinstance(state, StackedFMState):
-                raw = self.updater.pull_raw(state, loc.uids, valid)
-            else:
-                return self.updater.pull(state, loc.uids, valid), None
-            return self.updater.rows_view(raw, valid), raw
-        rows_p = pull_pairs(state, loc.uids, self.param)
-        return torch.where(valid[:, None], rows_p.T, 0.0), None
+        with span("difacto.pull"):
+            valid = loc.valid
+            if self.pallas:
+                return sweep_pull(state, loc.uids, valid, self.param,
+                                  block_rows=self.block_rows), None
+            if self.xla:
+                if split is not None:
+                    raw = self.updater.pull_raw_split(state, *split)
+                elif isinstance(state, StackedFMState):
+                    raw = self.updater.pull_raw(state, loc.uids, valid)
+                else:
+                    return self.updater.pull(state, loc.uids, valid), None
+                return self.updater.rows_view(raw, valid), raw
+            rows_p = pull_pairs(state, loc.uids, self.param)
+            return torch.where(valid[:, None], rows_p.T, 0.0), None
 
     def _apply(self, state, loc: Localized, grads: torch.Tensor, raw,
                split=None):
         """The in-place table update from planar per-key gradients
         [1+K, U]."""
-        if self.pallas:
-            return sweep_apply(state, loc.uids, grads, loc.counts, loc.valid,
-                               self.param, block_rows=self.block_rows)
-        if self.xla:
-            # zero the lanes no slot visits, as the JAX store does before
-            # its update: its masks multiply, and 0 x Inf commits a NaN
-            grads_u = torch.where(loc.valid[:, None], grads.T, 0.0)
-            if split is not None:
-                return self.updater.update_split(
-                    state, *split, grads_u, loc.counts, loc.valid, raw)
-            return self.updater.update(state, loc.uids, grads_u, loc.counts,
-                                       loc.valid, rows=raw)
-        return apply_pairs(state, loc.uids,
-                           apply_payload(grads, loc.counts, loc.valid),
-                           self.param)
+        with span("difacto.apply"):
+            if self.pallas:
+                return sweep_apply(state, loc.uids, grads, loc.counts,
+                                   loc.valid, self.param,
+                                   block_rows=self.block_rows)
+            if self.xla:
+                # zero the lanes no slot visits, as the JAX store does
+                # before its update: its masks multiply, and 0 x Inf
+                # commits a NaN
+                grads_u = torch.where(loc.valid[:, None], grads.T, 0.0)
+                if split is not None:
+                    return self.updater.update_split(
+                        state, *split, grads_u, loc.counts, loc.valid, raw)
+                return self.updater.update(state, loc.uids, grads_u,
+                                           loc.counts, loc.valid, rows=raw)
+            return apply_pairs(state, loc.uids,
+                               apply_payload(grads, loc.counts, loc.valid),
+                               self.param)
 
     def _split(self, pb: PreppedBatch):
         return (pb.uids_hot, pb.uids_cold) if self.hot_rows else None
@@ -422,6 +449,7 @@ class LocalStore:
         pb = self._placed(pb, need_slots=self.sorted_grads)
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
+        _count_step(pb.inv.shape[0], pb.uids.shape[0], pb.n_real)
         split = self._split(pb)
         rows_u, raw = self._pull(state, loc, split)
         fields = self._fields(pb.fields)
@@ -487,6 +515,7 @@ class LocalStore:
         arrays or tensors on any device. Returns (state, StepMetrics)."""
         loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
                                                     fields)
+        _count_step(loc.inv.shape[0], loc.uids.shape[0], None)
         rows_u, raw = self._pull(state, loc)
         grads_u, _, metrics = worker_grads(rows_u, loc, vals, labels, mask,
                                            fields=fields, **self.loss_kw)
@@ -712,7 +741,7 @@ class ShardedStore(LocalStore):
         keys = sorted(local)
         tot = self.comm.all_reduce(torch.tensor(
             [local[k] for k in keys], dtype=torch.float64, device=self.device))
-        return {k: float(v) for k, v in zip(keys, tot.tolist())}
+        return {k: float(v) for k, v in zip(keys, to_host(tot).tolist())}
 
     # -- this rank's part of a global batch ----------------------------------
 
@@ -759,6 +788,7 @@ class ShardedStore(LocalStore):
             ucounts=pb.ucounts[lanes], inv=pb.inv[r * nl:(r + 1) * nl],
             valid=pb.valid[lanes], fields=self._rows(pb.fields),
             fields_checked=pb.fields_checked,
+            n_real=None if pb.n_real is None else pb.n_real[r],
             sorted_slots=None if ss is None or not need_slots else
             SortedSlots(x_sorted=ss.x_sorted[r], bidx=ss.bidx[r],
                         inv_sorted=ss.inv_sorted[r],
@@ -923,11 +953,14 @@ class ShardedStore(LocalStore):
         (scatter, or B3 on the rank's sorted slots, before routing) ->
         push and apply on the owners. Returns (state, metrics summed over
         the ranks)."""
-        lb, dropped_prep = self._local(pb, need_slots=self.sorted_grads)
+        with span("difacto.place"):
+            lb, dropped_prep = self._local(pb, need_slots=self.sorted_grads)
         loc = Localized(uids=lb.uids, inv=lb.inv, counts=lb.ucounts,
                         valid=lb.valid)
+        _count_step(lb.inv.shape[0], lb.uids.shape[0], lb.n_real)
         pull, push, C = self._route(pb, loc)
-        rows_u, ctx, dropped = pull(state, loc, C)
+        with span("difacto.pull"):
+            rows_u, ctx, dropped = pull(state, loc, C)
         fields = self._fields(lb.fields)
         if self.sorted_grads:
             ss = lb.sorted_slots
@@ -940,7 +973,8 @@ class ShardedStore(LocalStore):
                                                lb.labels, lb.mask,
                                                fields=fields, **self.loss_kw)
             grads = grads_u.T
-        state = push(state, loc, grads, ctx, C)
+        with span("difacto.apply"):
+            state = push(state, loc, grads, ctx, C)
         return state, self._sum_metrics(metrics, dropped + dropped_prep)
 
     def _gather_py(self, py: torch.Tensor) -> torch.Tensor:
@@ -955,11 +989,13 @@ class ShardedStore(LocalStore):
         """pull -> forward. Returns (metrics summed over the ranks, the
         whole batch's py [B], or this rank's rows' of a ``local_rows``
         batch)."""
-        lb, dropped_prep = self._local(pb, need_slots=False)
+        with span("difacto.place"):
+            lb, dropped_prep = self._local(pb, need_slots=False)
         loc = Localized(uids=lb.uids, inv=lb.inv, counts=lb.ucounts,
                         valid=lb.valid)
         pull, _, C = self._route(pb, loc)
-        rows_u, _, dropped = pull(state, loc, C)
+        with span("difacto.pull"):
+            rows_u, _, dropped = pull(state, loc, C)
         py, metrics = worker_forward(rows_u, loc, lb.vals, lb.labels,
                                      lb.mask, fields=self._fields(lb.fields),
                                      **self.loss_kw)
@@ -980,20 +1016,23 @@ class ShardedStore(LocalStore):
         routing and push."""
         loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
                                                     fields)
+        _count_step(loc.inv.shape[0], loc.uids.shape[0], None)
         C = self._capacity_for(loc.uids.shape[0])
-        rows_u, ctx, dropped = self._routed_pull(state, loc, C)
+        with span("difacto.pull"):
+            rows_u, ctx, dropped = self._routed_pull(state, loc, C)
         grads_u, _, metrics = worker_grads(rows_u, loc, vals, labels, mask,
                                            fields=fields, **self.loss_kw)
-        state = self._routed_push(state, loc, grads_u.T, ctx, C)
+        with span("difacto.apply"):
+            state = self._routed_push(state, loc, grads_u.T, ctx, C)
         return state, self._sum_metrics(metrics, dropped + loc.overflow)
 
     def eval_step(self, state, ids, vals, labels, mask,
                   fields=None) -> tuple[StepMetrics, torch.Tensor]:
         loc, vals, labels, mask, fields = self._raw(ids, vals, labels, mask,
                                                     fields)
-        rows_u, _, dropped = self._routed_pull(state, loc,
-                                        self._capacity_for(
-                                            loc.uids.shape[0]))
+        with span("difacto.pull"):
+            rows_u, _, dropped = self._routed_pull(
+                state, loc, self._capacity_for(loc.uids.shape[0]))
         py, metrics = worker_forward(rows_u, loc, vals, labels, mask,
                                      fields=fields, **self.loss_kw)
         return (self._sum_metrics(metrics, dropped + loc.overflow),

@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import FMParam
+from ..utils.tracing import to_host
 
 
 @dataclass
@@ -582,10 +583,12 @@ class FMUpdater:
             parts = [(t[0], t[3]) for t in (state.hot, state.cold)]
         else:
             parts = [(state.w, state.cnt)]
-        out = {"nnz_w": float(sum((w != 0).sum() for w, _ in parts))}
+        nnz_w = sum((w != 0).sum() for w, _ in parts)
+        out = {"nnz_w": float(to_host(nnz_w))}
         if self.param.V_dim > 0:
             t = self.param.V_threshold
-            out["nnz_V"] = float(sum((c >= t).sum() for _, c in parts))
+            out["nnz_V"] = float(to_host(sum((c >= t).sum()
+                                             for _, c in parts)))
         else:
             out["nnz_V"] = 0.0
         return out

@@ -7,6 +7,7 @@ in the JAX package. ``StepTimer.summary`` as the JAX package's.
 """
 
 import json
+import logging
 
 import pytest
 import torch
@@ -96,3 +97,33 @@ def test_step_timer_summary_as_jax():
     _work()
     mine.stop()
     assert len(mine.times) == 6 and mine.times[-1] >= 0.0
+
+
+@pytest.mark.parametrize("value,debug", [("1", True), ("", False)])
+def test_cli_verbose_logs_debug_lines(monkeypatch, tmp_path, caplog, value,
+                                      debug):
+    from difacto_tpu_torch import cli
+
+    write_libsvm(make_ctr_data(300, num_fields=6, vocab_per_field=100,
+                               seed=4), str(tmp_path / "tr.svm"))
+    monkeypatch.delenv("DIFACTO_PROFILE", raising=False)
+    monkeypatch.setenv("DIFACTO_VERBOSE", value)
+    # the process logs at info, as cli.main's basicConfig sets it; the
+    # capture takes whatever the port's logger lets through
+    caplog.set_level(logging.INFO)
+    caplog.handler.setLevel(logging.DEBUG)
+    try:
+        assert cli.main([f"data_in={tmp_path / 'tr.svm'}", "batch_size=128",
+                         "num_bits=10", "max_nnz_per_row=6", "V_dim=2",
+                         "max_num_epochs=1"], device="cpu") == 0
+    finally:
+        logging.getLogger("difacto_tpu_torch").setLevel(logging.NOTSET)
+    lines = [r for r in caplog.records if r.name == "difacto_tpu_torch"]
+    steps = [r.getMessage() for r in lines if r.levelno == logging.DEBUG]
+    assert (len(steps) == 3) is debug and bool(steps) is debug
+    if debug:
+        assert steps[0].startswith("epoch 0 step 0 counters: ")
+        assert "step.lanes" in steps[0]
+    # the epoch's counters, at info level either way
+    assert any(r.getMessage().startswith("epoch 0 counters: step.")
+               for r in lines)
