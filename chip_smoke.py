@@ -35,7 +35,8 @@ Phases, each a hard failure:
    ``layout=packed``), on the whole-table sweep (``kernel=pallas``
    over planar leaves and over the row-major table, which is what its
    default layout resolves to, each with the scatter and with the sorted
-   backward), on ``kernel=xla`` (the stacked table, B3) and on
+   backward), on ``kernel=xla`` (the stacked table, FM's fused per-key
+   sums) and on
    ``host_localize=0 kernel=pallas`` (the row-major sweeps over ids
    localized on the card): an epoch that
    streams from a libsvm file and caches the batches on the card, then a
@@ -77,7 +78,8 @@ config-4 settings (``num_bits=26 hot_rows=-1 cache_compact=1``) on
 northstar-shaped csr parts (39 fields of 60,000 values), beside the same
 keys with ``cache_compact=0`` (the full batch cache: the same table bits,
 the cached bytes of both forms logged), ``hot_rows=0 kernel=xla`` and
-``kernel=auto``: every batch of the split runs split, B3 on every step.
+``kernel=auto``: every batch of the split runs split, FM's fused per-key
+sums on every step.
 Phase 3 also holds the compact cache at the flagship's shape on
 ``kernel=auto`` (``check_compact_step``). The kernel checks of the flagship's width run
 again at K = 156 on a libffm batch and at K = 640 (FFM, 40 slots of
@@ -171,24 +173,32 @@ import numpy as np
 BATCH, NNZ, NUM_BITS, K = 16384, 40, 22, 16
 BLOCK_ROWS = 1024         # table block of the sweep kernels (the default)
 MAIN_BATCHES = 8          # batches in the main-path file (one epoch)
+FM_CELL_BATCH = 131072    # rows a step of the fmbench FM cells
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
 REPS = 20
-# the kernels of the two table paths, each path's pull first
-PAIRS_KERNELS = ("pull_pairs", "segsum_sorted", "apply_pairs")
-ROWMAJOR_KERNELS = ("pull_rowmajor", "segsum_sorted", "apply_rowmajor")
+# the kernels of the two table paths, each path's pull first. FM (K > 0)
+# takes the fused per-key sums (segsum_fm), FFM B3 (segsum_sorted) over
+# its gathered gradient rows
+PAIRS_KERNELS = ("pull_pairs", "segsum_fm", "apply_pairs")
+ROWMAJOR_KERNELS = ("pull_rowmajor", "segsum_fm", "apply_rowmajor")
+FFM_PAIRS_KERNELS = ("pull_pairs", "segsum_sorted", "apply_pairs")
+FFM_ROWMAJOR_KERNELS = ("pull_rowmajor", "segsum_sorted", "apply_rowmajor")
 SWEEP_KERNELS = ("sweep_pull", "sweep_apply")
-SWEEP_SORTED_KERNELS = ("sweep_pull", "segsum_sorted", "sweep_apply")
+SWEEP_SORTED_KERNELS = ("sweep_pull", "segsum_fm", "sweep_apply")
 SWEEP_ROWMAJOR_KERNELS = ("sweep_pull_rowmajor", "sweep_apply_rowmajor")
-SWEEP_ROWMAJOR_SORTED_KERNELS = ("sweep_pull_rowmajor", "segsum_sorted",
+SWEEP_ROWMAJOR_SORTED_KERNELS = ("sweep_pull_rowmajor", "segsum_fm",
                                  "sweep_apply_rowmajor")
-# kernel=xla: gathers and scatter-adds of tensor ops around B3
-XLA_KERNELS = ("segsum_sorted",)
+# kernel=xla: gathers and scatter-adds of tensor ops around FM's sums
+XLA_KERNELS = ("segsum_fm",)
+# every table path's kernels: a drive launches none of them off its path
+TABLE_KERNELS = frozenset(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
+                          + SWEEP_ROWMAJOR_KERNELS + FFM_PAIRS_KERNELS)
 PULL_KERNELS = ("pull_pairs", "pull_rowmajor", "sweep_pull",
                 "sweep_pull_rowmajor")
 # the kernels whose launches on the paths of the XLA table, device
 # localize, P4, P5's predict, P6, P7 and P8 the kernels line also gives
-NEW_PATH_KERNELS = ("pull_pairs", "segsum_sorted", "sweep_pull",
+NEW_PATH_KERNELS = ("pull_pairs", "segsum_fm", "sweep_pull",
                     "sweep_apply", "sweep_pull_rowmajor",
                     "sweep_apply_rowmajor", "pull_rowmajor", "apply_rowmajor")
 UPDATER_CASES = ((K, "ftrl", "adagrad"), (K, "adagrad", "sgd"),
@@ -419,7 +429,8 @@ def planar_turns(dev, pb, base, q, payload, calls) -> dict:
 
 def check_segsum(dev, pb, g, pp: int) -> dict:
     """Phase 2, B3 in its three designs on a ``pp``-row payload over the
-    batch's sorted slots: segsum_sorted (the one the paths run),
+    batch's sorted slots: segsum_sorted (the one FFM's and K = 0's paths
+    run),
     segsum_sorted_chunks (the first design) and segsum_sorted_rows
     (row-major payload, up to its 256 payload columns). Each against the
     float64 sums, exact on integers, untouched lanes 0, and the same bits
@@ -507,6 +518,95 @@ def check_segsum(dev, pb, g, pp: int) -> dict:
         kernel_ms_flushed=own["cold"][name]) for name in seg_designs}
 
 
+def all_kernels_ms(fn) -> float:
+    """The card's time per call of ``fn`` over every kernel it launches:
+    for a composition of PyTorch ops."""
+    from difacto_tpu_torch.probes import common
+
+    return sum(common.kernel_times(fn, REPS).values())
+
+
+def check_segsum_fm(dev, g, shapes: dict) -> dict:
+    """Phase 2, FM's fused per-key sums (segsum_fm: fm_keysum_kernel and
+    fm_keysum_join) at K factors on each of ``shapes`` ({label: placed
+    PreppedBatch with its sorted slots}): bit for bit (int32 views) the
+    composition the step ran before (segsum_fm_plain: the gathered
+    payload, B3, the combine in PyTorch ops), one launch a call; then
+    timed in turns with it, warm and L2-flushed, every kernel of each
+    counted. Bound: the useful bytes, a lane, an example
+    and a value a slot, the d|S rows once, the touched lanes' pulled
+    factors, the 1 + K sums out. Returns {"segsum_fm": record}, the
+    record's figures the first shape's, each shape's under its label."""
+    import torch
+
+    from difacto_tpu_torch.ops import cuda, segsum
+    from difacto_tpu_torch.probes import common
+
+    rec = {}
+    for label, pb in shapes.items():
+        ss = pb.sorted_slots
+        lanes, x_s, bidx = ss.inv_sorted, ss.x_sorted, ss.bidx
+        B, U = pb.vals.shape[0], pb.uids.shape[0]
+        d = torch.randn(B, generator=g, device=dev)
+        S = torch.randn((B, K), generator=g, device=dev)
+        # the pulled rows as the store hands them: a [U, 1 + K] view of
+        # the pull's planar [1 + K, U]
+        rows_u = torch.randn((1 + K, U), generator=g, device=dev).T
+        args = (d, S, x_s, bidx, lanes, rows_u)
+        n0 = cuda.LAUNCHES["segsum_fm"]
+        got = segsum.segsum_fm(*args)
+        if cuda.LAUNCHES["segsum_fm"] != n0 + 1:
+            raise AssertionError(f"segsum_fm ({label}) did not launch once")
+        want = segsum.segsum_fm_plain(*args)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            raise AssertionError(f"segsum_fm ({label}) differs from the "
+                                 f"composition in {bad} of {got.numel()} "
+                                 "floats (tolerance: exact)")
+        if not torch.equal(segsum.segsum_fm(*args), got):
+            raise AssertionError(f"segsum_fm ({label}): a second run gave "
+                                 "other bits")
+        calls = {"fused": lambda: segsum.segsum_fm(*args),
+                 "composition": lambda: segsum.segsum_fm_plain(*args)}
+        order = list(calls) + list(calls)[::-1]
+        own = {"warm": dict.fromkeys(calls, 0.0),
+               "cold": dict.fromkeys(calls, 0.0)}
+        events = dict.fromkeys(calls, 0.0)
+        # flushed: the flush and the call, less the flush alone
+        flush_ms = all_kernels_ms(lambda: common.flush_l2(dev))
+        for name in order:
+            own["warm"][name] += all_kernels_ms(calls[name]) / 2
+            own["cold"][name] += (all_kernels_ms(
+                lambda: (common.flush_l2(dev), calls[name]()))
+                - flush_ms) / 2
+            events[name] += cuda_ms(calls[name]) / 2
+        blp, n_touched = lanes.shape[0], int(pb.valid.sum())
+        b_ms, b_by = bound(4 * (3 * blp + B * (1 + K) + K * n_touched
+                                + (1 + K) * U), 0)
+        fig = dict(slots=blp, lanes=U, touched=n_touched,
+                   hottest=int(torch.bincount(lanes.long()).max()),
+                   ms=events["fused"], kernel_ms=own["warm"]["fused"],
+                   kernel_ms_flushed=own["cold"]["fused"],
+                   composition_ms=own["warm"]["composition"],
+                   composition_ms_flushed=own["cold"]["composition"],
+                   composition_events_ms=events["composition"],
+                   bound_ms=b_ms, bound_by=b_by)
+        log(f"segsum_fm at K = {K} on the {label} batch ({B} rows): the "
+            f"composition's bits; in turns (all kernels, ms): "
+            f"{json.dumps(fig)}")
+        if not rec:
+            rec = dict(route="cuda",
+                       source="difacto_tpu_torch/csrc/segsum_tiles.cu",
+                       replaces="difacto_tpu/ops/segsum.py:156", max_abs_err=0.0,
+                       ms=fig["ms"], plain_ms=events["composition"],
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       kernel_ms=fig["kernel_ms"],
+                       kernel_ms_flushed=fig["kernel_ms_flushed"])
+        rec[label] = fig
+        del got, want, d, S, rows_u
+    return {"segsum_fm": rec}
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version at the flagship
     shapes. Returns the kernels' records (without launches)."""
@@ -515,6 +615,7 @@ def check_kernels(dev):
     from difacto_tpu_torch.config import FMParam
     from difacto_tpu_torch.data.prep import build_sorted_slots, prep_batch
     from difacto_tpu_torch.ops import cuda, pair_sweep, segsum
+    from difacto_tpu_torch.probes import common
     from difacto_tpu_torch.updaters.updater import FMUpdater
     from difacto_tpu_torch.utils.place import place_batch
 
@@ -556,6 +657,20 @@ def check_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     out.update(check_segsum(dev, pb, g, 2 + K))
+    # FM's fused per-key sums, at the flagship's batch and at the FM
+    # cells'
+    cells = {}
+    # one batch of each FM cell's traffic (fmbench/traffic/replay_large.json,
+    # replay_flat.json): Zipf(1.2) hashed as the flagship's, or uniform
+    for kind, draw in (("large", common.flagship_batch),
+                       ("flat", common.uniform_batch)):
+        cb = prep_batch(draw(3, FM_CELL_BATCH, NNZ, NUM_BITS), num_rows)
+        cb.sorted_slots = build_sorted_slots(cb.inv, cb.vals)
+        cells[f"replay_{kind}"] = place_batch(cb, dev)
+    gf = torch.Generator(device=dev)                  # the checks after
+    gf.manual_seed(16)                                # draw from g as before
+    out.update(check_segsum_fm(dev, gf, {"flagship": pb, **cells}))
+    del cells, cb, gf
     # more payload rows than the second pass's block has threads (V_dim
     # > 254), with a run that crosses more tiles than one thread sums
     lw = torch.cat([torch.arange(3000) // 3, torch.full((5000,), 1000),
@@ -571,7 +686,28 @@ def check_kernels(dev):
         raise AssertionError(f"300 payload rows took another kernel: "
                              f"{cuda.LAUNCHES}")
     log("segsum_sorted on 300 payload rows of integers: exact")
-    del lw, wpay
+    # and FM's fused sums at K = 298 on that stream (2 + K scratch rows:
+    # the join's wide mode), bit for bit the composition; from a generator
+    # of its own, so the checks after it draw what they drew without it
+    nb, gw = 4096, torch.Generator(device=dev)
+    gw.manual_seed(298)
+    wd = torch.randn(nb, generator=gw, device=dev)
+    wS = torch.randn((nb, 298), generator=gw, device=dev)
+    wx = torch.randn(lw.shape[0], generator=gw, device=dev)
+    wb = torch.randint(0, nb, lw.shape, generator=gw, device=dev,
+                       dtype=torch.int32)
+    wV = torch.randn((4600, 299), generator=gw, device=dev)
+    cuda.reset_launches()
+    wgot = segsum.segsum_fm(wd, wS, wx, wb, lw, wV)
+    if cuda.LAUNCHES["segsum_fm"] != 1:
+        raise AssertionError(f"FM's sums at K = 298 took another kernel: "
+                             f"{cuda.LAUNCHES}")
+    if not torch.equal(wgot.view(torch.int32), segsum.segsum_fm_plain(
+            wd, wS, wx, wb, lw, wV).view(torch.int32)):
+        raise AssertionError("segsum_fm differs from the composition at "
+                             "K = 298 (tolerance: bit for bit)")
+    log("segsum_fm at K = 298 (the join's wide mode): bit for bit")
+    del lw, wpay, wd, wS, wx, wb, wV, wgot, gw
 
     # -- apply on planar leaves (B2 one row per thread; B6 by the entry of
     # csrc/planar_apply.cu): every w/V updater pair, and K = 0; B6 by
@@ -1262,7 +1398,7 @@ def check_wide_kernels(dev) -> dict:
     cuda.reset_launches()
     check_step_against_cpu(dev, WIDE_NNZ, (("V_dim", str(WIDE_KF)),
                                            ("loss", "ffm")), ((),))
-    for name in ROWMAJOR_KERNELS:
+    for name in FFM_ROWMAJOR_KERNELS:
         out[name]["k640_launches"] = cuda.LAUNCHES[name]
         if not cuda.LAUNCHES[name]:
             raise AssertionError(f"the K = {Kf} steps never launched {name}")
@@ -2056,9 +2192,10 @@ def check_hotcold_against_stacked(dev) -> None:
     from one carried state (canonical rows in, through the lut), Zipf ids.
     One step with the same per-key sums: the same bits
     (:func:`split_step_bits`). Four training steps on the sorted backward
-    (B3, which repeats its bits): the same canonical state and margins
-    within rtol 1e-4 / atol 1e-5, the JAX package's own tolerance for
-    this comparison (tests/test_hotcold.py:149-153): B3 sums a hot key's
+    (FM's fused sums in B3's order, which repeat their bits): the same
+    canonical state and margins within rtol 1e-4 / atol 1e-5, the JAX
+    package's own tolerance for this comparison
+    (tests/test_hotcold.py:149-153): the sums take a hot key's
     slots over other tile edges when the lanes are renumbered, and FTRL's
     accumulators of hot keys run to 1e5-1e6; the stacked table against
     the CPU's summation order likewise. Logs the largest differences."""
@@ -2133,9 +2270,9 @@ def check_compact_step(dev) -> None:
     The stream derived on the card from a compact batch's permutation
     (learners/step.py::derive_sorted_slots) equals the host's full form
     element for element and is monotone, its pads on the last real lane
-    (B3 on the card finds segments by comparing adjacent lanes); one
-    compact step and one full step from one state launch B3 once each and
-    leave the same table bits."""
+    (the card's segment sums find segments by comparing adjacent lanes);
+    one compact step and one full step from one state launch FM's fused
+    per-key sums once each and leave the same table bits."""
     import torch
 
     from difacto_tpu_torch.config import Config
@@ -2179,12 +2316,14 @@ def check_compact_step(dev) -> None:
         upd = FMUpdater(cfg.model)
         store = LocalStore(upd, cfg, device=dev)
         st = store.place_state(random_state(upd, n, dev, 32))
-        n0 = cuda.LAUNCHES["segsum_sorted"]
+        n0 = cuda.LAUNCHES["segsum_fm"], cuda.LAUNCHES["segsum_sorted"]
         step_pb = prep_batch(b, n)
         st, _ = store.train_step_prepped(st, step_pb)
         torch.cuda.synchronize()
-        if cuda.LAUNCHES["segsum_sorted"] - n0 != 1:
-            raise AssertionError("compact: a step did not launch B3 once")
+        if (cuda.LAUNCHES["segsum_fm"] - n0[0],
+                cuda.LAUNCHES["segsum_sorted"] - n0[1]) != (1, 0):
+            raise AssertionError("compact: a step did not launch FM's fused "
+                                 "per-key sums once (and B3 never)")
         if step_pb.sorted_slots.compact != (compact == "1"):
             raise AssertionError("compact: the store built the wrong form")
         tables.append(st.tbl)
@@ -2271,7 +2410,8 @@ MAIN_PATHS = (
     ((("kernel", "pallas"),), SWEEP_ROWMAJOR_KERNELS),
     ((*_PALLAS, ("layout", "planar")), SWEEP_SORTED_KERNELS),
     ((*_PALLAS, ("layout", "packed")), SWEEP_ROWMAJOR_SORTED_KERNELS),
-    # the XLA path on the stacked table (layout=auto), B3 by segsum=auto
+    # the XLA path on the stacked table (layout=auto), the sorted sums by
+    # segsum=auto
     ((("kernel", "xla"),), XLA_KERNELS),
     # device localize on the sweeps over the row-major table, with the
     # scatter backward (the raw-batch step's)
@@ -2279,7 +2419,8 @@ MAIN_PATHS = (
 )
 # FFM as kernel=auto resolves it (the row-major table, the sorted
 # backward), and over planar leaves
-FFM_PATHS = (((), ROWMAJOR_KERNELS), ((("layout", "planar"),), PAIRS_KERNELS))
+FFM_PATHS = (((), FFM_ROWMAJOR_KERNELS),
+             ((("layout", "planar"),), FFM_PAIRS_KERNELS))
 
 
 def drive_main_path(dev, train: str, val: str, extra: tuple, path: tuple,
@@ -2407,8 +2548,6 @@ def cli_train_predict(tmp: str, name: str, argv: list, val: str,
     from difacto_tpu_torch.ops import cuda
 
     model = os.path.join(tmp, f"model_{name}")
-    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
-                        + SWEEP_ROWMAJOR_KERNELS)
     cuda.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main([*argv, "max_num_epochs=3", f"model_out={model}"])
@@ -2417,7 +2556,7 @@ def cli_train_predict(tmp: str, name: str, argv: list, val: str,
         raise AssertionError(f"CLI train {name} failed (rc {rc})")
     launches = dict(cuda.LAUNCHES)
     if (min(launches[k] for k in path) == 0
-            or any(launches[k] for k in table_kernels - set(path))):
+            or any(launches[k] for k in TABLE_KERNELS - set(path))):
         raise AssertionError(f"the CLI run {name} went through the wrong "
                              f"kernels: {launches}")
     preds = {}
@@ -2517,7 +2656,7 @@ def drive_formats(dev, tmp: str, flagship_files: tuple, k156: dict,
         conf, "data_format=libffm", f"num_fields={LIBFFM_FIELDS}",
         f"max_nnz_per_row={LIBFFM_FIELDS}", f"data_in={ffm_files[0]}",
         f"data_val={ffm_files[1]}", "save_interval_epochs=3"], ffm_files[1],
-        ROWMAJOR_KERNELS)
+        FFM_ROWMAJOR_KERNELS)
 
     # -- P3: the config-4 table, the native localizer ---------------------
     _native.reset_runs()
@@ -2655,7 +2794,8 @@ def drive_config4(dev, tmp: str) -> dict:
     it the same keys with ``hot_rows=0 kernel=xla`` and with the port's
     ``kernel=auto``, and the config's twin with ``cache_compact=0``, which
     must end on the config's table bit for bit. Every batch of the split
-    runs must be split, every step launch B3, and the split runs' cached
+    runs must be split, every step launch FM's fused per-key sums, and the
+    split runs' cached
     batches lie on the card in their form (their bytes logged, and scaled
     to the config's 6 M rows by arithmetic). Returns {run: launch
     counts}."""
@@ -2739,7 +2879,7 @@ BCD_PARTS, BCD_PART_ROWS = 4, 1 << 18
 BCD_VAL_ROWS, BCD_SMALL_ROWS = 1 << 16, 1 << 14
 # the CUDA function names of ROWMAJOR_KERNELS in a torch.profiler trace
 TRACE_NAMES = {"pull_rowmajor": "rowmajor_pull_kernel",
-               "segsum_sorted": "segsum_tiles_kernel",
+               "segsum_fm": "fm_keysum_kernel",
                "apply_rowmajor": "rowmajor_apply_kernel"}
 
 
@@ -2949,7 +3089,8 @@ def drive_bcd(tmp: str) -> dict:
 
 def drive_remote(tmp: str, flagship_files: tuple, bcd_val: str) -> dict:
     """P6: the flagship's CLI train (2 epochs) and task=predict on
-    kernel=auto (row-major pairs, B3) with every URI on memory://: data_in
+    kernel=auto (row-major pairs, FM's fused sums) with every URI on
+    memory://: data_in
     libsvm text read in two byte-range parts, data_val gzip text,
     model_out, model_in and pred_out; the same run on local files must
     give the same checkpoint and scores bit for bit. And a BCD tile build
@@ -2986,8 +3127,6 @@ def drive_remote(tmp: str, flagship_files: tuple, bcd_val: str) -> dict:
              "remote": ("memory://p6/flagship.svm",
                         "memory://p6/flagship_val.svm.gz",
                         "memory://p6/model", "memory://p6/pred.txt")}
-    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
-                        + SWEEP_ROWMAJOR_KERNELS)
     rec, got = {}, {}
     for where, (tr, va, model, pred) in roots.items():
         lrn = SGDLearner(Config.from_kwargs(arg_parser.parse(
@@ -3009,7 +3148,7 @@ def drive_remote(tmp: str, flagship_files: tuple, bcd_val: str) -> dict:
             raise AssertionError(f"P6 CLI predict ({where}) failed")
         launches = dict(cuda.LAUNCHES)
         if (min(launches[k] for k in ROWMAJOR_KERNELS) == 0
-                or any(launches[k] for k in table_kernels
+                or any(launches[k] for k in TABLE_KERNELS
                        - set(ROWMAJOR_KERNELS))):
             raise AssertionError(f"P6 ({where}) went through the wrong "
                                  f"kernels: {launches}")
@@ -3453,14 +3592,14 @@ P9_TIMED_EPOCH, P9_TRACED_EPOCH = 1, 2  # epoch 0 streams untouched
 P9_TOL = dict(rtol=2e-4, atol=2e-4)
 # the SGD runs: (tag, processes, config on top of the flagship's, the
 # kernels its steps launch)
-P9_RUNS = (("a", 2, (), ("pull_rowmajor", "segsum_sorted", MERGE,
+P9_RUNS = (("a", 2, (), ("pull_rowmajor", "segsum_fm", MERGE,
                          "apply_rowmajor_segs")),
            ("c", 3, (("batch_size", str(3 * -(-BATCH // 3))),),
-            ("pull_rowmajor", "segsum_sorted", MERGE,
+            ("pull_rowmajor", "segsum_fm", MERGE,
              "apply_rowmajor_segs")),
            ("d", 2, (("layout", "planar"),),
-            ("pull_pairs", "segsum_sorted", MERGE, "apply_pairs_segs")))
-P9_KERNELS = ("pull_pairs", "pull_rowmajor", "segsum_sorted",
+            ("pull_pairs", "segsum_fm", MERGE, "apply_pairs_segs")))
+P9_KERNELS = ("pull_pairs", "pull_rowmajor", "segsum_fm",
               MERGE) + K1_KERNELS
 
 
@@ -3907,15 +4046,13 @@ def drive_cli(tmp: str) -> None:
                                seed=2), va)
     labels = np.array([float(ln.split()[0]) for ln in open(va)])
     aucs = {}
-    table_kernels = set(PAIRS_KERNELS + ROWMAJOR_KERNELS + SWEEP_KERNELS
-                        + SWEEP_ROWMAJOR_KERNELS)
     for kernel, layout, path, loss in (
             ("auto", "planar", PAIRS_KERNELS, "fm"),
             ("auto", "packed", ROWMAJOR_KERNELS, "fm"),
             ("pallas", "planar", SWEEP_KERNELS, "fm"),
             ("pallas", "packed", SWEEP_ROWMAJOR_KERNELS, "fm"),
-            ("auto", "auto", ROWMAJOR_KERNELS, "ffm")):
-        other = table_kernels - set(path)
+            ("auto", "auto", FFM_ROWMAJOR_KERNELS, "ffm")):
+        other = TABLE_KERNELS - set(path)
         model = os.path.join(tmp, f"model_{kernel}_{layout}_{loss}")
         shape = ["batch_size=512", "num_bits=16", "max_nnz_per_row=12",
                  "V_dim=8" if loss == "fm" else "V_dim=4", f"loss={loss}",
@@ -4038,6 +4175,8 @@ def main() -> int:
         for (got, _), (_, path) in zip(ffm, FFM_PATHS):
             for name in path:
                 k96[name]["k96_launches"] = got[name]
+        # B3 runs on FFM's paths alone: its launches are theirs
+        launches["segsum_sorted"] = sum(got["segsum_sorted"] for got, _ in ffm)
         for key in ("train_logloss", "val_logloss", "val_exact_auc"):
             a, b = ffm[0][1][key], ffm[1][1][key]
             if not np.allclose(a, b, rtol=1e-6, atol=0):
@@ -4050,7 +4189,7 @@ def main() -> int:
                      "device_localize": by_path[MAIN_PATHS[-1][0]],
                      **drive_config4(dev, tmp)}
         # P5 BCD (its predict launches B1), P6 remote IO, P7 tracing and
-        # the tools (row-major pairs and B3)
+        # the tools (row-major pairs and FM's fused sums)
         bcd = drive_bcd(tmp)
         new_paths["p5_bcd_predict"] = bcd["launches"]
         new_paths["p6_remote"] = drive_remote(tmp, flagship_files,
@@ -4091,17 +4230,20 @@ def main() -> int:
         **{k: v for width in (k96, k156, k640)
            for k, v in width.get(name, {}).items()
            if k in K96_KEYS + K156_KEYS + K640_KEYS},
-        # B1, B3, the sweeps (B4, B5) and the row-major kernels: their
+        # B1, FM's fused sums, the sweeps (B4, B5) and the row-major
+        # kernels: their
         # launches on the paths of the XLA table, device localize, P4,
         # P5's predict, P6 and P7
         **({"new_path_launches": {run: got[name]
                                   for run, got in new_paths.items()}}
            if name in NEW_PATH_KERNELS else {}),
-        # B1, B3 and K1: their launches in P9's runs, summed over each
+        # B1, FM's fused sums and K1: their launches in P9's runs, summed
+        # over each
         # run's processes
         **({"p9_launches": {tag: got[name] for tag, got in p9.items()}}
            if name in P9_KERNELS else {})}
-        for name in PAIRS_KERNELS + ("pull_rowmajor", "apply_rowmajor")
+        for name in PAIRS_KERNELS + ("segsum_sorted", "pull_rowmajor",
+                                     "apply_rowmajor")
         + SWEEP_KERNELS + SWEEP_ROWMAJOR_KERNELS + PROBE_KERNELS
         + K1_KERNELS + (MERGE,)]
     log(json.dumps({"kernels": rows}))

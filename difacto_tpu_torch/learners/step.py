@@ -12,14 +12,15 @@ Two per-key aggregations:
   ``kernel=pallas``'s default), with ``index_add_``;
 * :func:`worker_grads_sorted` — the sorted path (``segsum=sorted``, and
   ``kernel=pairs``'s default): the backward runs in host-sorted slot
-  order and the per-key sums come from the segment-sum kernel
-  (ops/segsum.py); :func:`derive_sorted_slots` rebuilds its sorted
-  stream on the device from a compact batch (``cache_compact``).
+  order and the per-key sums come from the segment-sum kernels
+  (ops/segsum.py: FM's fused kernel, or B3); :func:`derive_sorted_slots`
+  rebuilds its sorted stream on the device from a compact batch
+  (``cache_compact``).
 
 Each marks its forward and backward on the batch's rows (the rows
 gather, the loss, its metrics) as the span ``difacto.loss`` and the
-per-key sums (the payload, B3 or ``index_add_``, the combine) as
-``difacto.keysum`` (utils/tracing.py).
+per-key sums (FM's fused kernel; or the payload, B3 or ``index_add_``,
+the combine) as ``difacto.keysum`` (utils/tracing.py).
 
 ``loss`` is ``fm`` (K = 0 is logit) or ``ffm``: then a row's K = F*k
 factors are F field blocks of k (F = ``num_fields``, or L when slot
@@ -37,7 +38,7 @@ from ..models.losses import (ffm_loss_grad, ffm_predict, fm_loss_grad,
                              fm_predict, logit_grad_coeff)
 from ..ops.localize import Localized
 from ..ops.metrics import NUM_AUC_BINS, auc_hist_update
-from ..ops.segsum import segsum_sorted
+from ..ops.segsum import segsum_fm, segsum_sorted
 from ..utils.tracing import span
 
 
@@ -212,14 +213,19 @@ def worker_grads_sorted(
         gV[u] = sum_s dw_s * (S_b(s) - x_s * V_u)
               = sum_s (dw_s * S_b(s))  -  V_u * sum_s (dw_s * x_s)
 
-    — the payload is 2+K rows (dw | dw*x | dw*S; 1 row when K == 0) and
-    one per-key combine against the pulled rows. FFM's per-slot gradient
-    has no such factoring (a slot's gradient depends on its field-crossed
-    partners) and ffm_loss_grad has it in batch space already: its
-    payload is the 1+K rows of each slot's gradient gathered by
-    ``slot_s``, pads zeroed, summed with no combine. Returns grads PLANAR
-    [1+K, U] (the apply payload layout), py and metrics. Sums differ from
-    the scatter path by float association only."""
+    — the payload is 2+K rows (dw | dw*x | dw*S) and one per-key combine
+    against the pulled rows. With K > 0 ops/segsum.py::segsum_fm does all
+    of it: on the card one fused kernel builds the payload from ``d``,
+    ``S`` and the sorted stream in registers and writes the combined
+    gradient; on the CPU the composition (gather, payload, segment sum,
+    combine), with the same bits. K == 0 (logit) sums the one row d*x by
+    the segment-sum kernel. FFM's per-slot gradient has no such factoring
+    (a slot's gradient depends on its field-crossed partners) and
+    ffm_loss_grad has it in batch space already: its payload is the 1+K
+    rows of each slot's gradient gathered by ``slot_s``, pads zeroed,
+    summed by the segment-sum kernel with no combine. Returns grads
+    PLANAR [1+K, U] (the apply payload layout), py and metrics. Sums
+    differ from the scatter path by float association only."""
     B, L = vals.shape
     K = rows_u.shape[1] - 1
     x_s, bidx, inv_s = ss
@@ -245,17 +251,9 @@ def worker_grads_sorted(
         metrics = _batch_metrics(fwd.py, lossv, correct, labels, mask)
     with span("difacto.keysum"):
         if K > 0:
-            dS = torch.cat([d[:, None], fwd.S], dim=1)        # [B, 1+K]
-            g = dS.index_select(0, bidx)                      # [BLp, 1+K]
-            dw_s = g[:, 0] * x_s
-            payT = torch.cat([dw_s[None, :], (dw_s * x_s)[None, :],
-                              (dw_s[:, None] * g[:, 1:]).T], dim=0)
+            grads_p = segsum_fm(d, fwd.S, x_s, bidx, inv_s, rows_u)
         else:
             payT = (d.index_select(0, bidx) * x_s)[None, :]
-        segs = segsum_sorted(payT.contiguous(), inv_s, rows_u.shape[0])
-        if K > 0:
-            gV = segs[2 : 2 + K] - rows_u.T[1:] * segs[1][None, :]
-            grads_p = torch.cat([segs[:1], gV], dim=0)
-        else:
-            grads_p = segs
+            grads_p = segsum_sorted(payT.contiguous(), inv_s,
+                                    rows_u.shape[0])
     return grads_p, fwd.py, metrics

@@ -56,7 +56,8 @@ LAUNCHES = counter_group("launch", {
     "sweep_pull_rowmajor": 0, "sweep_apply_rowmajor": 0,
     "segsum_chunks": 0, "segsum_rows": 0, "apply_pairs_segs": 0,
     "apply_rowmajor_segs": 0, "merge_segments": 0,
-    "apply_pairs_segs_search": 0, "apply_rowmajor_segs_search": 0})
+    "apply_pairs_segs_search": 0, "apply_rowmajor_segs_search": 0,
+    "segsum_fm": 0})
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -112,6 +113,9 @@ _SIGNATURES = {
     # payT (or pay), lanes, out, head, tail, pp, blp, ub, stream
     "dft_segsum_tiles": [_VP] * 5 + [_I] * 3 + [_VP],
     "dft_segsum_rows": [_VP] * 5 + [_I] * 3 + [_VP],
+    # d, S, x, bidx, lanes, V, V's lane and column strides, out, head,
+    # tail, K, blp, ub, stream
+    "dft_segsum_fm": [_VP] * 6 + [_LL, _LL] + [_VP] * 3 + [_I] * 3 + [_VP],
     # uids, payload, merged uids, merged payload, U, C, payload rows, stream
     "dft_merge_segments": [_VP] * 4 + [_I] * 3 + [_VP],
 }

@@ -56,6 +56,17 @@ def flagship_batch(seed: int, batch: int = BATCH, nnz: int = NNZ,
                  np.ones(batch, np.float32))
 
 
+def uniform_batch(seed: int, batch: int = BATCH, nnz: int = NNZ,
+                  num_bits: int = NUM_BITS) -> Batch:
+    """:func:`flagship_batch` with every id uniform over the 2^num_bits
+    rows, so nearly every id is rare."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 1 << num_bits, (batch, nnz), np.int32)
+    return Batch(ids, np.ones((batch, nnz), np.float32),
+                 (rng.random(batch) > 0.5).astype(np.float32),
+                 np.ones(batch, np.float32))
+
+
 def flagship_uniques(rng, batch: int = BATCH, nnz: int = NNZ,
                      num_bits: int = NUM_BITS, u: int = U):
     """The sorted unique ids of one batch's slots in a ``u``-lane bucket,

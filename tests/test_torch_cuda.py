@@ -1154,6 +1154,75 @@ def test_cuda_segsum_unaligned_payload(card):
                        segsum.segsum_sorted_plain(odd, lanes_t, ub))
 
 
+# FM's fused per-key sums (csrc/segsum_tiles.cu fm_keysum_kernel and
+# fm_keysum_join) against the composition they replace, run on the card
+# (the gathered payload, B3, the combine in PyTorch ops)
+# ---------------------------------------------------------------------------
+
+
+def fm_stream(rng, kind, ub):
+    """A monotone lane stream over ``ub`` lanes (i32), whose lanes 1 and
+    ub - 1 no slot touches: ``mixed`` runs of 1-3 slots inside tiles,
+    runs of 150-260 slots crossing one tile boundary, and one run of 6,000
+    slots (over SC_SERIAL tiles), then pads repeating the last lane to a
+    1024-slot multiple; ``short`` 4,099 slots of runs of 1-9, unpadded
+    (no multiple of 4: the scalar loads). Returns (lanes, real slots)."""
+    if kind == "short":
+        n = rng.integers(1, 10, ub)
+    else:
+        n = rng.integers(1, 4, ub)
+        n[rng.choice(np.arange(3, ub - 2), 12, replace=False)] = rng.integers(
+            150, 260, 12)
+        n[ub // 2] = 6000
+    n[1] = n[ub - 1] = 0
+    raw = np.repeat(np.arange(ub), n).astype(np.int32)
+    if kind == "short":
+        raw = raw[:4099]
+        return raw, raw.shape[0]
+    return segsum.pad_sorted_stream(raw), raw.shape[0]
+
+
+@pytest.mark.parametrize("K", [4, 16, 6, 255])
+@pytest.mark.parametrize("kind", ["mixed", "short"])
+@pytest.mark.parametrize("planar_rows", [False, True])
+def test_cuda_segsum_fm_is_the_composition_bit_for_bit(card, K, kind,
+                                                       planar_rows):
+    """segsum_fm on the card, bit for bit (int32 views) the composition
+    worker_grads_sorted ran before, on runs inside a tile, runs crossing
+    one tile, a run over more than SC_SERIAL tiles, pad slots (x 0,
+    example 0, the last lane), untouched lanes (exactly 0), K = 4 and 16
+    (16-byte loads of S), 6 (scalar loads past K) and 255 (2 + K scratch
+    rows past the join's 256 threads: its wide mode), the pulled rows
+    row-major or as the store hands them (a transposed view); one launch
+    a call, the same bits on a second call."""
+    rng = np.random.default_rng(300 + K)
+    ub, B = 3000, 512
+    lanes_np, bl = fm_stream(rng, kind, ub)
+    blp = lanes_np.shape[0]
+    x = rng.normal(size=blp).astype(np.float32)
+    bidx = rng.integers(0, B, blp).astype(np.int32)
+    x[bl:], bidx[bl:] = 0.0, 0
+    lanes, x_s, b_s = (torch.from_numpy(a).to(card)
+                       for a in (lanes_np, x, bidx))
+    d = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(card)
+    S = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32)).to(card)
+    rows = torch.from_numpy(rng.normal(size=(1 + K, ub)).astype(
+        np.float32)).to(card)
+    rows_u = rows.T if planar_rows else rows.T.contiguous()
+    n0 = cuda.LAUNCHES["segsum_fm"], cuda.LAUNCHES["segsum_sorted"]
+    got = segsum.segsum_fm(d, S, x_s, b_s, lanes, rows_u)
+    assert (cuda.LAUNCHES["segsum_fm"] - n0[0],
+            cuda.LAUNCHES["segsum_sorted"] - n0[1]) == (1, 0)
+    want = segsum.segsum_fm_plain(d, S, x_s, b_s, lanes, rows_u)
+    assert got.shape == (1 + K, ub)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    seg_n = torch.bincount(lanes[:bl].long(), minlength=ub)
+    assert bool((got[:, seg_n == 0] == 0).all()) and int((seg_n == 0).sum()) >= 2
+    if kind == "mixed":
+        assert int(seg_n.max()) > 32 * segsum.TILE
+    assert torch.equal(segsum.segsum_fm(d, S, x_s, b_s, lanes, rows_u), got)
+
+
 def test_cuda_pull_packed_readonly_issues_the_loads_and_stores_nothing(card):
     """The packed pull's floor: one launch under the pull's count, no
     output, A as it was."""
@@ -1339,12 +1408,15 @@ def test_cuda_xla_store_steps_match_cpu(card, extra):
     s0 = state_np(4, np.random.default_rng(41), n=1 << 14)
     sg = gpu.place_state(state_from_numpy(s0))
     sc = cpu.place_state(state_from_numpy(s0))
-    n0 = cuda.LAUNCHES["segsum_sorted"]
+    n0 = cuda.LAUNCHES["segsum_fm"], cuda.LAUNCHES["segsum_sorted"]
     sg, dg, pyg = run_steps(gpu, sg, batches, lut)
     sc, dc, pyc = run_steps(cpu, sc, batches, lut)
     torch.cuda.synchronize()
     sorted_steps = gpu.sorted_grads and gpu.cfg.data.host_localize
-    assert cuda.LAUNCHES["segsum_sorted"] - n0 == (4 if sorted_steps else 0)
+    # FM at K = 4: the sorted steps take the fused per-key sums, not B3
+    assert (cuda.LAUNCHES["segsum_fm"] - n0[0],
+            cuda.LAUNCHES["segsum_sorted"] - n0[1]) == (
+                4 if sorted_steps else 0, 0)
     assert dg == dc and (dg > 0) == ("unique_size" in dict(extra))
     # an overflowing batch's dropped ids alias its last lane, whose row
     # sums them in the card's atomic order: held finite
@@ -1446,8 +1518,9 @@ COMPACT_PATHS = {"packed": (("layout", "packed"),),
 @pytest.mark.parametrize("path", list(COMPACT_PATHS))
 def test_cuda_compact_cache_matches_full(card, path):
     """cache_compact=1 against cache_compact=0 on the card, from one
-    state: three steps each launch B3 on the stream derived on the card
-    and end on the full form's table bit for bit; the derived stream is
+    state: three steps each launch the sorted sums (FM's fused kernel;
+    B3 for FFM) on the stream derived on the card and end on the full
+    form's table bit for bit; the derived stream is
     the host's, monotone with its pads on the last real lane, and B3 on
     it gives B3's bits on the host-built stream."""
     from difacto_tpu_torch.config import Config
@@ -1478,13 +1551,17 @@ def test_cuda_compact_cache_matches_full(card, path):
             store.set_remap(lut)
         st = store.place_state(state_from_numpy(state_np(
             store.param.V_dim, np.random.default_rng(45), n=n)))
-        n0 = cuda.LAUNCHES["segsum_sorted"]
+        n0 = cuda.LAUNCHES["segsum_fm"], cuda.LAUNCHES["segsum_sorted"]
         for b in batches:
             pb = prep_batch(b, n, remap=lut, hot_rows=store.hot_rows)
             st, _ = store.train_step_prepped(st, pb)
             assert pb.sorted_slots.compact == (compact == "1")
         torch.cuda.synchronize()
-        assert cuda.LAUNCHES["segsum_sorted"] - n0 == len(batches)
+        # once a step: FM's fused per-key sums at K = 4, B3 for FFM
+        fm = int(path != "ffm")
+        assert (cuda.LAUNCHES["segsum_fm"] - n0[0],
+                cuda.LAUNCHES["segsum_sorted"] - n0[1]) == (
+                    fm * len(batches), (1 - fm) * len(batches))
         tables.append(state_to_numpy(st, lut))
     for name in LEAVES:
         assert np.array_equal(tables[0][name].view(np.int32),
@@ -1670,7 +1747,8 @@ def test_cuda_memory_uri_round_trip_of_a_card_checkpoint(card, tmp_path):
 
 def test_cuda_trace_names_the_kernels(card, tmp_path, monkeypatch):
     """DIFACTO_PROFILE on the card: one Chrome trace of the first train
-    epoch, naming the row-major pair kernels and B3 it launched."""
+    epoch, naming the row-major pair kernels and FM's fused per-key sums
+    (both passes) it launched."""
     from difacto_tpu_torch.config import Config
     from difacto_tpu_torch.learners.sgd import SGDLearner
     from difacto_tpu_torch.utils import arg_parser, tracing
@@ -1685,8 +1763,8 @@ def test_cuda_trace_names_the_kernels(card, tmp_path, monkeypatch):
 
     names = {e.get("name", "") for e in
              json.loads(files[0].read_text())["traceEvents"]}
-    for kernel in ("rowmajor_pull_kernel", "segsum_tiles_kernel",
-                   "rowmajor_apply_kernel"):
+    for kernel in ("rowmajor_pull_kernel", "fm_keysum_kernel",
+                   "fm_keysum_join", "rowmajor_apply_kernel"):
         assert any(kernel in n for n in names), kernel
 
 

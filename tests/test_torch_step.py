@@ -144,6 +144,67 @@ def test_worker_grads_match_jax(K):
                 rtol=1e-5, err_msg=name)
 
 
+def _hot_batch(seed, B=250, L=12, N=4096):
+    """``_batch`` with one hot id in every row's first two slots (500
+    slots, a run over several 128-slot tiles), and a stream that is no
+    multiple of the 1024-slot granule, so the sorted stream has pads."""
+    b = _batch(seed, B=B, L=L, N=N)
+    b.ids[:, :2] = 7
+    b.vals[:, :2] = np.random.default_rng(seed).normal(size=(B, 2))
+    return b
+
+
+@pytest.mark.parametrize("K", [4, 16])
+def test_segsum_fm_plain_is_the_composition_and_matches_jax(K):
+    """FM's fused per-key sums (ops/segsum.py::segsum_fm) on the CPU: bit
+    for bit the composition worker_grads_sorted ran before (the gathered
+    2 + K row payload, the segment sum, the combine), and through
+    worker_grads_sorted within float association of JAX's scatter
+    ``worker_grads``, on a batch with pad slots and a hot key."""
+    from difacto_tpu_torch.ops import segsum
+
+    N = 4096
+    pb = prep_batch(_hot_batch(11 + K), N)
+    ss = build_sorted_slots(pb.inv, pb.vals)
+    bl = pb.vals.size
+    assert ss.inv_sorted.shape[0] > bl                      # pad slots
+    hot = np.bincount(ss.inv_sorted[:bl]).max()
+    assert hot >= 3 * segsum.TILE
+    U = pb.uids.shape[0]
+    rng = np.random.default_rng(K)
+    rows_u = (rng.normal(size=(U, 1 + K)) * 0.1).astype(np.float32)
+    B = pb.vals.shape[0]
+    d = T(rng.normal(size=B).astype(np.float32))
+    S = T(rng.normal(size=(B, K)).astype(np.float32))
+    x_s, bidx, lanes = T(ss.x_sorted), T(ss.bidx), T(ss.inv_sorted)
+    got = segsum.segsum_fm(d, S, x_s, bidx, lanes, T(rows_u))
+    g = torch.cat([d[:, None], S], dim=1).index_select(0, bidx)
+    dw = g[:, 0] * x_s
+    payT = torch.cat([dw[None], (dw * x_s)[None], (dw[:, None] * g[:, 1:]).T])
+    segs = segsum.segsum_sorted_plain(payT.contiguous(), lanes, U)
+    want = torch.cat([segs[:1], segs[2:] - T(rows_u).T[1:] * segs[1][None]])
+    assert got.shape == (1 + K, U)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    untouched = np.bincount(ss.inv_sorted, minlength=U) == 0
+    assert bool((got[:, T(untouched)] == 0).all())
+
+    jloc = JLocalized(uids=jnp.asarray(pb.uids), inv=jnp.asarray(pb.inv),
+                      counts=jnp.asarray(pb.ucounts),
+                      valid=jnp.asarray(pb.valid))
+    g_ref, py_ref, _ = jstep.worker_grads(
+        jnp.asarray(rows_u), jloc, jnp.asarray(pb.vals),
+        jnp.asarray(pb.labels), jnp.asarray(pb.mask))
+    loc = Localized(uids=T(pb.uids), inv=T(pb.inv), counts=T(pb.ucounts),
+                    valid=T(pb.valid))
+    g_s, py_s, _ = step.worker_grads_sorted(
+        T(rows_u), loc, T(pb.vals), T(pb.labels), T(pb.mask),
+        (x_s, bidx, lanes))
+    v = pb.valid
+    np.testing.assert_allclose(g_s.numpy().T[v], np.asarray(g_ref)[v],
+                               atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(py_s.numpy(), np.asarray(py_ref), atol=1e-5)
+
+
 def _jprep(b, n):
     """JAX's prep of the same batch (its Batch also carries libffm
     fields, which the port's does not)."""
