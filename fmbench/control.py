@@ -4,8 +4,8 @@ size, on the card (the benchmark's own runs do not run this):
     python3 -m fmbench.control --workload <cell> --seeds 11 12 13
 
 For each seed it makes the cell's rows as a run does, trains the first
-steps with the plain reference in float64, and compares with it, by the
-numbers of fmbench/check.py:
+steps with the model's plain reference (its module's ``reference``) in
+float64, and compares with it, by the numbers of fmbench/check.py:
 
 * ``control``: the reference in the program's place, computed in bfloat16,
   the nearest precision below the float32 the configurations state (the
@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from . import check, reference, run, traffic
+from . import check, run, traffic
 
 READINGS = {"control": dict(dtype=torch.bfloat16),
             "half_batch": dict(fault="half_batch"),
@@ -38,11 +38,12 @@ READINGS = {"control": dict(dtype=torch.bfloat16),
 def readings(root: Path, workload: str, seed: int, device) -> dict:
     """{reading: fmbench/check.py's numbers} for one seed."""
     cell = run.load_cell(root, workload)
-    m = reference.Model.of(cell.config["conf"])
+    mod = run.load_model(root, cell.config)
+    m = mod.Model.of(cell.config["conf"])
     first = run.first_batches(traffic.make_rows(cell.traffic, seed, device))
-    ref = run.reference_readings(seed, m, first, device)
-    return {name: check.compare(
-                run.reference_readings(seed, m, first, device, **kw), ref)
+    ref = mod.reference(seed, first, m, device)
+    return {name: check.compare(mod.reference(seed, first, m, device, **kw),
+                                ref, mod.LEAVES)
             for name, kw in READINGS.items()}
 
 

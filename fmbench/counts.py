@@ -4,8 +4,11 @@ Each count is of what the work needs, from a batch's inputs alone: the
 slots ``S = B * L``, the rows ``B``, the distinct table rows ``n`` the batch
 touches, the factor width ``K`` (``F * k`` for a field-aware FM) and, for
 FFM, the fields ``F``. Any implementation of the same step reads the same
-count. Every table row the step updates is past the V gate in a measured
-window: a replayed batch's rows were counted in the two epochs before it.
+count. What is shared lives here; a model's whole step and which kernels
+it runs are its module's (``fmbench/models/<model>.py``: ``shape``,
+``step_bytes``, ``step_flops``, ``KERNELS``). Every table row the step
+updates is past the V gate in a measured window: a replayed batch's rows
+were counted in the two epochs before it.
 
 The kernels' bytes follow the repository's "useful bytes" of PERF.md's
 kernel table (``chip_smoke.py``), with the lanes of a batch's unique bucket
@@ -41,10 +44,15 @@ def apply_bytes(n: int, K: int) -> int:
     return F * (n + 3 * n + K * n) + 2 * F * (4 * n + 2 * K * n)
 
 
-def payload_rows(loss: str, K: int) -> int:
-    """B3's payload rows on the sorted backward: FM sums ``dw``, ``dw x``
-    and ``dw S`` (2 + K), FFM each slot's gradient row (1 + K)."""
-    return 1 + K if loss == "ffm" else 2 + K
+def fm_keysum_bytes(slots: int, B: int, n: int, K: int) -> int:
+    """FM's fused per-key sums (``fm_keysum_kernel`` and ``fm_keysum_join``,
+    chip_smoke.py's ``check_segsum_fm``): ``4 (3 blp + B (1 + K) + K touched
+    + (1 + K) U)``, a lane, a value and a row index a slot in, each row's
+    ``d`` and ``S`` once, the touched lanes' pulled factors, ``1 + K`` sums
+    a lane out. From a batch's inputs: the padded slot stream ``blp`` is
+    taken as its slots, and both the valid lanes ``touched`` and the
+    padded bucket lanes ``U`` as its distinct rows ``n``."""
+    return F * (3 * slots + B * (1 + K) + K * n + (1 + K) * n)
 
 
 def step_bytes(B: int, L: int, n: int, K: int, fields: bool) -> int:
@@ -57,23 +65,10 @@ def step_bytes(B: int, L: int, n: int, K: int, fields: bool) -> int:
         4 + 2 * K) * n
 
 
-def step_flops(loss: str, B: int, L: int, n: int, K: int, F_: int) -> int:
-    """The whole step's floating-point operations, counted from the
-    equations of fmbench/reference.py: the forward and backward of the
-    loss, the per-row sums, and the updates (FTRL about 15 a row, AdaGrad
-    about 8 a factor)."""
-    S = B * L
-    upd = n * (15 + 8 * K)
-    if loss == "ffm":
-        k = K // F_
-        # per ordered slot pair: x_i x_j, the k-dot of V_i[f_j] and
-        # V_j[f_i] and its weighting (2k + 2), the backward's k products
-        # and the field sum (3k)
-        pairs = B * L * (L - 1)
-        return pairs * (5 * k + 2) + S * (2 + K) + B * 10 + upd
-    # per slot and factor: x V, the square, two sums, the backward
-    # x (S - x V) d (4), its per-row sum
-    return S * (9 * K + 4) + B * (3 * K + 10) + upd
+def update_flops(n: int, K: int) -> int:
+    """The updaters' operations on ``n`` touched rows: FTRL about 15 a
+    row, AdaGrad about 8 a factor."""
+    return n * (15 + 8 * K)
 
 
 def least_time_s(nbytes: float, flops: float) -> tuple[float, str]:

@@ -1,5 +1,7 @@
-"""The plain reference: the first training steps of an FM or a field-aware
-FM, written from the models' equations in plain PyTorch, in any dtype.
+"""The plain reference's shared part: the first training steps of a model
+over a hashed table, written from the equations in plain PyTorch, in any
+dtype. Each model's margin and slot gradients are its module's
+(``fmbench/models/<model>.py``, ``Model.grads``); the rest is here.
 
 It imports nothing of the program. It takes the rows the benchmark made
 (raw ids, labels, libffm fields), hashes the ids into table rows as the
@@ -11,13 +13,11 @@ A step, for one batch of rows ``b`` with slots ``(b, i)``:
 
 * pull: ``w[r]`` and ``V[r]``, where ``V[r]`` reads 0 until the row's count
   before the step is at least ``V_threshold``;
-* margin: FM ``py = sum_i x_i w_i + 1/2 sum_k ((sum_i x_i V_ik)^2 -
-  sum_i x_i^2 V_ik^2)``; FFM ``py = sum_i x_i w_i + sum_{i<j} x_i x_j
-  <V_i[f_j], V_j[f_i]>``;
+* margin ``py`` and its slot gradients: the model's ``grads``;
 * loss ``log(1 + exp(-y py))`` with ``y = 2 label - 1``, summed over the
   batch; its derivative ``d = sigmoid(py) - label``; gradients are sums
   over the batch;
-* per-row sums of the slot gradients ``d x_i`` (w) and ``d dpy/dV_i`` (V);
+* per-row sums of the slot gradients ``d dpy/dw_i`` and ``d dpy/dV_i``;
 * FTRL-proximal on ``w`` of every row the batch touches:
   ``n' = n + g^2``, ``z' = z + g - (sqrt(n') - sqrt(n)) / lr_eta * w``,
   ``w' = 0`` if ``|z'| <= l1``, else
@@ -39,6 +39,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import traffic
+
+# the program's first steps of epoch 0 that the check compares
+CHECKED_STEPS = 3
+
 
 def hash_rows(raw: np.ndarray, num_bits: int) -> np.ndarray:
     """Table rows (i64) of raw u64 feature ids: the splitmix64 finaliser,
@@ -54,17 +59,20 @@ def hash_rows(raw: np.ndarray, num_bits: int) -> np.ndarray:
     return (z & np.uint64((1 << num_bits) - 1)).astype(np.int64)
 
 
-@dataclass
-class Model:
-    """What the reference reads of a configuration file's ``conf``: every
-    key it needs stated there, none taken from the program's defaults.
-    The reference implements FTRL on w and AdaGrad on V, without a tail
-    filter."""
+UPDATER_KEYS = ("lr_eta", "lr_beta", "l1", "l2", "V_lr_eta", "V_lr_beta",
+                "V_l2", "V_threshold")
 
-    loss: str
+
+@dataclass
+class Table:
+    """What :func:`steps` reads of a model: a table of ``2**num_bits`` rows
+    of ``w`` and ``K`` factors, FTRL on w and count-gated AdaGrad on V
+    without a tail filter. A model's module (``fmbench/models/``) subclasses
+    it with its ``of`` (every key stated in the configuration file's
+    ``conf``, none taken from the program's defaults) and its ``grads``."""
+
     num_bits: int
-    K: int          # factor width: V_dim, or F * V_dim for FFM
-    F: int          # FFM fields (the slot is the field when num_fields = 0)
+    K: int
     init_scale: float
     lr_eta: float
     lr_beta: float
@@ -75,21 +83,29 @@ class Model:
     V_l2: float
     V_threshold: float
 
-    @classmethod
-    def of(cls, conf: dict) -> "Model":
+    @staticmethod
+    def updaters(conf: dict) -> dict:
+        """The updaters' keys of ``conf``, once it states the updaters the
+        reference implements."""
         if (conf["w_updater"], conf["V_updater"],
                 conf.get("tail_feature_filter", 0)) != ("ftrl", "adagrad", 0):
             raise ValueError("the reference implements FTRL on w and AdaGrad "
                              "on V without a tail filter")
-        loss = conf.get("loss", "fm")
-        F = conf.get("num_fields", 0) or conf["max_nnz_per_row"]
-        k = int(conf["V_dim"])
-        return cls(loss, int(conf["num_bits"]),
-                   k * F if loss == "ffm" else k, F if loss == "ffm" else 0,
-                   float(conf["V_init_scale"]),
-                   *(float(conf[key]) for key in (
-                       "lr_eta", "lr_beta", "l1", "l2", "V_lr_eta",
-                       "V_lr_beta", "V_l2", "V_threshold")))
+        return {key: float(conf[key]) for key in UPDATER_KEYS}
+
+    def grads(self, x, w, V, batch: "Batch", d_of):
+        """The margin ``py`` [B] and the slot gradients of w [B, L] and V
+        [B, L, K], given ``d_of(py)``, the loss's derivative."""
+        raise NotImplementedError
+
+
+def initial_factors(seed: int, rows: int, k: int, scale: float,
+                    device) -> torch.Tensor:
+    """The benchmark's initial V [rows, k], uniform in (-scale, scale),
+    from its own generator (one the traffic does not draw from)."""
+    g = traffic.generator(seed ^ 0x5DEECE66D, device)
+    v = torch.rand((rows, k), generator=g, device=device)
+    return v.mul_(2.0).sub_(1.0).mul_(scale)
 
 
 @dataclass
@@ -103,43 +119,27 @@ class Batch:
     fields: torch.Tensor | None
 
 
+def reference_batches(first: traffic.Rows, num_bits: int, device):
+    """The first batches for the reference, and the table rows they hold
+    (ids hashed on the host as the configuration's ``num_bits`` says)."""
+    raw = first.ids.cpu().numpy().astype(np.uint64)
+    held, idx = torch.unique(torch.as_tensor(
+        hash_rows(raw, num_bits), device=device), return_inverse=True)
+    out = []
+    for i in range(first.num_batches):
+        s = slice(i * first.batch_size, (i + 1) * first.batch_size)
+        out.append(Batch(
+            rows=idx[s], labels=first.labels[s].to(device),
+            fields=(None if first.fields is None
+                    else first.fields[s].to(device).long())))
+    return held, out
+
+
 def stable_logloss(m: torch.Tensor) -> torch.Tensor:
     return torch.log1p(torch.exp(-torch.abs(m))) + torch.clamp(m, min=0.0)
 
 
-def fm_grads(x, w, V, d_of):
-    """FM margin, and the slot gradients given ``d_of(py)``."""
-    xv = x[..., None] * V                                   # [B, L, K]
-    s = xv.sum(dim=1)                                       # [B, K]
-    py = (x * w).sum(dim=1) + 0.5 * (s * s - (xv * xv).sum(dim=1)).sum(dim=1)
-    d = d_of(py)
-    gw = d[:, None] * x
-    gV = (d[:, None] * x)[..., None] * (s[:, None, :] - xv)
-    return py, gw, gV
-
-
-def ffm_grads(x, w, V, fields, F, d_of):
-    """FFM margin, and the slot gradients given ``d_of(py)``. ``V`` is
-    [B, L, F*k]: slot i's factors for each field."""
-    B, L, K = V.shape
-    k = K // F
-    V4 = V.reshape(B, L, F, k)
-    f = fields if fields is not None else torch.arange(
-        L, device=V.device).expand(B, L)
-    # A[b, i, j] = V_i[f_j];  At[b, i, j] = V_j[f_i]
-    A = torch.gather(V4, 2, f[:, None, :, None].expand(B, L, L, k))
-    At = A.transpose(1, 2)
-    off = ~torch.eye(L, dtype=torch.bool, device=V.device)
-    M = x[:, :, None] * x[:, None, :] * off                 # [B, L, L]
-    py = (x * w).sum(dim=1) + 0.5 * (M * (A * At).sum(dim=3)).sum(dim=(1, 2))
-    d = d_of(py)
-    G = (d[:, None, None] * M)[..., None] * At              # [B, i, j, k]
-    gV4 = torch.zeros((B, L, F, k), dtype=V.dtype, device=V.device)
-    gV4.scatter_add_(2, f[:, None, :, None].expand(B, L, L, k), G)
-    return py, d[:, None] * x, gV4.reshape(B, L, K)
-
-
-def steps(batches: list[Batch], V0: torch.Tensor, h: Model,
+def steps(batches: list[Batch], V0: torch.Tensor, h: Table,
           dtype=torch.float64, fault: str | None = None) -> dict:
     """Train from the initial table over ``batches``, in ``dtype``. ``V0``
     [R, K] holds the initial factors of the held rows. ``fault`` plants a
@@ -173,10 +173,7 @@ def steps(batches: list[Batch], V0: torch.Tensor, h: Model,
         def d_of(py):
             return (torch.sigmoid(py) - lab) * mask
 
-        if h.loss == "ffm":
-            py, gw, gV = ffm_grads(x, w[b.rows], Vb, b.fields, h.F, d_of)
-        else:
-            py, gw, gV = fm_grads(x, w[b.rows], Vb, d_of)
+        py, gw, gV = h.grads(x, w[b.rows], Vb, b, d_of)
         out["loss"].append(float((stable_logloss(-y * py) * mask).sum()))
         flat = b.rows.reshape(-1)
         g = torch.zeros(R, dtype=dtype, device=dev).index_add_(

@@ -5,24 +5,30 @@
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration (its
 file under ``fmbench/configs/``) and a traffic mix
 (``fmbench/traffic/<name>.json``); its correctness limits are
-``fmbench/limits/<cell>.json``, and each per-layer metric is read by
-``fmbench/metrics/<metric>.py``. Nothing here names a cell.
+``fmbench/limits/<cell>.json``, each per-layer metric is read by
+``fmbench/metrics/<metric>.py``, and the configuration's model (its file's
+``model`` key, else its ``conf``'s ``loss``, else ``fm``) is
+``fmbench/models/<model>.py``: its initial state, the readings the check
+compares, its plain reference and its counts. Nothing here names a cell
+or a model.
 
 Set-up builds one ``SGDLearner`` of ``difacto_tpu_torch`` on the card
 (``cache_batches=1 cache_on_device=1``), writes the benchmark's own initial
-table into it, and trains epoch 0, which streams the traffic's rows
-(written to ``memory://`` in the configuration's data format) through the
-learner's host prep into its device batch cache; the first three steps are
-kept for the correctness check. Epoch 1 warms up, on the same batches.
-The window then runs ``train_epoch(e)`` for e = 2, 3, ... over the cache,
-as epochs past the first of ``python -m difacto_tpu_torch <conf>`` do, and
-stops at the first epoch boundary after ``--seconds``.
+state into it (the model's ``place``), and trains epoch 0, which streams
+the traffic's rows (written to ``memory://`` in the configuration's data
+format) through the learner's host prep into its device batch cache; the
+first three steps are kept for the correctness check. Epoch 1 warms up,
+on the same batches. The window then runs ``train_epoch(e)`` for e = 2,
+3, ... over the cache, as epochs past the first of ``python -m
+difacto_tpu_torch <conf>`` do, and stops at the first epoch boundary after
+``--seconds``.
 
 ``--trace 1`` runs the same window with the host's enqueue of each step
 timed, then a fixed number of epochs under ``torch.profiler``, and prints
-the per-layer metrics. Once the window has closed and the program's state
-is freed, the plain reference (fmbench/reference.py) trains the same
-first three steps and fmbench/check.py compares them.
+the per-layer metrics; their readers get the trace, the program's spans
+over it and its counters. Once the window has closed and the program's
+state is freed, the model's plain reference trains the same first three
+steps and fmbench/check.py compares them.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ DIR = "fmbench"
 BANNED = frozenset({"jax", "jaxlib", "flax", "difacto_tpu"})
 # steps traced by torch.profiler with --trace 1 (whole epochs, at least)
 TRACED_STEPS = 192
-CHECKED_STEPS = 3
+CHECKED_STEPS = reference.CHECKED_STEPS
 # the calls of each epoch whose host time counts as the enqueue: an epoch
 # begins after the learner's epoch-end sync, so these never wait on a full
 # queue of launches (about a thousand; a step launches about a hundred)
@@ -115,15 +121,6 @@ def build_config(cell: Cell, data_in: str):
     return Config.from_kwargs(kw)
 
 
-def initial_factors(seed: int, rows: int, k: int, scale: float,
-                    device) -> torch.Tensor:
-    """The benchmark's initial V [rows, k], uniform in (-scale, scale),
-    from its own generator (one the traffic does not draw from)."""
-    g = traffic.generator(seed ^ 0x5DEECE66D, device)
-    v = torch.rand((rows, k), generator=g, device=device)
-    return v.mul_(2.0).sub_(1.0).mul_(scale)
-
-
 def sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -132,19 +129,19 @@ def sync(device) -> None:
 class Hooks:
     """Wraps the store's step entry (``train_step_prepped``), the one call
     the learner makes a step. It counts the calls; during the first
-    ``CHECKED_STEPS`` of epoch 0 it keeps what the correctness check reads
-    (each step's loss, the optimizer state's norms); in the window it
-    stamps each step's start (a CUDA event on the stream, or the host
-    clock on the CPU) and, when asked, times the host's enqueue of the
-    first ``ENQUEUE_STEPS`` calls of each epoch and marks each step for the
-    profiler."""
+    ``CHECKED_STEPS`` of epoch 0 it hands each step's output to the model's
+    ``keep``, which keeps what the correctness check reads in ``kept``; in
+    the window it stamps each step's start (a CUDA event on the stream, or
+    the host clock on the CPU) and, when asked, times the host's enqueue of
+    the first ``ENQUEUE_STEPS`` calls of each epoch and marks each step for
+    the profiler."""
 
-    def __init__(self, store, V0: torch.Tensor):
+    def __init__(self, store, keep, kept: dict):
         self.orig = store.train_step_prepped
         store.train_step_prepped = self.step
         self.calls = 0
-        self.V0 = V0
-        self.readings: dict = {"loss": []}
+        self.keep = keep
+        self.kept = kept
         self.stamps: list | None = None
         self.host_ms: list | None = None
         self.span = False
@@ -172,32 +169,14 @@ class Hooks:
             self.host_ms.append((time.perf_counter() - t0) * 1e3)
         self.calls += 1
         if self.calls <= CHECKED_STEPS:
-            self.keep(out[0], out[1])
+            self.keep(self.kept, out[0], out[1], self.calls)
         return out
 
-    def keep(self, state, metrics) -> None:
-        """Readings of the program's first steps, as device tensors."""
-        r = self.readings
-        r["loss"].append(metrics.logloss_sum.double())
-        if self.calls == 1:
-            r["grad_w"] = state.n.double().sum().sqrt()
-        if self.calls == 2:
-            r["grad_V"] = state.nV.double().sum().sqrt()
-        if self.calls == CHECKED_STEPS:
-            r["change_w"] = torch.linalg.vector_norm(state.w.double())
-            acc = torch.zeros((), dtype=torch.float64, device=state.w.device)
-            V, V0 = state.V, self.V0
-            for lo in range(0, V0.shape[0], 1 << 18):
-                d = (V[:, lo:lo + (1 << 18)].double()
-                     - V0[lo:lo + (1 << 18)].T.double())
-                acc += (d * d).sum()
-            r["change_V"] = acc.sqrt()
-            self.V0 = None
-
     def take_readings(self) -> dict:
-        r = self.readings
-        return {"loss": [float(x) for x in r["loss"]],
-                **{k: float(v) for k, v in r.items() if k != "loss"}}
+        """The kept readings as floats (a list stays a list)."""
+        kept, self.kept = self.kept, None
+        return {k: [float(x) for x in v] if isinstance(v, list) else float(v)
+                for k, v in kept.items()}
 
 
 def step_ms(hooks: Hooks, end) -> list[float]:
@@ -249,49 +228,32 @@ def run_traced(learner, hooks: Hooks, epoch: int, epochs: int,
     return trace.summarize(prof)
 
 
+def _load(path: Path, name: str):
+    """The module of the file ``path``, run anew, as ``sys.modules[name]``
+    (where a dataclass of it looks itself up)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def load_reader(root: Path, name: str):
     path = root / DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"fmbench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"fmbench_metric_{name.replace('.', '_')}").read
 
 
-def batch_counts(rows: traffic.Rows, m: reference.Model) -> list[dict]:
-    """Each replayed batch's shape for the yardstick's counts."""
-    B, L = rows.batch_size, rows.ids.shape[1]
-    return [dict(B=B, L=L, n=n, K=m.K, F=m.F, loss=m.loss,
-                 fields=rows.fields is not None)
-            for n in traffic.distinct_rows(rows, m.num_bits)]
-
-
-def reference_batches(first: traffic.Rows, num_bits: int, device):
-    """The first batches for the reference, and the table rows they hold
-    (ids hashed on the host as the configuration's ``num_bits`` says)."""
-    raw = first.ids.cpu().numpy().astype(np.uint64)
-    held, idx = torch.unique(torch.as_tensor(
-        reference.hash_rows(raw, num_bits), device=device),
-        return_inverse=True)
-    out = []
-    for i in range(first.num_batches):
-        s = slice(i * first.batch_size, (i + 1) * first.batch_size)
-        out.append(reference.Batch(
-            rows=idx[s], labels=first.labels[s].to(device),
-            fields=(None if first.fields is None
-                    else first.fields[s].to(device).long())))
-    return held, out
-
-
-def reference_readings(seed: int, m: reference.Model, first: traffic.Rows,
-                       device, dtype=torch.float64, fault=None) -> dict:
-    """The reference's readings of the first steps: the same rows, the same
-    initial table (worked out again from the seed)."""
-    held, batches = reference_batches(first, m.num_bits, device)
-    V0 = initial_factors(seed, 1 << m.num_bits, m.K, m.init_scale, device)
-    V0h = V0[held]
-    del V0
-    return reference.steps(batches, V0h, m, dtype=dtype, fault=fault)
+def load_model(root: Path, config: dict):
+    """The module of a configuration file's model: ``fmbench/models/
+    <model>.py`` by its ``model`` key, else its ``conf``'s ``loss``, else
+    ``fm``. A model with no module stops the run."""
+    name = config.get("model") or config["conf"].get("loss", "fm")
+    path = root / DIR / "models" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"fmbench: the configuration {config.get('name')!r}"
+                         f" names the model {name!r}, which has no module "
+                         f"{DIR}/models/{name}.py")
+    return _load(path, f"fmbench_model_{name}")
 
 
 def first_batches(rows: traffic.Rows) -> traffic.Rows:
@@ -324,9 +286,11 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     and ``t_main`` the start of its main module, on the ``perf_counter``
     clock. Returns (the result line, the set-up phases in seconds)."""
     from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.utils import tracing
 
     device = torch.device(device)
     cell = load_cell(root, workload)
+    mod = load_model(root, cell.config)
     t_main = t_start if t_main is None else t_main
     phases = {"interpreter": t_main - t_start,
               "import": time.perf_counter() - t_main}
@@ -352,32 +316,30 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     fmt = cell.config["conf"]["data_format"]
     data_in = traffic.write_parts(rows, fmt, prefix)
     cfg = build_config(cell, data_in)
-    model = reference.Model.of(cell.config["conf"])
+    model = mod.Model.of(cell.config["conf"])
     first = first_batches(rows)
     # the traced run's counts (the untraced runs, which report setup_s,
     # skip this host work)
-    shapes = batch_counts(rows, model) if traced else None
+    shapes = ([mod.shape(rows.batch(i), model)
+               for i in range(rows.num_batches)] if traced else None)
     del rows
     sync(device)
     phases["inputs"] = time.perf_counter() - t
 
     t = time.perf_counter()
     learner = SGDLearner(cfg, device=device)
-    V0 = initial_factors(seed, learner.store.num_rows, model.K,
-                         model.init_scale, device)
-    st = learner.state
-    for leaf in ("w", "z", "n", "cnt", "nV"):
-        getattr(st, leaf).zero_()
-    st.V.copy_(V0.T)
-    hooks = Hooks(learner.store, V0)
-    del V0, st
+    hooks = Hooks(learner.store, mod.keep,
+                  mod.place(learner, seed, device, model))
     sync(device)
     phases["state_init"] = time.perf_counter() - t
 
     t = time.perf_counter()
+    c0 = tracing.counters()
     learner.train_epoch(0)
     sync(device)
     phases["cache_fill"] = time.perf_counter() - t
+    # the program's counters (groups step and launch) that moved
+    setup_counters = tracing.delta(c0)
     traffic.remove_parts(prefix)
     readings = hooks.take_readings()
 
@@ -394,7 +356,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     summ = None
     if traced:
         epochs = math.ceil(TRACED_STEPS / len(shapes))
+        c0 = tracing.counters()
         summ = run_traced(learner, hooks, win["epoch"], epochs, device)
+        train_counters = tracing.delta(c0)
         traced_steps = epochs * len(shapes)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -406,10 +370,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    ref = reference_readings(seed, model, first, device)
+    ref = mod.reference(seed, first, model, device)
     sync(device)
     check_s = time.perf_counter() - t
-    numbers = check.compare(readings, ref)
+    numbers = check.compare(readings, ref, mod.LEAVES)
     verdicts = check.judge(numbers, cell.limits)
 
     metrics = {}
@@ -424,8 +388,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                                   "unit": m["unit"]}
     else:
         ctx = dict(phases=phases, window=win, host_ms=host_ms, trace=summ,
-                   traced_steps=traced_steps, shapes=shapes, counts=counts,
-                   device=device.type)
+                   spans=summ.spans, traced_steps=traced_steps, shapes=shapes,
+                   counts=counts, model=mod, device=device.type,
+                   counters={"setup": setup_counters,
+                             "train": train_counters})
         for m in cell.per_layer:
             v = load_reader(root, m["name"])(ctx)
             if v is not None:
@@ -444,11 +410,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         out["breakdown"] = {"device_ops": trace.top(summ.by_name),
                             "idle_gaps": trace.top(summ.gaps)}
         out["bound_by"] = {"step_mfu.train": sorted({
-            counts.least_time_s(
-                counts.step_bytes(s["B"], s["L"], s["n"], s["K"],
-                                  s["fields"]),
-                counts.step_flops(s["loss"], s["B"], s["L"], s["n"], s["K"],
-                                  s["F"]))[1] for s in shapes})}
+            counts.least_time_s(mod.step_bytes(s), mod.step_flops(s))[1]
+            for s in shapes})}
     out["check_s"] = check_s
     out["checks"] = {k: {"value": v, "limit": cell.limits[k]}
                      for k, v in numbers.items()}
