@@ -6,6 +6,10 @@ the JAX package parses here unchanged and an unknown key stays fatal.
 
 The port carries every setting of the JAX package. A multi-process
 launch is not a setting but an environment (parallel/multihost.py).
+Its own model, AutoInt (``loss=autoint``, models/autoint.py), reads the
+keys of :class:`AutoIntParam`, which the same ``from_kwargs`` parses into
+``Config.autoint``: an attribute beside the four parts, not a fifth
+dataclass field, so that the parts stay the JAX package's.
 """
 
 from __future__ import annotations
@@ -138,7 +142,7 @@ class LearnerParam(ParamBase):
     """Trainer driver knobs (reference: SGDLearnerParam)."""
 
     learner: str = "sgd"           # sgd | bcd
-    loss: str = "fm"               # fm | logit | ffm
+    loss: str = "fm"               # fm | logit | ffm | autoint
     task: str = "train"            # train | predict (predict needs model_in)
     pred_out: str = ""             # write raw margins here when task=predict
     max_num_epochs: int = 1
@@ -196,6 +200,59 @@ class ShardParam(ParamBase):
     hot_count_batches: int = 16    # batches of the hot_rows count sample
 
 
+@dataclass
+class AutoIntParam(ParamBase):
+    """loss=autoint (models/autoint.py): the interacting layers over the
+    fields' d = ``V_dim`` embeddings and Adam on their dense weights
+    (Song et al., CIKM 2019). Refused with any other loss."""
+
+    attn_layers: int = 3           # interacting layers
+    attn_heads: int = 2            # heads a layer
+    attn_head_dim: int = 32        # d', the width of a head
+    attn_residual: bool = True     # e <- ReLU(attention + W_Res e)
+    dense_lr_eta: float = 0.001    # Adam on the dense weights
+    dense_beta1: float = 0.9
+    dense_beta2: float = 0.999
+    dense_eps: float = 1e-8
+
+    def __post_init__(self) -> None:
+        self.given: list[str] = []
+
+    def init(self, kwargs: KWArgs) -> KWArgs:
+        names = {f.name for f in dataclasses.fields(self)}
+        # the keys a config set, which another loss refuses
+        self.given = [k for k, _ in kwargs if k in names]
+        return super().init(kwargs)
+
+    def validate(self) -> None:
+        if not self.attn_residual:
+            raise ValueError("attn_residual=0 is not implemented: the "
+                             "published model has the residual projection")
+        if min(self.attn_layers, self.attn_heads, self.attn_head_dim) < 1:
+            raise ValueError("attn_layers, attn_heads and attn_head_dim must "
+                             "be at least 1")
+        if not (0.0 <= self.dense_beta1 < 1.0 and 0.0 <= self.dense_beta2 < 1.0
+                and self.dense_lr_eta > 0.0 and self.dense_eps > 0.0):
+            raise ValueError("Adam needs dense_lr_eta > 0, dense_eps > 0 and "
+                             "betas in [0, 1)")
+
+
+# the settings loss=autoint refuses (the store's step is the local, packed
+# pairs path with host-prepped batches): (section, key, allowed values, why)
+_AUTOINT_PATH = (
+    ("shard", "store", ("auto", "local"),
+     "the dense weights and their Adam state live on one card"),
+    ("shard", "kernel", ("auto", "pairs"),
+     "the sweep and the XLA path read no per-slot gradient payload"),
+    ("shard", "layout", ("auto", "packed"),
+     "its state is the row-major table with the dense part beside it"),
+    ("shard", "hot_rows", (0,), "the split is a design of the XLA path"),
+    ("learner", "learner", ("sgd",), "BCD trains linear and FM blocks"),
+    ("data", "host_localize", (True,),
+     "the fields go into field order from host-prepped batches"),
+)
+
+
 # loss=ffm activation cap in bytes: the JAX package's constant, kept so
 # that both packages pick the same ffm_block_size (Config.check)
 FFM_ACTIVATION_CAP = 8 << 30
@@ -208,11 +265,15 @@ class Config:
     learner: LearnerParam = field(default_factory=LearnerParam)
     shard: ShardParam = field(default_factory=ShardParam)
 
+    def __post_init__(self) -> None:
+        # not a field: dataclasses.fields(Config) are the JAX package's
+        self.autoint = AutoIntParam()
+
     @classmethod
     def from_kwargs(cls, kwargs: KWArgs) -> "Config":
         cfg = cls()
         rest = kwargs
-        for sub in (cfg.data, cfg.model, cfg.learner, cfg.shard):
+        for sub in (cfg.data, cfg.model, cfg.learner, cfg.shard, cfg.autoint):
             rest = sub.init(rest)
         if rest:
             raise ValueError(f"unknown config keys: {[k for k, _ in rest]}")
@@ -251,10 +312,16 @@ class Config:
                              f"got {self.shard.layout!r}")
         if self.shard.store not in ("auto", "local", "sharded"):
             raise ValueError(f"unknown store {self.shard.store!r}")
-        if self.learner.loss not in ("fm", "logit", "ffm"):
+        if self.learner.loss not in ("fm", "logit", "ffm", "autoint"):
             raise ValueError(f"unknown loss {self.learner.loss!r}")
+        if self.learner.loss == "autoint":
+            self._check_autoint()
+        elif self.autoint.given:
+            raise ValueError(f"{self.autoint.given} are keys of loss=autoint, "
+                             f"not of loss={self.learner.loss}")
         if self.model.num_fields > 0:
-            if self.learner.loss != "ffm":
+            if self.learner.loss not in ("ffm", "autoint"):
+                # the JAX package's message (loss=autoint is the port's)
                 raise ValueError("num_fields is only meaningful with loss=ffm")
             if self.data.data_format != "libffm":
                 raise ValueError(
@@ -278,6 +345,24 @@ class Config:
                 "interpret=1 is a Pallas option; the port runs its kernels' "
                 "plain versions whenever the tensors lie on the CPU"
             )
+
+    def _check_autoint(self) -> None:
+        """loss=autoint: libffm rows with their fields (the embeddings go
+        into field order), factors, and the one path that trains it."""
+        if self.data.data_format != "libffm" or self.model.num_fields <= 0:
+            raise ValueError(
+                "loss=autoint needs data_format=libffm and num_fields=<field "
+                "count> (39 for Criteo): its output concatenates the fields' "
+                "embeddings in field order")
+        if self.model.V_dim <= 0:
+            raise ValueError("loss=autoint needs V_dim > 0 (the embedding "
+                             "width d)")
+        for section, key, allowed, why in _AUTOINT_PATH:
+            val = getattr(getattr(self, section), key)
+            if val not in allowed:
+                raise ValueError(
+                    f"loss=autoint does not support {key}={val!r} (allowed: "
+                    f"{'|'.join(str(a) for a in allowed)}): {why}")
 
     def _check_ffm_activations(self) -> None:
         """The FFM activation cap, the JAX package's rule kept for parity
@@ -324,7 +409,14 @@ class Config:
 
     def expects_fields(self) -> bool:
         """True when batches must carry explicit per-slot field ids."""
-        return self.learner.loss == "ffm" and self.model.num_fields > 0
+        return (self.learner.loss in ("ffm", "autoint")
+                and self.model.num_fields > 0)
+
+    def slot_grads(self) -> bool:
+        """True when the loss gives each slot a gradient row of its own
+        (FFM, AutoInt), which the sorted backward gathers by the sort
+        permutation (``SortedSlots.slot_sorted``) into B3's payload."""
+        return self.learner.loss in ("ffm", "autoint")
 
     def effective_model_param(self) -> FMParam:
         """The FMParam the updater and the table use. For loss=ffm a

@@ -295,9 +295,9 @@ class SGDLearner:
         calls no collective)."""
         num_rows = self.store.num_rows
         min_ub = self.cfg.shard.unique_size or None
-        # FFM's sorted backward gathers its per-slot payload by the sort
-        # permutation (SortedSlots.slot_sorted)
-        with_slots = self.cfg.learner.loss == "ffm"
+        # FFM's and AutoInt's sorted backward gathers its per-slot payload
+        # by the sort permutation (SortedSlots.slot_sorted)
+        with_slots = self.cfg.slot_grads()
         # explicit libffm fields are range-checked here, on the host; the
         # batch carries them to the device, and a cached batch keeps them
         nf = self.cfg.model.num_fields if self.cfg.expects_fields() else 0

@@ -22,10 +22,13 @@ gather, the loss, its metrics) as the span ``difacto.loss`` and the
 per-key sums (FM's fused kernel; or the payload, B3 or ``index_add_``,
 the combine) as ``difacto.keysum`` (utils/tracing.py).
 
-``loss`` is ``fm`` (K = 0 is logit) or ``ffm``: then a row's K = F*k
+``loss`` is ``fm`` (K = 0 is logit), ``ffm``: then a row's K = F*k
 factors are F field blocks of k (F = ``num_fields``, or L when slot
 position is the field) and the math is models/losses.py::ffm_loss_grad,
-streamed in ``ffm_block``-slot chunks when that is set.
+streamed in ``ffm_block``-slot chunks when that is set; or ``autoint``:
+a row's K factors are its embedding, and the math is
+models/autoint.py::autoint_loss_grad over the state's dense part
+(``dense``), whose gradient it writes into ``dense.grad``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.autoint import autoint_loss_grad, autoint_predict
 from ..models.losses import (ffm_loss_grad, ffm_predict, fm_loss_grad,
                              fm_predict, logit_grad_coeff)
 from ..ops.localize import Localized
@@ -99,8 +103,11 @@ def _ffm_factors(rows: torch.Tensor, num_fields: int) -> torch.Tensor:
 
 
 def _loss_grad(rows, vals, labels, mask, loss, fields, num_fields,
-               ffm_block):
+               ffm_block, dense):
     """The loss's forward and per-slot gradients on the batch's rows."""
+    if loss == "autoint":
+        return autoint_loss_grad(vals, rows[..., 1:], labels, mask, fields,
+                                 dense)
     if loss == "ffm":
         return ffm_loss_grad(vals, rows[..., 0],
                              _ffm_factors(rows, num_fields), labels, mask,
@@ -115,10 +122,11 @@ def worker_forward(
     labels: torch.Tensor,  # f32 [B] in {0,1}
     mask: torch.Tensor,    # f32 [B]
     *,
-    loss: str = "fm",      # fm | ffm (fm with K = 0 is logit)
-    fields: torch.Tensor | None = None,  # [B, L] explicit fields (ffm)
+    loss: str = "fm",      # fm | ffm | autoint (fm with K = 0 is logit)
+    fields: torch.Tensor | None = None,  # [B, L] explicit fields
     num_fields: int = 0,   # ffm field count F (0: F = L, slot position)
     ffm_block: int = 0,    # ffm: chunked cross terms (0 = dense)
+    dense=None,            # autoint: the state's DenseState
 ) -> tuple[torch.Tensor, StepMetrics]:
     """The eval step's math: forward only (the JAX store's eval runs the
     whole loss and keeps its forward: the same margins). Returns (py [B],
@@ -126,7 +134,9 @@ def worker_forward(
     B, L = vals.shape
     with span("difacto.loss"):
         rows = _rows(rows_u, loc, B, L)
-        if loss == "ffm":
+        if loss == "autoint":
+            py = autoint_predict(vals, rows[..., 1:], fields, dense)
+        elif loss == "ffm":
             py = ffm_predict(vals, rows[..., 0],
                              _ffm_factors(rows, num_fields), fields=fields,
                              block=ffm_block)
@@ -147,6 +157,7 @@ def worker_grads(
     fields: torch.Tensor | None = None,
     num_fields: int = 0,
     ffm_block: int = 0,
+    dense=None,
 ) -> tuple[torch.Tensor, torch.Tensor, StepMetrics]:
     """Per-unique-id aggregated gradients by scatter-add. Returns
     (grads_u [U, 1+K], py [B], metrics). The loss keywords are those of
@@ -155,7 +166,7 @@ def worker_grads(
     U, D = rows_u.shape
     with span("difacto.loss"):
         fwd, g = _loss_grad(_rows(rows_u, loc, B, L), vals, labels, mask,
-                            loss, fields, num_fields, ffm_block)
+                            loss, fields, num_fields, ffm_block, dense)
         metrics = _batch_metrics(fwd.py, g.loss, g.correct, labels, mask)
     with span("difacto.keysum"):
         flat = torch.cat([g.dW.reshape(B * L, 1),
@@ -202,7 +213,9 @@ def worker_grads_sorted(
     num_fields: int = 0,
     ffm_block: int = 0,
     slot_s: torch.Tensor | None = None,  # i32 [BLp] flat slot of each
-                           # sorted slot (the sort permutation; ffm only)
+                           # sorted slot (the sort permutation; ffm and
+                           # autoint only)
+    dense=None,
 ) -> tuple[torch.Tensor, torch.Tensor, StepMetrics]:
     """worker_grads with the aggregation done by the segment-sum kernel.
 
@@ -219,20 +232,22 @@ def worker_grads_sorted(
     ``S`` and the sorted stream in registers and writes the combined
     gradient; on the CPU the composition (gather, payload, segment sum,
     combine), with the same bits. K == 0 (logit) sums the one row d*x by
-    the segment-sum kernel. FFM's per-slot gradient has no such factoring
-    (a slot's gradient depends on its field-crossed partners) and
-    ffm_loss_grad has it in batch space already: its payload is the 1+K
-    rows of each slot's gradient gathered by ``slot_s``, pads zeroed,
-    summed by the segment-sum kernel with no combine. Returns grads
+    the segment-sum kernel. FFM's and AutoInt's per-slot gradients have no
+    such factoring (a slot's gradient depends on its field-crossed
+    partners, or on the whole row through the attention) and their losses
+    have them in batch space already: the payload is the 1+K rows of each
+    slot's gradient gathered by ``slot_s``, pads zeroed, summed by the
+    segment-sum kernel with no combine. Returns grads
     PLANAR [1+K, U] (the apply payload layout), py and metrics. Sums
     differ from the scatter path by float association only."""
     B, L = vals.shape
     K = rows_u.shape[1] - 1
     x_s, bidx, inv_s = ss
-    if loss == "ffm":
+    if loss in ("ffm", "autoint"):
         with span("difacto.loss"):
             fwd, g = _loss_grad(_rows(rows_u, loc, B, L), vals, labels,
-                                mask, loss, fields, num_fields, ffm_block)
+                                mask, loss, fields, num_fields, ffm_block,
+                                dense)
             metrics = _batch_metrics(fwd.py, g.loss, g.correct, labels,
                                      mask)
         with span("difacto.keysum"):

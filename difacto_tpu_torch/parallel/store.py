@@ -48,7 +48,11 @@ kernels when the state lies on the card, their plain versions when it
 lies on the CPU. ``loss=ffm`` runs every path with rows of 1 + F*k
 floats (``Config.effective_model_param``) and the FFM math of
 learners/step.py; with ``num_fields`` > 0 (libffm) every path reads the
-batch's explicit fields, validated on the host.
+batch's explicit fields, validated on the host. ``loss=autoint``
+(models/autoint.py) runs the packed pairs path of this store alone
+(``Config.check``): its state, an ``AutoIntState``, is the row-major table
+and the dense weights with their Adam state; a train step updates the
+dense part after the table's apply, on the device (``difacto.dense_apply``).
 
 :class:`ShardedStore` (``store=sharded``) row-shards the table over the
 ranks of a ``torch.distributed`` group, one shard a rank (parallel/comm.py),
@@ -76,6 +80,8 @@ from ..data.prep import (PreppedBatch, ShardPreppedBatch, SortedSlots,
 from ..learners.step import (StepMetrics, derive_sorted_slots,
                              worker_forward, worker_grads,
                              worker_grads_sorted)
+from ..models.autoint import (AutoIntState, DenseState, Dims, adam_step,
+                              f32_matmuls, init_dense)
 from ..ops.localize import Localized, localize
 from ..ops.pair_sweep import apply_pairs, pull_pairs
 from ..ops.sweep import sweep_apply, sweep_pull
@@ -218,6 +224,10 @@ class LocalStore:
                             ffm_block=cfg.model.ffm_block_size)
         # libffm explicit fields: batches carry an i32 [B, L] field array
         self.expects_fields = cfg.expects_fields()
+        # loss=autoint: the widths of its dense part (None for FM and FFM)
+        self.attn = Dims.of(cfg) if self.loss == "autoint" else None
+        if self.attn is not None:
+            f32_matmuls()
         s = cfg.shard
         self.kernel = _kernel_kind(cfg)
         self.pallas = self.kernel == "pallas"
@@ -250,6 +260,9 @@ class LocalStore:
 
     def init_state(self, seed: int = 0):
         u, n, dev = self.updater, self.num_rows, self.device
+        if self.attn is not None:
+            return AutoIntState(tbl=u.init_state_packed(n, seed, dev).tbl,
+                                dense=init_dense(self.attn, seed, dev))
         if self.hot_rows:
             return u.init_state_hotcold(n, self.hot_rows, seed, dev)
         init = {"packed": u.init_state_packed,
@@ -268,10 +281,12 @@ class LocalStore:
                              f"({self.num_rows},)")
         self.hot_lut = lut
 
-    def place_state(self, host_state):
+    def place_state(self, host_state, dense: dict | None = None):
         """Move a state of any layout with the six leaves (a checkpoint's
         FMState, a PackedFMState or a StackedFMState, anywhere) onto this
-        store's device, in this store's layout. A single-file checkpoint
+        store's device, in this store's layout; ``loss=autoint`` takes its
+        dense part from ``dense`` (utils/checkpoint.py's ``read_dense``:
+        ``theta``, ``m``, ``v``, ``step``). A single-file checkpoint
         from a padded sharded run carries more rows than the hash space;
         the extra rows must be zero and are cut off. The stacked and
         hot/cold tables are written one [N] plane at a time (no planar
@@ -307,10 +322,17 @@ class LocalStore:
                 name: getattr(host_state, name)[..., :N].to(
                     self.device, torch.float32).contiguous()
                 for name in LEAVES})
-        if packed_in == (self.layout == "packed"):
+        if packed_in != (self.layout == "packed"):
+            placed = pack_state(placed) if self.layout == "packed" else (
+                unpack_state(placed))
+        if self.attn is None:
             return placed
-        return pack_state(placed) if self.layout == "packed" else (
-            unpack_state(placed))
+        if dense is None:
+            raise ValueError("loss=autoint: the checkpoint holds no dense "
+                             "weights (not an AutoInt model)")
+        return AutoIntState(tbl=placed.tbl, dense=DenseState.of(
+            self.attn, self.device, dense["theta"], dense["m"], dense["v"],
+            dense["step"]))
 
     def _place_planes(self, host_state):
         """place_state for the stacked and hot/cold tables, plane by
@@ -363,9 +385,9 @@ class LocalStore:
         their sorted slots built here when the prep workers did not
         (kept on the batch, so replayed batches reuse them), in the
         compact form when the config asks (``cache_compact``, JAX
-        ``store.py:609-624``); FFM's also keep the sort permutation.
-        Explicit fields are checked first (on the host array, when the
-        batch is still there) unless the prep did."""
+        ``store.py:609-624``); FFM's and AutoInt's also keep the sort
+        permutation. Explicit fields are checked first (on the host array,
+        when the batch is still there) unless the prep did."""
         with span("difacto.place"):
             if self.hot_rows and pb.uids_hot is None:
                 raise ValueError(
@@ -375,16 +397,16 @@ class LocalStore:
             if self.expects_fields:
                 pb.fields = _prepped_fields(pb, self.num_fields)
                 pb.fields_checked = True
-            ffm = self.loss == "ffm"
+            slots = self.cfg.slot_grads()
             ss = pb.sorted_slots
             if need_slots and (ss is None
-                               or (ffm and ss.slot_sorted is None)):
+                               or (slots and ss.slot_sorted is None)):
                 if isinstance(pb.inv, torch.Tensor):
                     raise ValueError(
                         "a placed batch needs its sorted slots built "
                         "before placement (data/prep.py)")
                 pb.sorted_slots = build_sorted_slots(
-                    pb.inv, pb.vals, with_slots=ffm,
+                    pb.inv, pb.vals, with_slots=slots,
                     compact=self.cfg.data.cache_compact)
             return place_batch(pb, self.device)
 
@@ -441,11 +463,16 @@ class LocalStore:
     def _split(self, pb: PreppedBatch):
         return (pb.uids_hot, pb.uids_cold) if self.hot_rows else None
 
+    def _dense(self, state):
+        """The dense part of ``loss=autoint``'s state, else None."""
+        return state.dense if self.attn is not None else None
+
     def train_step_prepped(self, state, pb: PreppedBatch):
-        """pull -> forward -> backward -> per-key sums -> apply. The apply
-        updates ``state`` in place (it replaces the TPU step's donated
-        buffers); on the XLA path one gather serves the pull and the
-        update. Returns (state, StepMetrics)."""
+        """pull -> forward -> backward -> per-key sums -> apply (-> the
+        dense part's Adam, ``loss=autoint``). The apply updates ``state``
+        in place (it replaces the TPU step's donated buffers); on the XLA
+        path one gather serves the pull and the update. Returns (state,
+        StepMetrics)."""
         pb = self._placed(pb, need_slots=self.sorted_grads)
         loc = Localized(uids=pb.uids, inv=pb.inv, counts=pb.ucounts,
                         valid=pb.valid)
@@ -459,14 +486,20 @@ class LocalStore:
                       if ss.compact else (ss.x_sorted, ss.bidx, ss.inv_sorted))
             grads, _, metrics = worker_grads_sorted(
                 rows_u, loc, pb.vals, pb.labels, pb.mask, stream,
-                slot_s=ss.slot_sorted, fields=fields, **self.loss_kw,
+                slot_s=ss.slot_sorted, fields=fields,
+                dense=self._dense(state), **self.loss_kw,
             )
         else:
             grads_u, _, metrics = worker_grads(rows_u, loc, pb.vals,
                                                pb.labels, pb.mask,
-                                               fields=fields, **self.loss_kw)
+                                               fields=fields,
+                                               dense=self._dense(state),
+                                               **self.loss_kw)
             grads = grads_u.T
-        return self._apply(state, loc, grads, raw, split), metrics
+        out = self._apply(state, loc, grads, raw, split)
+        if self.attn is not None:
+            adam_step(state.dense, self.cfg.autoint)
+        return out, metrics
 
     def eval_step_prepped(self, state,
                           pb: PreppedBatch) -> tuple[StepMetrics, torch.Tensor]:
@@ -477,7 +510,7 @@ class LocalStore:
         rows_u, _ = self._pull(state, loc, self._split(pb))
         py, metrics = worker_forward(rows_u, loc, pb.vals, pb.labels,
                                      pb.mask, fields=self._fields(pb.fields),
-                                     **self.loss_kw)
+                                     dense=self._dense(state), **self.loss_kw)
         return metrics, py
 
     # -- device-localized path (host_localize=0): raw ids, localized on the
@@ -591,6 +624,9 @@ class ShardedStore(LocalStore):
             raise ValueError(
                 "hot_rows is a LocalStore big-table feature (store=local): "
                 "a sharded table's shards are small already")
+        if cfg.learner.loss == "autoint":
+            raise ValueError("loss=autoint runs on store=local: the dense "
+                             "weights and their Adam state live on one card")
         super().__init__(updater, cfg, device=device)
         self.comm = Comm()
         S = self.S = self.comm.size

@@ -29,6 +29,11 @@ one-process branch does.
 
 :func:`state_from_numpy` and :func:`state_to_numpy` carry a state between
 the two packages as NumPy arrays.
+
+A ``loss=autoint`` state (models/autoint.py) adds its dense part to the
+one-process file: the flat weights and Adam's moments under the keys
+``dense_theta``, ``dense_m``, ``dense_v``, and Adam's step ``dense_step``
+in the meta (:func:`read_dense`); the six leaves stay as they are.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ from ..updaters.updater import (LEAVES, FMState, HotColdFMState,
                                 PackedFMState, StackedFMState, leaf_planes)
 
 FORMAT_VERSION = 1
+# a loss=autoint state's dense part: the flat buffers saved beside the leaves
+DENSE_KEYS = ("theta", "m", "v")
 
 
 def state_from_numpy(arrays, device="cpu", layout: str = "planar",
@@ -167,8 +174,16 @@ def save(path_prefix: str, state, meta: dict | None = None,
         os.makedirs(os.path.dirname(local) or ".", exist_ok=True)
     host = state_to_numpy(state, remap_lut)
     full_meta = {"format_version": FORMAT_VERSION, **(meta or {})}
+    dense = getattr(state, "dense", None)
+    if dense is not None and shard is not None:
+        raise ValueError("a loss=autoint state saves as one file (it runs "
+                         "on store=local)")
     if shard is None:
         full_meta["shapes"] = {k: list(v.shape) for k, v in host.items()}
+        if dense is not None:
+            full_meta["dense_step"] = dense.step
+            host.update({f"dense_{k}": getattr(dense, k).detach().cpu()
+                         .numpy() for k in DENSE_KEYS})
         npz = path_prefix + ".npz"
         _write_npz(npz, host)
         _write_text(path_prefix + ".meta.json",
@@ -214,6 +229,19 @@ def load(path_prefix: str) -> tuple[FMState, dict]:
     with _open_npz(path_prefix + ".npz") as zf:
         state = state_from_numpy({k: zf[k] for k in LEAVES})
     return state, meta
+
+
+def read_dense(path_prefix: str) -> dict | None:
+    """The dense part of a one-process ``loss=autoint`` checkpoint
+    (``theta``, ``m``, ``v`` as NumPy arrays, ``step``), None without
+    one."""
+    meta = _read_meta(path_prefix)
+    if "dense_step" not in meta:
+        return None
+    with _open_npz(path_prefix + ".npz") as zf:
+        out = {k: zf[f"dense_{k}"] for k in DENSE_KEYS}
+    out["step"] = int(meta["dense_step"])
+    return out
 
 
 def _extract_range(pieces, index: tuple[slice, ...], what: str,
@@ -324,6 +352,8 @@ def load_for_store(path_prefix: str, store):
     meta = _read_meta(path_prefix)
     if not meta.get("sharded"):
         host_state, meta = load(path_prefix)
+        if getattr(store, "attn", None) is not None:
+            return store.place_state(host_state, read_dense(path_prefix)), meta
         return store.place_state(host_state), meta
     pieces = _sharded_pieces(path_prefix, meta)
     saved = meta.get("shapes", {})

@@ -229,11 +229,14 @@ def counter_group(name: str, counters: dict) -> dict:
 # the host clock in the batch iterator's next(); host_reads, blocking reads
 # of device tensors to the host (:func:`to_host`); ids_dropped, the ids a
 # full routing bucket or unique bucket dropped (StepMetrics.dropped_ids,
-# as the learner folds it)
+# as the learner folds it); attention_rows, the rows through AutoInt's
+# interacting layers, and dense_params, the dense weights its Adam updated
+# (models/autoint.py)
 STEP = counter_group("step", {
     "steps": 0, "slots": 0, "lanes": 0, "unique_rows": 0,
     "batches_replayed": 0, "batches_streamed": 0, "batch_wait_s": 0.0,
-    "host_reads": 0, "ids_dropped": 0})
+    "host_reads": 0, "ids_dropped": 0, "attention_rows": 0,
+    "dense_params": 0})
 
 
 def counters() -> dict:
